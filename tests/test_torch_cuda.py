@@ -1,0 +1,161 @@
+"""The port's Hopper kernels on the card (marker ``cuda``):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Imports no JAX, so it runs where only PyTorch is installed (``--noconftest``
+skips tests/conftest.py, which imports JAX). Each test skips without a CUDA
+device: the kernels have no CPU mode. Inputs come from numpy seeds; each
+kernel is held against its plain PyTorch version on the same CUDA tensors.
+"""
+import numpy as np
+import pytest
+import torch
+
+from vidcap_tpu_torch.config import get_preset
+from vidcap_tpu_torch.data.loader import CaptionDataset
+from vidcap_tpu_torch.inference import Captioner
+from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
+from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
+
+pytestmark = pytest.mark.cuda
+
+# h'/c': both sides round at the same bf16 points, but a sum next to a
+# rounding boundary of q or of the tanh input/output may land one bf16 ulp
+# apart in another summation order and carry through the softmax and the
+# gate product. The bound chip_smoke.py holds K1 to at full width.
+K1_TOL = 3e-3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products
+    return torch.device("cuda")
+
+
+def _beam_core_args(dev, B, K, T, E, H, A, seed=0):
+    g = np.random.default_rng(seed)
+    mask = np.ones((B, T), np.float32)
+    mask[1, T // 2:] = 0.0          # masked tail frames
+    mask[2, :] = 0.0                # a video with no real frame
+    f32, bf = torch.float32, torch.bfloat16
+    t = lambda a, dt=f32: torch.tensor(a, dtype=dt, device=dev)
+    return dict(
+        emb=t(g.normal(size=(B * K, E))),
+        h=t(np.tanh(g.normal(size=(B * K, H)))),
+        c=t(g.normal(size=(B * K, H))),
+        keys=t(g.normal(size=(B, T, A)), bf),
+        values=t(g.normal(size=(B, T, H)), bf),
+        frame_mask=t(mask),
+        wq=t(g.normal(size=(H, A)) / np.sqrt(H), bf),
+        u=t(g.normal(size=A) * 0.05),
+        wg=t(g.normal(size=(E + 2 * H, 4 * H)) / np.sqrt(E + 2 * H), bf),
+        bg=t(g.normal(size=4 * H) * 0.1))
+
+
+@pytest.mark.parametrize("B,K,T,E,H,A", [
+    (4, 3, 8, 32, 32, 32),
+    (6, 5, 26, 64, 96, 64),         # H != A, the bench's T
+    (3, 8, 40, 32, 64, 128),        # the widest beam, T past one warp
+])
+def test_beam_core_matches_plain(dev, B, K, T, E, H, A):
+    args = _beam_core_args(dev, B, K, T, E, H, A)
+    n = _build.launch_counts["beam_core"]
+    h_k, c_k = beam_core(**args, beam_width=K)
+    h_p, c_p = beam_core_plain(**args, beam_width=K)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["beam_core"] == n + 1
+    assert (h_k - h_p).abs().max().item() < K1_TOL
+    assert (c_k - c_p).abs().max().item() < K1_TOL
+    assert (h_k - h_p).abs().median().item() < 1e-4
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _topk_check(h, w, b, K, vocab):
+    """Values within one bf16 ulp of the row's largest |logit| (+1e-4 for
+    the f32 lse); where the K-th and (K+1)-th are further apart than that,
+    the index sets are equal. Returns the kernel's indices."""
+    n = _build.launch_counts["topk_project"]
+    v_k, i_k = topk_project(h, w, b, K, vocab)
+    v_p, i_p = topk_project_plain(h, w, b, K, vocab)
+    v_p1, _ = topk_project_plain(h, w, b, K + 1, vocab)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["topk_project"] == n + 1
+    tol = _bf16_ulp((h.bfloat16().float() @ w.float()).abs().amax(1)) + 1e-4
+    assert ((v_k - v_p).abs() <= tol[:, None]).all()
+    clear = v_p1[:, K - 1] - v_p1[:, K] > tol
+    assert clear.float().mean().item() > 0.5
+    same = (i_k.sort(1).values == i_p.sort(1).values).all(1)
+    assert same[clear].all()
+    assert (i_k < vocab).all()
+    return i_k
+
+
+@pytest.mark.parametrize("N,H,Vp,vocab,K", [
+    (16, 64, 256, 200, 5),      # vocab_size < Vp: padding columns masked
+    (24, 64, 264, 264, 8),      # a ragged last tile of 8 columns; K = 8
+    (70, 32, 512, 100, 6),      # two row tiles; K + 1 = 6 (the pool's K)
+])
+def test_topk_project_matches_plain(dev, N, H, Vp, vocab, K):
+    g = np.random.default_rng(N)
+    h = torch.tensor(g.normal(size=(N, H)), dtype=torch.float32, device=dev)
+    w = torch.tensor(g.normal(size=(H, Vp)) * 0.1, dtype=torch.bfloat16,
+                     device=dev)
+    b = torch.tensor(g.normal(size=Vp) * 0.1, dtype=torch.float32, device=dev)
+    _topk_check(h, w, b, K, vocab)
+
+
+def test_topk_project_ties_go_to_the_smallest_column(dev):
+    zeros = torch.zeros(8, 32, device=dev)
+    _, idx = topk_project(zeros, torch.zeros(32, 256, dtype=torch.bfloat16,
+                                             device=dev),
+                          torch.zeros(256, device=dev), 5, 256)
+    assert (idx.cpu() == torch.arange(5, dtype=torch.int32)).all()
+
+    g = np.random.default_rng(3)
+    w = g.normal(size=(64, 384)) * 0.1
+    b = g.normal(size=384) * 0.1
+    w[:, 1::2], b[1::2] = w[:, 0::2], b[0::2]       # duplicated columns
+    h = torch.tensor(g.normal(size=(16, 64)), dtype=torch.float32, device=dev)
+    idx = _topk_check(h, torch.tensor(w, dtype=torch.bfloat16, device=dev),
+                      torch.tensor(b, dtype=torch.float32, device=dev), 4, 384)
+    for row in idx.cpu().tolist():   # a pair is taken as (even, even + 1)
+        for k, col in enumerate(row):
+            if col % 2:
+                assert k > 0 and row[k - 1] == col - 1, row
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    args = _beam_core_args(dev, 3, 3, 8, 32, 32, 32)
+    with pytest.raises(ValueError, match="wq"):
+        beam_core(**{**args, "wq": args["wq"].float()}, beam_width=3)
+    with pytest.raises(ValueError, match="keys"):
+        beam_core(**{**args, "keys": args["keys"].cpu()}, beam_width=3)
+    with pytest.raises(ValueError, match="beam"):
+        beam_core(**args, beam_width=2)
+    h = torch.zeros(4, 32, device=dev)
+    w = torch.zeros(32, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="K=9"):
+        topk_project(h, w, torch.zeros(256, device=dev), 9, 256)
+    with pytest.raises(ValueError, match="w_out"):
+        topk_project(h, w.t(), torch.zeros(256, device=dev), 5, 256)
+
+
+def test_captioner_beam_goes_through_both_kernels(dev):
+    """The default device is the card; every beam step launches K1 and K2
+    once, and the captions are whole words of the vocab."""
+    cfg = get_preset("synthetic_tiny")
+    cap = Captioner.from_checkpoint(cfg, CaptionDataset.synthetic(
+        cfg.data, num_videos=12))
+    assert cap.device.type == "cuda"
+    _build.reset_counts()
+    caps = cap.caption_dataset(method="beam", beam_width=5, batch_size=8)
+    assert len(caps) == 12 and all(len(c) == 1 for c in caps.values())
+    assert cap.decode_steps >= 2
+    assert _build.launch_counts == {"beam_core": cap.decode_steps,
+                                    "topk_project": cap.decode_steps}
