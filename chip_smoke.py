@@ -4,15 +4,20 @@
     python3 chip_smoke.py      # from the root of a checkout; one NVIDIA GPU
 
 Builds the Hopper kernels from ``vidcap_tpu_torch/csrc`` with nvcc, holds
-each against its plain PyTorch version at the shapes of the main path,
-drives the main path (beam-5 captioning under preset ``msrvtt_attn_beam5``,
-vocab 16,000, 184 videos of synthetic features, seeded random weights)
-through ``Captioner`` and the ``caption`` CLI, and shows with the launch
-counts that the decode went through both kernels. Phases:
+each against its plain PyTorch version at the shapes of its path, and drives
+the port's two paths through ``Captioner`` and the CLI with seeded random
+weights, showing with the launch counts that each went through its kernels:
+beam-5 captioning under preset ``msrvtt_attn_beam5`` (vocab 16,000, 184
+videos of synthetic features) through K1 and K2, and greedy (``msvd_greedy``)
+and sampled (``scst_cider``) captioning (vocab 12,000, 32 videos) through K3.
+Phases:
 
-  1 card, versions, kernel build    4 end to end: Captioner, kernels vs plain
-  2 K1 beam_core vs plain           5 CLI: python -m vidcap_tpu_torch caption
-  3 K2 topk_project vs plain        6 the kernels line (one JSON object)
+  1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
+  2 K1 beam_core vs plain             seeded and raised-<eos> weights)
+  3 K2 topk_project vs plain        7 greedy/sample end to end: Captioner
+  4 beam end to end: Captioner,     8 CLI: caption --preset msvd_greedy and
+    kernels vs plain                  sample --preset scst_cider
+  5 CLI: caption (beam)             9 the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device
@@ -23,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -34,14 +40,16 @@ import torch
 from vidcap_tpu_torch.config import get_preset
 from vidcap_tpu_torch.convert import save_weights
 from vidcap_tpu_torch.data.loader import CaptionDataset
-from vidcap_tpu_torch.data.vocab import SPECIALS, Vocab
+from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD, SPECIALS, Vocab
 from vidcap_tpu_torch.inference import Captioner
-from vidcap_tpu_torch.models.decoder import DecoderState
+from vidcap_tpu_torch.models.decoder import NEG, DecoderState
 from vidcap_tpu_torch.models.decoding import (beam_decode, fused_beam_step,
                                               tile_recurrent)
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
+from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
+                                          rollout, rollout_plain, step_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor FLOP/s (NVIDIA data sheet)
@@ -59,6 +67,18 @@ K1_TOL = 3e-3
 # reaches). Set from the floor's spread over seeds and the reading of a
 # gate GEMM without promoted partial sums (PERF.md Findings).
 ROW_SLACK = 0.05
+# K3 at msvd_greedy width: batch 32 (train.batch_size and the default
+# caption_dataset batch), vocab 12,000 padded to 12,032, 30 steps
+BG, VOCAB_G, VG, L = 32, 12_000, 12_032, 30
+# K3, kernel vs plain along the kernel's own tokens, in logit units (times
+# 1/temperature): a h' difference within K1_TOL moves a bf16-rounded logit
+# by a bf16 ulp or two (0.008-0.016 at |logit| ~ 1). Where the plain top-2
+# margin is wider the picks must agree; the log-probs agree within it.
+K3_LOGIT_TOL = 0.03
+# the rollouts held: greedy, and sampled at seeds 1, 2 and temperatures 1, 0.7
+K3_RUNS = (("greedy", False, 0, 1.0), ("sample_s1_t1", True, 1, 1.0),
+           ("sample_s1_t0.7", True, 1, 0.7), ("sample_s2_t1", True, 2, 1.0),
+           ("sample_s2_t0.7", True, 2, 0.7))
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -225,8 +245,7 @@ def phase_k2():
 
 def phase_end_to_end():
     cfg = get_preset("msrvtt_attn_beam5")
-    words = SPECIALS + [f"w{i}" for i in range(VP - len(SPECIALS))]
-    vocab = Vocab({w: i for i, w in enumerate(words)}, words)
+    vocab = vocab_of(VP)
     g = np.random.default_rng(0)
     trials = [g.normal(size=(B, T, D)).astype(np.float32) for _ in range(3)]
     ids = [f"video{i}" for i in range(B)]
@@ -247,9 +266,8 @@ def phase_end_to_end():
     steps = cap.decode_steps
     if not 4 <= steps <= 4 * cfg.decode.max_len:
         fail(f"main path ran {steps} beam steps for 4 decodes")
-    for name, n in launches.items():
-        if n != steps:
-            fail(f"main path: {name} launched {n} times for {steps} steps")
+    if launches != {"beam_core": steps, "topk_project": steps, "rollout": 0}:
+        fail(f"beam path: launches {launches} for {steps} steps")
     if toks.shape != (B, cfg.decode.max_len) or not (
             (toks >= 0) & (toks < VP)).all():
         fail(f"bad token array {toks.shape}")
@@ -366,34 +384,252 @@ def compare_paths(cap, trials):
     return out
 
 
-def phase_cli():
-    cfg = get_preset("msrvtt_attn_beam5")
-    with tempfile.TemporaryDirectory() as tmp:
-        weights = os.path.join(tmp, "W.npz")
-        save_weights(init_params(create_model(cfg, VP), cfg.train.seed),
-                     weights)
-        caps = os.path.join(tmp, "caps.json")
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-            filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
-        r = subprocess.run(
-            [sys.executable, "-m", "vidcap_tpu_torch", "caption", "--preset",
-             "msrvtt_attn_beam5", "--weights", weights, "--out", caps],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"CLI exited {r.returncode}: {r.stderr[-2000:]}")
-        with open(caps) as fh:
-            results = json.load(fh)
+def vocab_of(n: int) -> Vocab:
+    words = SPECIALS + [f"w{i}" for i in range(n - len(SPECIALS))]
+    return Vocab({w: i for i, w in enumerate(words)}, words)
+
+
+def run_cli(cmd, preset: str, vocab: int, tmp: str, never=()):
+    """``python -m vidcap_tpu_torch <cmd> --preset <preset>`` with seeded
+    random weights on the synthetic fallback corpus, the output bias of the
+    tokens ``never`` at -30 so that they are never picked: checks one
+    non-empty caption per video and returns (captions, method, decodes,
+    steps, launches) from the stderr line."""
+    cfg = get_preset(preset)
+    weights = os.path.join(tmp, f"{preset}.npz")
+    model = init_params(create_model(cfg, vocab), cfg.train.seed)
+    with torch.no_grad():
+        model.decoder.out_proj.bias[list(never)] = -30.0
+    save_weights(model, weights)
+    caps = os.path.join(tmp, f"{preset}.json")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
+    r = subprocess.run(
+        [sys.executable, "-m", "vidcap_tpu_torch", *cmd, "--preset", preset,
+         "--weights", weights, "--out", caps],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"CLI {cmd} exited {r.returncode}: {r.stderr[-2000:]}")
+    with open(caps) as fh:
+        results = json.load(fh)
     if not results or not all(isinstance(c, list) and len(c) == 1 and c[0]
                               for c in results.values()):
-        fail("CLI: every video needs one non-empty caption")
-    line = [ln for ln in r.stderr.splitlines() if "kernel launches" in ln]
+        fail(f"CLI {cmd}: every video needs one non-empty caption")
+    line = re.findall(r"\] (\w+): (\d+) decodes, (\d+) steps on .*kernel "
+                      r"launches (\{.*\})", r.stderr)
     if not line:
-        fail(f"CLI printed no launch counts: {r.stderr[-2000:]}")
-    steps = int(line[-1].split("] ")[1].split(" beam steps")[0])
-    launches = json.loads(line[-1].split("kernel launches ")[1])
-    if steps < 1 or any(n != steps for n in launches.values()):
-        fail(f"CLI: {steps} steps but launches {launches}")
+        fail(f"CLI {cmd} printed no launch counts: {r.stderr[-2000:]}")
+    method, decodes, steps, launches = line[-1]
+    return results, method, int(decodes), int(steps), json.loads(launches)
+
+
+def phase_cli():
+    with tempfile.TemporaryDirectory() as tmp:
+        results, method, _, steps, launches = run_cli(
+            ["caption"], "msrvtt_attn_beam5", VP, tmp)
+    if method != "beam" or steps < 1 or launches != {
+            "beam_core": steps, "topk_project": steps, "rollout": 0}:
+        fail(f"CLI: {method} {steps} steps but launches {launches}")
     return dict(videos=len(results), steps=steps, launches=launches)
+
+
+def eos_raised(w, args, sample: bool):
+    """A copy of ``w`` whose b_out[<eos>] is raised, from the plain step 0 at
+    temperature 1: greedy, by the 40th percentile over rows of the gap from
+    the top logit to <eos>'s, so that about 40% of the rows end at once;
+    sampled, by the median raise that gives <eos> a probability of 0.05, so
+    that rows end at spread-out steps. Either way some rows end before
+    max_len and some do not (the phase checks and reports the share)."""
+    keys, values, fmask, h0, c0 = args
+    bos = torch.full((h0.shape[0],), BOS, dtype=torch.long, device=h0.device)
+    _, _, clean = step_plain(w, h0, c0, bos, keys, values, fmask, 1.0)
+    eos = clean[:, EOS].clone()
+    clean[:, EOS] = NEG
+    if sample:
+        by = (np.log(0.05 / 0.95) + torch.logsumexp(clean, -1) - eos).median()
+    else:
+        by = torch.quantile(clean.max(-1).values - eos, 0.4)
+    b = w.b_out.clone()
+    b[EOS] += by.item()
+    return dataclasses.replace(w, b_out=b), by.item()
+
+
+def check_rollout(tk, lk, mk, pick, margin, logp_ref, tol):
+    """The kernel's rollout against the plain replay along its tokens:
+    returns (a list of problems, max |logp err| on live steps, the share of
+    live steps whose plain margin is clear)."""
+    problems = []
+    live = mk > 0
+    clear = live & (margin > tol)
+    if not torch.equal(tk[clear].long(), pick[clear]):
+        problems.append(f"{(tk[clear].long() != pick[clear]).sum().item()} "
+                        "clear-margin picks differ from the plain pick")
+    err = (lk - logp_ref)[live].abs().max().item()
+    if not err <= tol:
+        problems.append(f"logp |err| {err} > {tol}")
+    ended = torch.cumsum((tk == EOS).int(), 1) - (tk == EOS).int() > 0
+    if not torch.equal(live, ~ended):
+        problems.append("mask is not 1 up to and including the first <eos>")
+    if not ((tk[ended] == PAD).all() and (lk[ended] == 0).all()):
+        problems.append("PAD and logp 0 do not follow <eos>")
+    if not ((lk[live] <= 1e-5).all() and torch.isfinite(lk).all()
+            and ((tk >= 0) & (tk < VOCAB_G)).all()):
+        problems.append("non-finite or positive logp, or a padding column")
+    return problems, err, clear.float().sum().item() / live.float().sum().item()
+
+
+def phase_k3():
+    """K3 at msvd_greedy width, greedy and sampled, on the seeded weights
+    and on raised-<eos> copies: (a) each rollout replayed through the plain
+    step along the kernel's tokens; (b) the share of rows identical to the
+    plain rollout on the card, pooled per run over both weight sets, against
+    the plain-on-CPU-vs-card floor less ROW_SLACK, as compare_paths does;
+    (c) finish semantics, and some rows ending before max_len on the
+    raised copies; (d) times and the bound."""
+    cfg = get_preset("msvd_greedy")
+    model = init_params(create_model(cfg, VOCAB_G), cfg.train.seed)
+    model = model.cuda().eval()
+    w = RolloutWeights.from_model(model)
+    g = np.random.default_rng(3)
+    mask = np.ones((BG, T), np.float32)
+    for b, n in enumerate(g.integers(1, T + 1, BG)):
+        mask[b, n:] = 0.0        # masked tail frames
+    mask[3] = 0.0                # one video with no real frame
+    with torch.inference_mode():
+        st = model.init_state(
+            torch.tensor(g.normal(size=(BG, T, D)), dtype=torch.float32,
+                         device="cuda"), torch.tensor(mask, device="cuda"))
+    args = (st.keys, st.values, st.frame_mask, st.h[0].contiguous(),
+            st.c[0].contiguous())
+    raised = {False: eos_raised(w, args, False),
+              True: eos_raised(w, args, True)}
+    cpu = lambda x: dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).cpu() for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
+    args_cpu = tuple(a.cpu() for a in args)
+    problems, errs, clear, same, floors, ended = [], [], [], {}, {}, {}
+    for name, sample, seed, temp in K3_RUNS:
+        tol = K3_LOGIT_TOL / temp
+        rows_same, rows_floor = [], []
+        for wname, wt in (("seeded", w), ("raised", raised[sample][0])):
+            run = (L, sample, seed, temp)
+            tk, lk, mk = rollout(wt, *args, *run)
+            tp, _, _ = rollout_plain(wt, *args, *run)
+            tc, _, _ = rollout_plain(cpu(wt), *args_cpu, *run)
+            torch.cuda.synchronize()
+            pick, margin, logp_ref = replay_plain(wt, *args, tk, sample, seed,
+                                                  temp)
+            p, err, c = check_rollout(tk, lk, mk, pick, margin, logp_ref, tol)
+            problems += [f"{name} {wname}: {x}" for x in p]
+            errs.append(err)
+            clear.append(c)
+            rows_same.append((tk == tp).all(1))
+            rows_floor.append((tc.cuda() == tp).all(1))
+            if wname == "raised":
+                ended[name] = (tk == EOS).any(1).float().mean().item()
+        same[name] = torch.cat(rows_same).float().mean().item()
+        floors[name] = torch.cat(rows_floor).float().mean().item()
+    pooled = float(np.mean(list(same.values())))
+    if pooled < min(floors.values()) - ROW_SLACK:
+        problems.append(f"kernel vs plain rollouts: {pooled} of the rows "
+                        f"identical, below the lowest plain CPU-vs-card floor "
+                        f"{min(floors.values())} less {ROW_SLACK}")
+    for mode in ("greedy", "sample"):
+        share = [v for k, v in ended.items() if k.startswith(mode)]
+        if not 0 < float(np.mean(share)) < 1:
+            problems.append(f"raised-<eos> {mode}: share of rows ending "
+                            f"{share}: need some to end and some not")
+    out = dict(max_abs_logp_err=max(errs), clear_step_share_min=min(clear),
+               identical_rows=pooled, identical_rows_by_run=same,
+               identical_rows_plain_cpu_vs_card_by_run=floors,
+               raised_eos_by={"greedy": raised[False][1],
+                              "sample": raised[True][1]},
+               raised_eos_rows_ended=ended)
+    if problems:
+        fail("K3 rollout: " + "; ".join(problems) + " | " + json.dumps(out))
+
+    # (d) the bound: every product once per row and step; the weights, the
+    # attention keys/values, h0/c0 and the gathered embedding rows read once
+    # per launch (one launch is one rollout), the outputs written once
+    E_, H_, A_ = w.emb.shape[1], args[3].shape[1], args[0].shape[2]
+    flops = 2 * BG * L * (H_ * A_ + (E_ + 2 * H_) * 4 * H_ + H_ * VG
+                          + T * A_ + T * H_)
+    nbytes = (BG * L * E_ * 2 + H_ * A_ * 2 + A_ * 4 + (E_ + 2 * H_) * 4 * H_
+              * 2 + 4 * H_ * 4 + H_ * VG * 2 + VG * 4 + BG * T * (A_ + H_) * 2
+              + BG * T * 4 + 2 * BG * H_ * 4 + BG * L * 12)
+    b_ms, b_by = bound(nbytes, flops)
+    h16 = args[3].bfloat16()
+    times = dict(
+        ms=time_ms(lambda: rollout(w, *args, L), iters=5),
+        sample_ms=time_ms(lambda: rollout(w, *args, L, True, 1, 1.0), iters=5),
+        plain_ms=time_ms(lambda: rollout_plain(w, *args, L), iters=2, reps=3),
+        matmul_h_wout_ms=time_ms(lambda: torch.matmul(h16, w.w_out)))
+    k3 = dict(name="rollout", route="cuda",
+              source="vidcap_tpu_torch/csrc/rollout.cu",
+              replaces="vidcap_tpu/ops/pallas_decoder.py:338",
+              max_abs_err=out["max_abs_logp_err"], ms=times["ms"],
+              plain_ms=times["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+              library_ms=None)
+    return k3, dict(out, **times, bound_flops=flops, bound_bytes=nbytes)
+
+
+def phase_rollout_end_to_end():
+    """Captioner greedy (msvd_greedy) and sampled (scst_cider, seed 1) at
+    B=32 on three distinct inputs, each path with the counts at 0 just
+    before it and read just after: one rollout launch per decode, no K1/K2
+    launch; the same seed twice gives the same tokens, two seeds others."""
+    g = np.random.default_rng(4)
+    trials = [g.normal(size=(BG, T, D)).astype(np.float32) for _ in range(3)]
+    ids = [f"video{i}" for i in range(BG)]
+    out = {}
+    for preset, method in (("msvd_greedy", "greedy"), ("scst_cider", "sample")):
+        cfg = get_preset(preset)
+        cap = Captioner.from_checkpoint(cfg, CaptionDataset(
+            trials[0], ids, {v: [] for v in ids}, cfg.data,
+            vocab=vocab_of(VOCAB_G)), seed=1)
+        _build.reset_counts()
+        cap.decode_calls = 0
+        dts = []
+        for f in trials:
+            t0 = time.perf_counter()
+            toks = cap.decode_batch(f, method=method)
+            dts.append(time.perf_counter() - t0)
+        launches, decodes = dict(_build.launch_counts), cap.decode_calls
+        if launches != {"beam_core": 0, "topk_project": 0,
+                        "rollout": decodes} or decodes != 3:
+            fail(f"{method} path: launches {launches} for {decodes} decodes")
+        if toks.shape != (BG, L) or not ((toks >= 0) & (toks < VOCAB_G)).all():
+            fail(f"{method}: bad token array {toks.shape}")
+        again = [cap.decode_batch(trials[0], method=method, seed=s)
+                 for s in (7, 7, 8)]
+        if not np.array_equal(again[0], again[1]):
+            fail(f"{method}: two decodes of the same input and seed differ")
+        if method == "sample" and np.array_equal(again[0], again[2]):
+            fail("sample: two seeds gave the same tokens")
+        out[method] = dict(captions_per_s=BG / float(np.median(dts)),
+                           trial_captions_per_s=[BG / d for d in dts],
+                           decodes=decodes, launches=launches)
+    return out
+
+
+def phase_cli_rollout():
+    """Over the fallback corpus' 43 words a random-weight rollout may emit
+    <eos> at once, an empty caption: the weights never pick PAD, BOS or
+    <eos>, so every caption has max_len words."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cmd, preset in ((["caption"], "msvd_greedy"),
+                            (["sample", "--seed", "1"], "scst_cider")):
+            results, method, decodes, steps, launches = run_cli(
+                cmd, preset, VOCAB_G, tmp, never=(PAD, BOS, EOS))
+            if method != ("sample" if cmd[0] == "sample" else "greedy") or \
+                    decodes < 1 or steps != decodes * L or launches != {
+                        "beam_core": 0, "topk_project": 0, "rollout": decodes}:
+                fail(f"CLI {cmd}: {method}, {decodes} decodes, {steps} steps,"
+                     f" launches {launches}")
+            out[" ".join(cmd)] = dict(preset=preset, videos=len(results),
+                                      decodes=decodes, launches=launches)
+    return out
 
 
 def main() -> int:
@@ -432,10 +668,23 @@ def main() -> int:
     print("phase 5 CLI caption --preset msrvtt_attn_beam5: " + json.dumps(cli),
           flush=True)
 
-    # max_abs_err is the max |err| against the plain version, ms the
-    # kernel's time; bound_ms alone is computed, not measured
+    k3, k3_out = phase_k3()
+    print(f"phase 6 K3 rollout B={BG} T={T} E=H=A={H} Vp={VG} L={L}: "
+          + json.dumps({**k3_out, "tolerance": f"{K3_LOGIT_TOL} / "
+                        "temperature (logit units)"}), flush=True)
+    roll = phase_rollout_end_to_end()
+    print(f"phase 7 end to end greedy msvd_greedy / sample scst_cider B={BG} "
+          f"on {card}: " + json.dumps(roll), flush=True)
+    print("phase 8 CLI caption --preset msvd_greedy, sample --preset "
+          "scst_cider: " + json.dumps(phase_cli_rollout()), flush=True)
+
+    # max_abs_err is the max |err| against the plain version (K3: of the
+    # log-probs along the kernel's tokens), ms the kernel's time; bound_ms
+    # alone is computed, not measured. K3's launches are those of phase 7's
+    # greedy and sampled paths.
+    k3["launches"] = sum(r["launches"]["rollout"] for r in roll.values())
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]])
-                                  for k in (k1, k2)]}), flush=True)
+                                  for k in (k1, k2)] + [k3]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Where one beam-5 decode of the PyTorch port spends its device time.
+"""Where one decode of the PyTorch port spends its device time.
 
-    python3 scripts/torch_profile_decode.py
+    python3 scripts/torch_profile_decode.py [--method beam|greedy|sample]
 
 Runs on one NVIDIA GPU (no CPU fallback). Builds the Hopper kernels, makes
-``Captioner`` for preset ``msrvtt_attn_beam5`` with vocab 16,000 and seeded
-random weights, and decodes 184 videos of synthetic features (the bench's
-batch, ``bench.py:38``). After a warm-up it times five unprofiled decodes of
-one input on the host clock, then profiles one more decode of that same
-input with ``torch.profiler``. It prints the device time by kernel, the
-device-busy time of the profiled decode, the median wall time of the
-unprofiled ones (the profiler slows the host, so its own wall time is
-printed apart), their ratio as the device-busy share, and the card
-(``nvidia-smi`` name and power limit).
+``Captioner`` with seeded random weights for the method's preset and
+decodes a batch of synthetic features: beam-5 under ``msrvtt_attn_beam5``
+with vocab 16,000 and 184 videos (the bench's batch, ``bench.py:38``);
+greedy under ``msvd_greedy`` and sampled under ``scst_cider`` (seed 1) with
+vocab 12,000 and 32 videos (``train.batch_size``). After a warm-up it times
+five unprofiled decodes of one input on the host clock, then profiles one
+more decode of that same input with ``torch.profiler``. It prints the
+device time by kernel, the device-busy time of the profiled decode, the
+median wall time of the unprofiled ones (the profiler slows the host, so
+its own wall time is printed apart), their ratio as the device-busy share,
+and the card (``nvidia-smi`` name and power limit).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -34,16 +37,22 @@ from vidcap_tpu_torch.data.vocab import SPECIALS, Vocab  # noqa: E402
 from vidcap_tpu_torch.inference import Captioner  # noqa: E402
 from vidcap_tpu_torch.ops import _build  # noqa: E402
 
-B = 184
+# method → (preset, batch, vocab)
+RUNS = {"beam": ("msrvtt_attn_beam5", 184, 16_000),
+        "greedy": ("msvd_greedy", 32, 12_000),
+        "sample": ("scst_cider", 32, 12_000)}
 
 
 def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--method", choices=sorted(RUNS), default="beam")
+    method = p.parse_args().method
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     _build.build_all()
-    cfg = get_preset("msrvtt_attn_beam5")
-    V = 16_000
+    preset, B, V = RUNS[method]
+    cfg = get_preset(preset)
     words = SPECIALS + [f"w{i}" for i in range(V - len(SPECIALS))]
     T, D = cfg.data.num_frames, cfg.data.feature_dim
     g = np.random.default_rng(0)
@@ -51,19 +60,20 @@ def main() -> int:
     ids = [f"video{i}" for i in range(B)]
     cap = Captioner.from_checkpoint(cfg, CaptionDataset(
         feats[0], ids, {v: [] for v in ids}, cfg.data,
-        vocab=Vocab({w: i for i, w in enumerate(words)}, words)))
-    cap.decode_batch(feats[0])                       # warm-up
+        vocab=Vocab({w: i for i, w in enumerate(words)}, words)), seed=1)
+    decode = lambda f: cap.decode_batch(f, method=method)
+    decode(feats[0])                                 # warm-up
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        cap.decode_batch(feats[1])
+        decode(feats[1])
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = float(np.median(walls))
     steps0 = cap.decode_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cap.decode_batch(feats[1])
+        decode(feats[1])
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
     by_kernel = {}
@@ -75,7 +85,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "card": card, "batch": B, "beam": 5,
+        "card": card, "method": method, "preset": preset, "batch": B,
         "steps": cap.decode_steps - steps0, "device_busy_ms": busy_ms,
         "wall_ms": wall_ms, "wall_ms_each": walls,
         "profiled_wall_ms": profiled_wall_ms,

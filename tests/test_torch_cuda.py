@@ -7,6 +7,8 @@ skips tests/conftest.py, which imports JAX). Each test skips without a CUDA
 device: the kernels have no CPU mode. Inputs come from numpy seeds; each
 kernel is held against its plain PyTorch version on the same CUDA tensors.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,10 @@ from vidcap_tpu_torch.config import get_preset
 from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.inference import Captioner
 from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.data.vocab import EOS, PAD
 from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
+from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
+                                          rollout, rollout_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 
 pytestmark = pytest.mark.cuda
@@ -25,6 +30,11 @@ pytestmark = pytest.mark.cuda
 # apart in another summation order and carry through the softmax and the
 # gate product. The bound chip_smoke.py holds K1 to at full width.
 K1_TOL = 3e-3
+# K3, kernel vs plain along the kernel's tokens: the h' differences above
+# move a logit by at most a bf16 ulp or two (0.008-0.016 at |logit| ~ 1);
+# where the plain top-2 margin is wider than this the picks must agree, and
+# the log-probs agree within it (both in logit units, times 1/temperature).
+K3_LOGIT_TOL = 0.03
 
 
 @pytest.fixture
@@ -146,6 +156,86 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         topk_project(h, w.t(), torch.zeros(256, device=dev), 5, 256)
 
 
+def _rollout_args(dev, B=24, T=10, E=64, H=64, A=32, Vp=384, vocab=300,
+                  seed=0):
+    g = np.random.default_rng(seed)
+    mask = np.ones((B, T), np.float32)
+    mask[1, T // 2:] = 0.0          # masked tail frames
+    mask[2, :] = 0.0                # a video with no real frame
+    f32, bf = torch.float32, torch.bfloat16
+    t = lambda a, dt=f32: torch.tensor(a, dtype=dt, device=dev)
+    b_out = g.normal(size=Vp) * 0.1
+    b_out[EOS] = 1.0                # some rows end before max_len
+    w = RolloutWeights(
+        emb=t(g.normal(size=(Vp, E)) / np.sqrt(E), bf),
+        wq=t(g.normal(size=(H, A)) / np.sqrt(H), bf),
+        u=t(g.normal(size=A) * 0.05),
+        wg=t(g.normal(size=(E + 2 * H, 4 * H)) / np.sqrt(E + 2 * H), bf),
+        bg=t(g.normal(size=4 * H) * 0.1),
+        w_out=t(g.normal(size=(H, Vp)) * 0.3, bf), b_out=t(b_out),
+        vocab_size=vocab)
+    return w, (t(g.normal(size=(B, T, A)), bf), t(g.normal(size=(B, T, H)), bf),
+               t(mask), t(np.tanh(g.normal(size=(B, H)))),
+               t(g.normal(size=(B, H))))
+
+
+@pytest.mark.parametrize("sample,seed,temperature", [
+    (False, 0, 1.0), (True, 1, 1.0), (True, 2, 0.7)])
+def test_rollout_matches_plain(dev, sample, seed, temperature):
+    """The kernel's rollout, replayed through the plain version: its tokens
+    are the plain picks wherever the plain top-2 margin is clear, its logp
+    within the tolerance; PAD, logp 0 and mask 0 after the first <eos>."""
+    w, args = _rollout_args(dev)
+    L = 12
+    n = _build.launch_counts["rollout"]
+    tk, lk, mk = rollout(w, *args, L, sample, seed, temperature)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["rollout"] == n + 1
+    pick, margin, logp = replay_plain(w, *args, tk, sample, seed, temperature)
+    tol = K3_LOGIT_TOL / temperature
+    live = mk > 0
+    clear = live & (margin > tol)
+    assert clear.float().sum() > 0.5 * live.float().sum()
+    assert torch.equal(tk[clear].long(), pick[clear])
+    assert (lk - logp)[live].abs().max().item() <= tol
+    ended = torch.cumsum((tk == EOS).int(), 1) - (tk == EOS).int() > 0
+    assert torch.equal(live, ~ended)
+    assert (tk[ended] == PAD).all() and (lk[ended] == 0).all()
+    assert 0 < (tk == EOS).any(1).sum().item() < tk.shape[0]
+    tp, _, mp = rollout_plain(w, *args, L, sample, seed, temperature)
+    assert (tk == tp).all(1).float().mean().item() >= 0.5
+
+
+def test_rollout_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    w, args = _rollout_args(dev)
+    with pytest.raises(ValueError, match="keys"):
+        rollout(w, args[0].float(), *args[1:], 4)
+    with pytest.raises(ValueError, match="w_out"):
+        rollout(dataclasses.replace(w, w_out=w.w_out.float()), *args, 4)
+    with pytest.raises(ValueError, match="temperature"):
+        rollout(w, *args, 4, True, 0, 0.0)
+
+
+def test_captioner_greedy_and_sample_go_through_the_rollout_kernel(dev):
+    """One rollout launch per greedy or sampled decode, K1 and K2 none; the
+    same seed gives the same tokens, another seed others."""
+    cfg = get_preset("synthetic_tiny")
+    cap = Captioner.from_checkpoint(cfg, CaptionDataset.synthetic(
+        cfg.data, num_videos=12), seed=1)
+    _build.reset_counts()
+    greedy = cap.caption_dataset(method="greedy", batch_size=8)
+    sample = cap.caption_dataset(method="sample", temperature=0.7,
+                                 batch_size=8)
+    assert len(greedy) == len(sample) == 12
+    assert cap.decode_calls == 4 and cap.decode_steps == 4 * cap.max_len
+    assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
+                                    "rollout": 4}
+    feats = cap.dataset.features[:8]
+    a, b, c = (cap.decode_batch(feats, method="sample", seed=s)
+               for s in (7, 7, 8))
+    assert np.array_equal(a, b) and not np.array_equal(a, c)
+
+
 def test_captioner_beam_goes_through_both_kernels(dev):
     """The default device is the card; every beam step launches K1 and K2
     once, and the captions are whole words of the vocab."""
@@ -158,4 +248,5 @@ def test_captioner_beam_goes_through_both_kernels(dev):
     assert len(caps) == 12 and all(len(c) == 1 for c in caps.values())
     assert cap.decode_steps >= 2
     assert _build.launch_counts == {"beam_core": cap.decode_steps,
-                                    "topk_project": cap.decode_steps}
+                                    "topk_project": cap.decode_steps,
+                                    "rollout": 0}

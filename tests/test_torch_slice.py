@@ -49,24 +49,30 @@ with open(out + "/caps.json", "w") as f:
 """
 
 
+def run_jax_scripts(script, jobs):
+    """Run ``script`` as ``python -c script <overrides json> <out dir>`` once
+    per (overrides, out dir) job, all in parallel, with the JAX package on
+    the CPU and XLA's excess precision off; fail on a nonzero exit."""
+    env = {**os.environ, "PYTHONPATH": PYTHONPATH, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_allow_excess_precision=false"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, json.dumps(over), str(out)],
+        env=env, stderr=subprocess.PIPE, text=True) for over, out in jobs]
+    for proc in procs:
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+
+
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
     """JAX beam-5 captions of the CLI's synthetic split (64 videos) with the
     seeded init, and those weights as an .npz, per compute dtype."""
-    env = {**os.environ, "PYTHONPATH": PYTHONPATH, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_allow_excess_precision=false"}
-    runs, procs = {}, []
-    for name, over in (("float32", F32), ("bfloat16", [])):
-        out = tmp_path_factory.mktemp(name)
-        procs.append((name, over, out, subprocess.Popen(
-            [sys.executable, "-c", _JAX_CAPTIONS, json.dumps(over), str(out)],
-            env=env, stderr=subprocess.PIPE, text=True)))
-    for name, over, out, proc in procs:
-        _, err = proc.communicate(timeout=300)
-        assert proc.returncode == 0, err
-        runs[name] = (json.loads((out / "caps.json").read_text()),
-                      str(out / "w.npz"), over)
-    return runs
+    jobs = {name: (over, tmp_path_factory.mktemp(name))
+            for name, over in (("float32", F32), ("bfloat16", []))}
+    run_jax_scripts(_JAX_CAPTIONS, jobs.values())
+    return {name: (json.loads((out / "caps.json").read_text()),
+                   str(out / "w.npz"), over)
+            for name, (over, out) in jobs.items()}
 
 
 def _port_captions(weights, over):

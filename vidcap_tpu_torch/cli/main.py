@@ -1,13 +1,17 @@
 """CLI of the PyTorch package:
 
-  python -m vidcap_tpu_torch caption --preset msrvtt_attn_beam5 --weights W.npz
-      [--method beam] [--beam 5] [--nbest N] [--split test] [--out caps.json]
+  python -m vidcap_tpu_torch caption --preset msvd_greedy --weights W.npz
+      [--method greedy|beam|sample] [--beam 5] [--nbest N] [--temperature T]
+      [--seed S] [--split test] [--out caps.json]
       [--set section.field=value ...] [--device cpu]
+  python -m vidcap_tpu_torch sample --preset scst_cider --weights W.npz
+      [--temperature T] [--seed S] [--split test] [--out caps.json] ...
 
-``caption`` beam-decodes the split (the synthetic fixture when the dataset
-is not on disk) and writes {video_id: [caption, ...]} json. It runs on the
-card unless ``--device cpu`` is given. The other commands of the JAX CLI are
-not ported yet and say which ROADMAP item they wait for.
+``caption`` decodes the split (the synthetic fixture when the dataset is not
+on disk) with the preset's method unless ``--method`` is given, and writes
+{video_id: [caption, ...]} json; ``sample`` is ``caption --method sample``.
+Both run on the card unless ``--device cpu`` is given. The other commands of
+the JAX CLI are not ported yet and say which ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -21,7 +25,6 @@ from vidcap_tpu_torch.ops._build import launch_counts
 # command or flag → the ROADMAP item that ports it
 _NOT_PORTED = {
     "train": "Queue 1 items 6 and 8 (XE and SCST training)",
-    "sample": "Queue 1 item 5 (greedy and sample decode)",
     "eval": "Queue 1 item 4 remainder (scoring with metrics/evaluate.py)",
     "serve": "Queue 1 item 10 (serving and export)",
     "export": "Queue 1 item 10 (serving and export)",
@@ -56,6 +59,27 @@ def _load_dataset(cfg: Config, split: str = "test"):
     return CaptionDataset.synthetic(cfg.data)
 
 
+def _decode_split(args, cfg: Config, method: str, beam: int = 5,
+                  nbest: int = 1) -> None:
+    from vidcap_tpu_torch.inference import Captioner
+    dataset = _load_dataset(cfg, split=args.split)
+    cap = Captioner.from_checkpoint(cfg, dataset, weights=args.weights,
+                                    device=args.device, seed=args.seed)
+    results = cap.caption_dataset(method=method, beam_width=beam,
+                                  temperature=args.temperature, nbest=nbest)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+        print(f"[vidcap] wrote {len(results)} captions → {args.out}",
+              file=sys.stderr)
+    else:
+        for vid, caps in list(results.items())[:20]:
+            print(f"{vid}\t{caps[0]}")
+    print(f"[vidcap] {method}: {cap.decode_calls} decodes, "
+          f"{cap.decode_steps} steps on {cap.device}; kernel launches "
+          f"{json.dumps(launch_counts)}", file=sys.stderr)
+
+
 def cmd_caption(args) -> int:
     if args.inputs:
         _not_ported("--inputs")
@@ -65,23 +89,14 @@ def cmd_caption(args) -> int:
     method = args.method or cfg.decode.method
     if args.nbest > 1 and method != "beam":
         raise SystemExit(f"--nbest {args.nbest} requires --method beam")
-    from vidcap_tpu_torch.inference import Captioner
-    dataset = _load_dataset(cfg, split=args.split)
-    cap = Captioner.from_checkpoint(cfg, dataset, weights=args.weights,
-                                    device=args.device)
-    results = cap.caption_dataset(method=method,
-                                  beam_width=args.beam or cfg.decode.beam_width,
-                                  nbest=args.nbest)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
-        print(f"[vidcap] wrote {len(results)} captions → {args.out}",
-              file=sys.stderr)
-    else:
-        for vid, caps in list(results.items())[:20]:
-            print(f"{vid}\t{caps[0]}")
-    print(f"[vidcap] {cap.decode_steps} beam steps on {cap.device}; kernel "
-          f"launches {json.dumps(launch_counts)}", file=sys.stderr)
+    _decode_split(args, cfg, method, beam=args.beam or cfg.decode.beam_width,
+                  nbest=args.nbest)
+    return 0
+
+
+def cmd_sample(args) -> int:
+    _decode_split(args, apply_overrides(get_preset(args.preset), args.set),
+                  "sample")
     return 0
 
 
@@ -89,30 +104,40 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vidcap_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    c = sub.add_parser("caption", help="beam-decode a split, write json")
-    c.add_argument("--preset", default="msvd_greedy")
-    c.add_argument("--set", action="append", default=None,
-                   metavar="SECTION.FIELD=VALUE",
-                   help="override any config field, repeatable")
-    c.add_argument("--weights", required=True,
-                   help=".npz of '/'-joined Flax parameter paths "
-                        "(vidcap_tpu_torch.convert)")
+    def common(sp):
+        sp.add_argument("--preset", default="msvd_greedy")
+        sp.add_argument("--set", action="append", default=None,
+                        metavar="SECTION.FIELD=VALUE",
+                        help="override any config field, repeatable")
+        sp.add_argument("--weights", required=True,
+                        help=".npz of '/'-joined Flax parameter paths "
+                             "(vidcap_tpu_torch.convert)")
+        sp.add_argument("--temperature", type=float, default=1.0)
+        sp.add_argument("--seed", type=int, default=None,
+                        help="reproducible sampling seed")
+        sp.add_argument("--split", default="test",
+                        help="dataset split to decode (default test; falls "
+                             "back to val)")
+        sp.add_argument("--out", default=None)
+        sp.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+
+    c = sub.add_parser("caption", help="decode a split, write json")
+    common(c)
     c.add_argument("--method", choices=["greedy", "beam", "sample"],
                    default=None)
     c.add_argument("--beam", type=int, default=None)
     c.add_argument("--nbest", type=int, default=1,
                    help="write the N best hypotheses per video (best first)")
-    c.add_argument("--split", default="test",
-                   help="dataset split to decode (default test; falls back "
-                        "to val)")
-    c.add_argument("--out", default=None)
-    c.add_argument("--device", default=None,
-                   help="cuda (default) or cpu")
     c.add_argument("--inputs", nargs="+", default=None, help=argparse.SUPPRESS)
     c.add_argument("--from-export", default=None, help=argparse.SUPPRESS)
     c.set_defaults(fn=cmd_caption)
 
-    for name in ("train", "sample", "eval", "serve", "export"):
+    s = sub.add_parser("sample", help="multinomial-sampling decode")
+    common(s)
+    s.set_defaults(fn=cmd_sample)
+
+    for name in ("train", "eval", "serve", "export"):
         s = sub.add_parser(name, help=f"not ported yet ({_NOT_PORTED[name]})",
                            add_help=False)
         s.set_defaults(fn=lambda args, name=name: _not_ported(name))
@@ -121,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args, rest = build_parser().parse_known_args(argv)
-    if rest and args.cmd == "caption":
+    if rest and args.cmd in ("caption", "sample"):
         build_parser().parse_args(argv)   # reports the unknown arguments
     from vidcap_tpu_torch.inference import NoDeviceError
     try:

@@ -12,13 +12,11 @@
 // Design, two launches on the caller's stream (blocks run in no order, so
 // the TPU kernel's running carry becomes a second pass):
 //  (a) tile_kernel: grid (64-row tiles) x (128-column vocab tiles). Each block
-//      runs its bf16 tensor-core product (wmma 16x16x16, f32 accumulate; h is
-//      cast to bf16 on load; each 32-deep partial sum goes into an f32
-//      register sum, as in beam_core.cu), applies the exact rounding chain
-//      f32(bf16(bf16(acc) + bf16(b))), masks columns >= vocab_size to -1e30,
-//      and writes per (row, tile) the max, sum exp(x - max) and the tile's
-//      top-K (value, column). Row tiles vary fastest, so the 15 blocks that
-//      share a W_out tile run together and read it from L2.
+//      runs its bf16 tensor-core product (projection.cuh), applies the exact
+//      rounding chain f32(bf16(bf16(acc) + bf16(b))), masks columns >=
+//      vocab_size to -1e30, and writes per (row, tile) the max, sum exp(x -
+//      max) and the tile's top-K (value, column). Row tiles vary fastest, so
+//      the 15 blocks that share a W_out tile run together and read it from L2.
 //  (b) merge_kernel: a warp per row merges the tiles: lse = m + log(max(s,
 //      1e-30)) and the global top-K, then writes (value - lse, column).
 // Ties go to the smallest column in both passes (vidcap::before), so the
@@ -28,20 +26,19 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "common.cuh"
+#include "projection.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 using vidcap::before;
 using vidcap::bf16r;
 
 namespace {
 
-constexpr int TM = 64, TN = 128, TK = 32;
-constexpr int LDA = TK + 8, LDB = TN + 8, LDC = TN + 4;   // padded strides
-constexpr int kThreads = 256;
+constexpr int TM = vidcap::kProjRows, TN = vidcap::kProjCols;
+constexpr int LDC = vidcap::kProjLdc;
+constexpr int kThreads = vidcap::kProjThreads;
 
 // Warp-wide argmax in the (value desc, index asc) order.
 __device__ __forceinline__ void warp_best(float& v, int& i) {
@@ -62,54 +59,11 @@ tile_kernel(const float* __restrict__ h, const bf16* __restrict__ w,
             float* __restrict__ tsum, float* __restrict__ tv,
             int* __restrict__ ti, int N, int H, int Vp, int K, int vocab,
             int n_tiles) {
-  __shared__ __align__(128) bf16 As[TM * LDA];
-  __shared__ __align__(128) bf16 Bs[TK * LDB];
-  __shared__ __align__(128) float Cs[TM * LDC];
-
+  __shared__ __align__(128) vidcap::ProjTile tile;
   const int row0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wr = warp % 4, wc = warp / 4;   // 16-row strip, 64-column half
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  for (int k0 = 0; k0 < H; k0 += TK) {
-    for (int i = tid; i < TM * TK; i += blockDim.x) {
-      const int r = i / TK, kk = i % TK, row = row0 + r;
-      const float v = row < N ? h[(size_t)row * H + k0 + kk] : 0.f;
-      As[r * LDA + kk] = __float2bfloat16_rn(v);
-    }
-    for (int i = tid; i < TK * TN / 8; i += blockDim.x) {
-      const int r = i / (TN / 8), cc = (i % (TN / 8)) * 8, col = col0 + cc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (col < Vp)   // Vp % 8 == 0: a vector is all in or all out
-        v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * Vp + col);
-      *reinterpret_cast<uint4*>(Bs + r * LDB + cc) = v;
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wmma::fill_fragment(part[i], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, As + (wr * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Bs + kk * LDB + wc * 64 + i * 16, LDB);
-        wmma::mma_sync(part[i], af, bfr, part[i]);
-      }
-    }
-    vidcap::promote(acc, part);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    wmma::store_matrix_sync(Cs + (wr * 16) * LDC + wc * 64 + i * 16, acc[i],
-                            LDC, wmma::mem_row_major);
-  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  vidcap::project_tile(h, w, N, H, Vp, row0, col0, tile);
+  const float* Cs = tile.c;
 
   // epilogue: a warp per row, 4 columns per lane
   for (int r = warp; r < TM; r += blockDim.x / 32) {

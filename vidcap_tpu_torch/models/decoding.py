@@ -1,15 +1,20 @@
-"""Beam search for the PyTorch package.
+"""Decode strategies of the PyTorch package: greedy, sampled and beam.
 
-Mirrors ``vidcap_tpu/models/decoding.py::beam_decode`` (slot-blocking beams,
-B×K beams flattened into the batch, state gathered on h/c only), driven by a
-step that returns each row's top-K log-probs directly. On the card that step
-is :func:`fused_beam_step`: K1 ``beam_core`` then K2 ``topk_project``, with no
-switch back to the plain versions.
+Beam search mirrors ``vidcap_tpu/models/decoding.py::beam_decode``
+(slot-blocking beams, B×K beams flattened into the batch, state gathered on
+h/c only), driven by a step that returns each row's top-K log-probs
+directly. On the card that step is :func:`fused_beam_step`: K1 ``beam_core``
+then K2 ``topk_project``, with no switch back to the plain versions.
 
 Ties go to the smallest index in the per-row top-K
 (:func:`per_row_topk_iterative`, the plain K2's) and in the K·K top-K
 (:func:`topk_stable`, one stable sort where the JAX package calls
-``lax.top_k``); ``torch.topk`` promises no tie order. Greedy and sample decode are not ported yet (ROADMAP Queue 1 item 5).
+``lax.top_k``); ``torch.topk`` promises no tie order.
+
+:func:`greedy_decode` and :func:`sample_decode` are the generic loops over a
+logits step (``model.step``), as in the JAX package. Serving does not use
+them: ``Captioner`` runs greedy and sampled decode through K3
+(``ops/rollout.py::model_rollout``).
 """
 from __future__ import annotations
 
@@ -21,12 +26,92 @@ import torch
 from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD
 from vidcap_tpu_torch.models.decoder import NEG, DecoderState
 from vidcap_tpu_torch.ops.beam_core import beam_core
+from vidcap_tpu_torch.ops.rollout import gumbel_noise
 from vidcap_tpu_torch.ops.topk_project import (  # noqa: F401 (re-export)
     per_row_topk_iterative, topk_project)
 
 # step(state, prev_tok i64[B·K]) → (state, logp f32[B·K, K], idx i32[B·K, K])
 BeamStep = Callable[[DecoderState, torch.Tensor],
                     Tuple[DecoderState, torch.Tensor, torch.Tensor]]
+# step(state, prev_tok i64[B]) → (state, logits f32[B, V])
+LogitsStep = Callable[[DecoderState, torch.Tensor],
+                      Tuple[DecoderState, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class Rollout:
+    """tokens i32[B, L]; logp f32[B, L] (log-prob of the emitted token, 0
+    after finish); mask f32[B, L] (1.0 for real tokens incl. the first
+    <eos>)."""
+
+    tokens: torch.Tensor
+    logp: torch.Tensor
+    mask: torch.Tensor
+
+
+def _rollout(step_fn: LogitsStep, state, batch: int, max_len: int,
+             select_fn, early_exit: bool) -> Rollout:
+    """Shared greedy/sample loop. ``select_fn(logits, t)`` → (token, logp).
+    early_exit=True stops once every row has finished (one host read of the
+    flags per step); the steps it skips would only emit PAD with logp 0 and
+    mask 0, which the outputs already hold."""
+    dev = state.h.device
+    toks = torch.zeros(batch, max_len, dtype=torch.int32, device=dev)
+    logps = torch.zeros(batch, max_len, device=dev)
+    masks = torch.zeros(batch, max_len, device=dev)
+    prev = torch.full((batch,), BOS, dtype=torch.long, device=dev)
+    finished = torch.zeros(batch, dtype=torch.bool, device=dev)
+    for t in range(max_len):
+        if early_exit and bool(finished.all()):
+            break
+        state, logits = step_fn(state, prev)
+        tok, logp = select_fn(logits, t)
+        tok = torch.where(finished, PAD, tok)
+        toks[:, t] = tok
+        logps[:, t] = torch.where(finished, 0.0, logp)
+        masks[:, t] = (~finished).float()
+        finished = finished | (tok == EOS)
+        prev = tok
+    return Rollout(tokens=toks, logp=logps, mask=masks)
+
+
+def _picked_logp(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    return torch.log_softmax(logits.float(), -1).gather(1, tok[:, None])[:, 0]
+
+
+def greedy_decode(step_fn: LogitsStep, state, batch: int, max_len: int,
+                  early_exit: bool = False, with_logp: bool = True
+                  ) -> Rollout:
+    """Argmax rollout to <eos>/max_len; ties to the smallest index.
+    early_exit=True stops once every row has emitted <eos> (same result).
+    with_logp=False skips the log-softmax and returns zeros in ``logp``."""
+
+    def select(logits, t):
+        tok = logits.argmax(-1)
+        if not with_logp:
+            return tok, torch.zeros(tok.shape, device=tok.device)
+        return tok, _picked_logp(logits, tok)
+
+    return _rollout(step_fn, state, batch, max_len, select, early_exit)
+
+
+def sample_decode(step_fn: LogitsStep, state, batch: int, max_len: int,
+                  seed: int, temperature: float = 1.0) -> Rollout:
+    """Multinomial rollout by Gumbel-max on ``logits · (1/temperature)``,
+    with K3's counter-hash noise of (row, column, seed, step)
+    (``ops/rollout.py::gumbel_noise``). The JAX package's ``sample_decode``
+    draws with ``jax.random.categorical`` (threefry), which PyTorch cannot
+    reproduce, so only the distribution is shared with it; with the same
+    seed this loop picks what K3 picks. ``logp`` is the log-softmax of the
+    scaled logits at the pick."""
+    inv_t = 1.0 / temperature
+
+    def select(logits, t):
+        scaled = logits.float() * inv_t
+        tok = gumbel_noise(scaled, seed, t).argmax(-1)
+        return tok, _picked_logp(scaled, tok)
+
+    return _rollout(step_fn, state, batch, max_len, select, early_exit=False)
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

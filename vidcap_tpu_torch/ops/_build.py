@@ -29,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vidcap_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("beam_core", "topk_project")
+KERNELS = ("beam_core", "topk_project", "rollout")
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}

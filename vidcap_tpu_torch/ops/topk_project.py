@@ -25,7 +25,7 @@ from vidcap_tpu_torch.models.decoder import NEG, rnd
 from vidcap_tpu_torch.ops import _build
 
 MAX_K = 8
-TILE_N = 128   # vocab columns per block of the first launch (csrc/topk_project.cu)
+TILE_N = 128   # vocab columns per projection tile (csrc/projection.cuh)
 
 
 def per_row_topk_iterative(x: torch.Tensor, k: int
@@ -54,15 +54,21 @@ def logits_topk(logits: torch.Tensor, k: int
     return vals - lse, idx
 
 
+def masked_logits(h, w_out, b_out, vocab_size: int) -> torch.Tensor:
+    """f32(bf16(bf16(h)·W_out) + bf16(b_out)) with columns ≥ vocab_size at
+    −1e30, rounding to ``w_out.dtype`` where the kernels round to bf16 (all
+    f32 for f32 weights)."""
+    cd = w_out.dtype
+    logits = rnd(rnd(rnd(h, cd) @ w_out.float(), cd) + rnd(b_out, cd), cd)
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < vocab_size, logits, torch.full_like(logits, NEG))
+
+
 def topk_project_plain(h, w_out, b_out, K: int, vocab_size: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PyTorch version of the kernel. Rounds to ``w_out.dtype`` where the
     kernel rounds to bf16 (pass f32 weights for an all-f32 reference)."""
-    cd = w_out.dtype
-    logits = rnd(rnd(rnd(h, cd) @ w_out.float(), cd) + rnd(b_out, cd), cd)
-    col = torch.arange(logits.shape[-1], device=logits.device)
-    logits = torch.where(col < vocab_size, logits, torch.full_like(logits, NEG))
-    return logits_topk(logits, K)
+    return logits_topk(masked_logits(h, w_out, b_out, vocab_size), K)
 
 
 def topk_project(h, w_out, b_out, K: int, vocab_size: int
