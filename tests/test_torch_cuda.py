@@ -69,6 +69,8 @@ def _beam_core_args(dev, B, K, T, E, H, A, seed=0):
     (4, 3, 8, 32, 32, 32),
     (6, 5, 26, 64, 96, 64),         # H != A, the bench's T
     (3, 8, 40, 32, 64, 128),        # the widest beam, T past one warp
+    (184, 5, 26, 512, 512, 512),    # msrvtt_attn_beam5 at full width
+    (27, 5, 26, 512, 512, 512),     # M = 135: ragged 64- and 128-row tiles
 ])
 def test_beam_core_matches_plain(dev, B, K, T, E, H, A):
     args = _beam_core_args(dev, B, K, T, E, H, A)
@@ -110,6 +112,7 @@ def _topk_check(h, w, b, K, vocab):
     (16, 64, 256, 200, 5),      # vocab_size < Vp: padding columns masked
     (24, 64, 264, 264, 8),      # a ragged last tile of 8 columns; K = 8
     (70, 32, 512, 100, 6),      # two row tiles; K + 1 = 6 (the pool's K)
+    (920, 512, 16000, 16000, 5),   # msrvtt_attn_beam5 at full width
 ])
 def test_topk_project_matches_plain(dev, N, H, Vp, vocab, K):
     g = np.random.default_rng(N)

@@ -1,112 +1,185 @@
 // The recurrent core of one decode step, shared by K1 (beam_core.cu) and K3
-// (rollout.cu): attention over per-video keys/values for the K rows of each
-// video, then the gate GEMM with the LSTM update in its epilogue.
+// (rollout.cu); the part of vidcap_tpu/ops/pallas_beam_core.py's
+// _beam_core_kernel and of pallas_decoder.py's _rollout_kernel before the
+// vocab projection. For M = B*K rows (video-major, K rows per video),
 //
-//  attention_kernel: one block per video. keys[b] and values[b] go to shared
-//      memory once and serve all K rows of the video (the shared-keys layout
-//      of step_beam), so they are read from device memory once per step. The
-//      block computes q = bf16(h.Wq) for its K rows (Wq stays in L2), the
-//      bf16 tanh scores, the masked f32 softmax over T and ctx f32[K, H].
-//  gates_kernel: the [M, E+2H] x [E+2H, 4H] gate GEMM on bf16 tensor cores
-//      (wmma 16x16x16, f32 accumulate), A fed from the embedding, ctx and h
-//      and cast to bf16 on load (never concatenated in memory). Each 32-deep
-//      partial sum is added to an f32 register sum (vidcap::promote): chained
-//      over all 1536, the tensor cores' own f32 accumulation is ~6x less
-//      accurate than an f32 GEMM, and the bf16 rounding of h' turns that into
-//      decodes that part from the reference. Each block owns hidden columns
-//      j0..j0+31 of all four gates, so the LSTM update runs in the epilogue
-//      and the gates never reach memory. The embedding rows come from an
-//      `Emb` source: dense f32 rows (K1) or a bf16 table gathered by each
-//      row's token on the device (K3).
+//   xh = bf16([emb; ctx; h]) [M, E+2H],  q = bf16(bf16(h) . Wq)
+//   ctx = attention over the video's keys/values with q
+//   gates = xh . Wg + bg,  c' = sig(f+1) c + sig(i) tanh(g),  h' = sig(o) tanh(c')
+//
+// What bounded the first version on the H100 was not bytes or tensor-core
+// operations but latency: each attention block computed q over 512 serial L2
+// reads of Wq per column (all of Wq read by every block, ~94 MB of L2 reads a
+// beam step), and the gate GEMM ran wmma tiles over 48 synchronous 32-deep
+// steps with its A operand cast element by element from f32. This design,
+// four kernels on the caller's stream:
+//
+//  pack_kernel: writes the emb and h columns of xh in bf16, 16 bytes a
+//      thread. The embedding rows come from an `Emb` source: dense f32 rows
+//      (K1) or a bf16 table gathered by each row's token on the device (K3).
+//  rec_gemm_kernel<QEpilogue>: q = bf16(xh[:, E+H:] . Wq) on tensor cores
+//      (wgmma, TMA ring), over 128-row tiles, so Wq is read once per row
+//      tile and not once per video.
+//  attention_kernel: one block per video; keys[b], values[b] and its q rows
+//      go to shared memory by bulk copies (TMA), once for all K rows. Scores
+//      a warp per frame from 16-byte vectors of keys, q and u (each key
+//      vector serves the K rows), the masked f32 softmax over T, ctx in f32;
+//      it writes the ctx columns of xh, so the gate GEMM's A operand is
+//      whole bf16 in memory: the single rounding of [emb; ctx; h] the
+//      reference makes, done once.
+//  rec_gemm_kernel<GateEpilogue>: the [M, E+2H] x [E+2H, 4H] gate GEMM.
+//      Both operands by TMA through a 4-stage mbarrier ring filled by a
+//      producer warp; two consumer warpgroups run wgmma on 64 rows each,
+//      32-deep partial sums promoted into f32 registers (hopper.cuh,
+//      mma_depth_step). Each block owns hidden columns j0..j0+31 of all four
+//      gates (four Wg slabs a stage), so the LSTM update runs in the epilogue
+//      straight from the accumulator registers and the gates never reach
+//      memory.
+// What holds it back now (PERF.md): the attention's scores, ~12M
+// bf16(tanh) a beam step in f32 at full accuracy, on 184 blocks over 132
+// SMs; the two products re-read Wq and Wg from L2 once per 128-row tile and
+// wait for each 32-deep partial sum to be promoted.
+// Needs E % 8 == 0, H % 32 == 0, A % 32 == 0 and K <= kMaxBeam.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace vidcap {
 
 constexpr int kMaxBeam = 8;
-constexpr int kAttnThreads = 256;
+constexpr int kAttnThreads = 512;
+constexpr int kPackThreads = 256;
 
-// Shared memory of one attention block: keys/values (bf16), the bf16-rounded
-// h rows, q, scores/attn and the frame mask (f32).
+// Embedding rows of xh: dense f32 rows [M, E] (K1).
+struct DenseEmb {
+  const float* emb;
+  __device__ uint4 load8(int row, int k, int E) const {   // bf16 of k..k+7
+    return bf16x8(emb + (size_t)row * E + k);
+  }
+};
+
+// Embedding rows of xh: row tok[r] of a bf16 table [Vp, E] for output row r
+// (K3: the token chosen on the device last step).
+struct TableEmb {
+  const __nv_bfloat16* table;
+  const int* tok;
+  __device__ uint4 load8(int row, int k, int E) const {
+    return *reinterpret_cast<const uint4*>(table + (size_t)tok[row] * E + k);
+  }
+};
+
+// the eight bf16 of a 16-byte vector as floats
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(p[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
+
+// xh[:, 0:E] = bf16(emb), xh[:, E+H:E+2H] = bf16(h); one 8-wide vector a
+// thread.
+template <typename Emb>
+__global__ void __launch_bounds__(kPackThreads)
+pack_kernel(Emb emb, const float* __restrict__ h,
+            __nv_bfloat16* __restrict__ xh, int M, int E, int H) {
+  const int per_row = (E + H) / 8;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= M * per_row) return;
+  const int row = v / per_row, c8 = (v % per_row) * 8;
+  __nv_bfloat16* dst = xh + (size_t)row * (E + 2 * H);
+  if (c8 < E)
+    *reinterpret_cast<uint4*>(dst + c8) = emb.load8(row, c8, E);
+  else
+    *reinterpret_cast<uint4*>(dst + H + c8) =
+        bf16x8(h + (size_t)row * H + (c8 - E));
+}
+
+// Shared memory of one attention block: keys/values, the block's q rows and
+// bf16(u) (bf16), scores/attn and the frame mask (f32).
 inline size_t attention_smem(int K, int T, int H, int A) {
-  return (size_t)T * (A + H) * sizeof(__nv_bfloat16) +
-         (size_t)(K * H + K * A + K * T + T) * sizeof(float);
+  return (size_t)(T * (A + H) + K * A + A) * sizeof(__nv_bfloat16) +
+         (size_t)(K * T + T) * sizeof(float);
 }
 
 __global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const float* __restrict__ h,
+attention_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ keys,
                  const __nv_bfloat16* __restrict__ values,
-                 const float* __restrict__ fmask,
-                 const __nv_bfloat16* __restrict__ wq,
-                 const float* __restrict__ u, float* __restrict__ ctx, int K,
-                 int T, int H, int A) {
+                 const float* __restrict__ fmask, const float* __restrict__ u,
+                 __nv_bfloat16* __restrict__ xh, int K, int T, int E, int H,
+                 int A) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* keys_s = reinterpret_cast<bf16*>(smem);
   bf16* vals_s = keys_s + (size_t)T * A;
-  float* h_s = reinterpret_cast<float*>(vals_s + (size_t)T * H);
-  float* q_s = h_s + K * H;
-  float* p_s = q_s + K * A;
+  bf16* q_s = vals_s + (size_t)T * H;
+  bf16* u_s = q_s + K * A;
+  float* p_s = reinterpret_cast<float*>(u_s + A);
   float* m_s = p_s + K * T;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
+  const int A8 = A / 8;
 
-  // keys/values of video b, 16 bytes per thread per load (A, H % 32 == 0)
-  const uint4* ksrc = reinterpret_cast<const uint4*>(keys + (size_t)b * T * A);
-  const uint4* vsrc =
-      reinterpret_cast<const uint4*>(values + (size_t)b * T * H);
-  uint4* kdst = reinterpret_cast<uint4*>(keys_s);
-  uint4* vdst = reinterpret_cast<uint4*>(vals_s);
-  for (int i = tid; i < T * A / 8; i += blockDim.x) kdst[i] = ksrc[i];
-  for (int i = tid; i < T * H / 8; i += blockDim.x) vdst[i] = vsrc[i];
-  for (int i = tid; i < K * H; i += blockDim.x)
-    h_s[i] = bf16r(h[(size_t)b * K * H + i]);
-  for (int t = tid; t < T; t += blockDim.x) m_s[t] = fmask[(size_t)b * T + t];
-  __syncthreads();
-
-  // q = bf16(bf16(h) . Wq), one column a per thread for all K rows; the sum
-  // runs in chunks of 32 so its rounding error stays near a blocked GEMM's
-  for (int a = tid; a < A; a += blockDim.x) {
-    float acc[kMaxBeam];
-#pragma unroll
-    for (int k = 0; k < kMaxBeam; ++k) acc[k] = 0.f;
-    for (int j0 = 0; j0 < H; j0 += 32) {
-      float part[kMaxBeam];
-#pragma unroll
-      for (int k = 0; k < kMaxBeam; ++k) part[k] = 0.f;
-      for (int j = j0; j < j0 + 32; ++j) {
-        const float w = __bfloat162float(wq[(size_t)j * A + a]);
-#pragma unroll
-        for (int k = 0; k < kMaxBeam; ++k)
-          if (k < K) part[k] += h_s[k * H + j] * w;
-      }
-#pragma unroll
-      for (int k = 0; k < kMaxBeam; ++k) acc[k] += part[k];
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxBeam; ++k)
-      if (k < K) q_s[k * A + a] = bf16r(acc[k]);
+  // keys/values of video b and its K q rows (each contiguous) by three bulk
+  // copies, while the threads fetch bf16(u) and the frame mask
+  __shared__ uint64_t loaded;
+  if (tid == 0) {
+    mbar_init(&loaded, 1);
+    mbar_init_fence();
   }
   __syncthreads();
+  if (tid == 0) {
+    const uint32_t kb = T * A * 2, vb = T * H * 2, qb = K * A * 2;
+    mbar_expect_tx(&loaded, kb + vb + qb);
+    bulk_load(keys_s, keys + (size_t)b * T * A, kb, &loaded);
+    bulk_load(vals_s, values + (size_t)b * T * H, vb, &loaded);
+    bulk_load(q_s, q + (size_t)b * K * A, qb, &loaded);
+  }
+  for (int a = tid; a < A; a += blockDim.x) u_s[a] = __float2bfloat16_rn(u[a]);
+  for (int t = tid; t < T; t += blockDim.x) m_s[t] = fmask[(size_t)b * T + t];
+  __syncthreads();
+  mbar_wait(&loaded, 0);
+  const uint4* k4 = reinterpret_cast<const uint4*>(keys_s);
+  const uint4* q4 = reinterpret_cast<const uint4*>(q_s);
 
-  // scores[k, t] = sum_a bf16(tanh(bf16(keys + q))) * bf16(u): a warp per (k, t)
-  for (int p = warp; p < K * T; p += nwarps) {
-    const int k = p / T, t = p % T;
-    float s = 0.f;
-    for (int a = lane; a < A; a += 32) {
-      const float x = bf16r(__bfloat162float(keys_s[t * A + a]) + q_s[k * A + a]);
-      s += bf16r(tanhf(x)) * bf16r(u[a]);
+  // scores[k, t] = sum_a bf16(tanh(bf16(keys + q))) * bf16(u): a warp per
+  // frame t for all K rows (each key vector loaded once for the K rows, K
+  // independent sums), eight columns a lane per step
+  const uint4* u4 = reinterpret_cast<const uint4*>(u_s);
+  for (int t = warp; t < T; t += nwarps) {
+    float s[kMaxBeam];
+#pragma unroll
+    for (int k = 0; k < kMaxBeam; ++k) s[k] = 0.f;
+    for (int a8 = lane; a8 < A8; a8 += 32) {
+      const uint4 kv = k4[t * A8 + a8], uv = u4[a8];
+      float kf[8], uf[8];
+      unpack8(kv, kf);
+      unpack8(uv, uf);
+#pragma unroll
+      for (int k = 0; k < kMaxBeam; ++k) {
+        if (k >= K) break;
+        float qf[8];
+        unpack8(q4[k * A8 + a8], qf);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[k] += bf16r(tanhf(bf16r(kf[j] + qf[j]))) * uf[j];
+      }
     }
-    s = warp_sum(s);
-    if (lane == 0) p_s[p] = m_s[t] > 0.f ? s : kNeg;
+#pragma unroll
+    for (int k = 0; k < kMaxBeam; ++k) {
+      if (k >= K) break;
+      const float v = warp_sum(s[k]);
+      if (lane == 0) p_s[k * T + t] = m_s[t] > 0.f ? v : kNeg;
+    }
   }
   __syncthreads();
 
@@ -124,132 +197,215 @@ attention_kernel(const float* __restrict__ h,
   }
   __syncthreads();
 
-  // ctx[k, d] = sum_t attn[k, t] * values[t, d] in f32
-  for (int d = tid; d < H; d += blockDim.x) {
-    float acc[kMaxBeam];
+  // ctx[k, d] = sum_t attn[k, t] * values[t, d] in f32, two columns a
+  // thread; written as bf16 into the ctx columns of xh
+  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(vals_s);
+  for (int d2 = tid; d2 < H / 2; d2 += blockDim.x) {
+    float a0[kMaxBeam], a1[kMaxBeam];
 #pragma unroll
-    for (int k = 0; k < kMaxBeam; ++k) acc[k] = 0.f;
+    for (int k = 0; k < kMaxBeam; ++k) a0[k] = a1[k] = 0.f;
     for (int t = 0; t < T; ++t) {
-      const float v = __bfloat162float(vals_s[t * H + d]);
+      const float2 v = __bfloat1622float2(v2[t * (H / 2) + d2]);
 #pragma unroll
       for (int k = 0; k < kMaxBeam; ++k)
-        if (k < K) acc[k] += p_s[k * T + t] * v;
+        if (k < K) {
+          a0[k] += p_s[k * T + t] * v.x;
+          a1[k] += p_s[k * T + t] * v.y;
+        }
     }
 #pragma unroll
     for (int k = 0; k < kMaxBeam; ++k)
-      if (k < K) ctx[((size_t)b * K + k) * H + d] = acc[k];
+      if (k < K)
+        *reinterpret_cast<unsigned*>(
+            xh + ((size_t)b * K + k) * (E + 2 * H) + E + 2 * d2) =
+            pack2(a0[k], a1[k]);
   }
 }
 
-// Embedding rows of the gate GEMM's A operand: dense f32 rows [M, E] (K1).
-struct DenseEmb {
-  const float* emb;
-  __device__ float operator()(int row, int k, int E) const {
-    return emb[(size_t)row * E + k];
+// ---- the tensor-core products: q and the gates -----------------------------
+
+constexpr int kGemmRows = 128;   // two consumer warpgroups x 64 rows
+constexpr int kGemmStages = 4;
+constexpr int kGemmThreads = 288;   // 2 consumer warpgroups + 1 producer warp
+constexpr int kGemmATile = kGemmRows * kDepthStep * 2;   // 16 KB
+constexpr int kGemmBTile = 4 * kSlabBytes;               // 16 KB
+constexpr size_t kGemmSmem =
+    (size_t)kGemmStages * (kGemmATile + kGemmBTile) + 2 * kGemmStages * 8 +
+    1024;
+
+// q = bf16(acc) into q [M, A]; the block's columns start at blockIdx.y * 128.
+struct QEpilogue {
+  __nv_bfloat16* q;
+  int M, A;
+  __device__ void operator()(const float (&acc)[kAccRegs], int row0) const {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + frag_row(hh);
+      if (row >= M) continue;
+#pragma unroll
+      for (int i = 0; i < kAccRegs / 4; ++i) {
+        const int col = blockIdx.y * kWgCols + frag_col(i);
+        if (col < A)
+          *reinterpret_cast<unsigned*>(q + (size_t)row * A + col) =
+              pack2(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+      }
+    }
   }
 };
 
-// Embedding rows of the gate GEMM's A operand: row tok[r] of a bf16 table
-// [Vp, E] for output row r (K3: the token chosen on the device last step).
-struct TableEmb {
-  const __nv_bfloat16* table;
-  const int* tok;
-  __device__ float operator()(int row, int k, int E) const {
-    return __bfloat162float(table[(size_t)tok[row] * E + k]);
+// The LSTM update of hidden columns j0 = blockIdx.y * 32 .. j0 + 31: slab g
+// of the accumulator holds gate g (i, f, g, o) of those columns.
+struct GateEpilogue {
+  const float* c;
+  const float* bg;
+  float* h_out;
+  float* c_out;
+  int M, H;
+  __device__ void operator()(const float (&acc)[kAccRegs], int row0) const {
+    const int j0 = blockIdx.y * kSlabCols;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + frag_row(hh);
+      if (row >= M) continue;
+#pragma unroll
+      for (int jc = 0; jc < 4; ++jc) {
+        const int j = j0 + frag_col(jc);
+        const size_t o = (size_t)row * H + j;
+        const float2 cp = *reinterpret_cast<const float2*>(c + o);
+        float cn[2], hn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 2 * hh + e;
+          const float gi = acc[4 * (0 + jc) + r] + bg[j + e];
+          const float gf = acc[4 * (4 + jc) + r] + bg[H + j + e];
+          const float gg = acc[4 * (8 + jc) + r] + bg[2 * H + j + e];
+          const float go = acc[4 * (12 + jc) + r] + bg[3 * H + j + e];
+          cn[e] = sigmoidf(gf + 1.f) * (e ? cp.y : cp.x) +
+                  sigmoidf(gi) * tanhf(gg);
+          hn[e] = sigmoidf(go) * tanhf(cn[e]);
+        }
+        *reinterpret_cast<float2*>(c_out + o) = make_float2(cn[0], cn[1]);
+        *reinterpret_cast<float2*>(h_out + o) = make_float2(hn[0], hn[1]);
+      }
+    }
   }
 };
 
-// Gate GEMM tile: 64 rows x (4 gates x 32 hidden columns), k-step 32.
-constexpr int kGateRows = 64, kGateHidden = 32, kGateThreads = 256;
+// out[rows, cols] = A . B with A [M, depth] K-major (map `ta`, boxes 64 deep
+// x 128 rows) and B [depth, *] (map `tb`, 32-column slabs). Block (x, y)
+// takes rows 128x.. and the four slabs whose first columns are
+// y * col_tile + s * slab_stride (s = 0..3); `epi` consumes the 64 x 128
+// accumulators of each consumer warpgroup.
+template <typename Epi>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+rec_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                const __grid_constant__ CUtensorMap tb, int depth,
+                int col_tile, int slab_stride, Epi epi) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_aligned(smem_raw);
+  unsigned char* a_s = smem;
+  unsigned char* b_s = smem + kGemmStages * kGemmATile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kGemmStages * kGemmBTile);
+  uint64_t* empty = full + kGemmStages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * kGemmRows;
+  const int n_steps = (depth + kDepthStep - 1) / kDepthStep;
 
-inline dim3 gates_grid(int M, int H) {
-  return dim3((M + kGateRows - 1) / kGateRows, H / kGateHidden);
-}
-
-template <typename Emb>
-__global__ void __launch_bounds__(kGateThreads)
-gates_kernel(Emb emb, const float* __restrict__ ctx,
-             const float* __restrict__ h, const float* __restrict__ c,
-             const __nv_bfloat16* __restrict__ wg,
-             const float* __restrict__ bg, float* __restrict__ h_out,
-             float* __restrict__ c_out, int M, int E, int H) {
-  namespace wmma = nvcuda::wmma;
-  using bf16 = __nv_bfloat16;
-  constexpr int BM = kGateRows, BJ = kGateHidden, BN = 4 * BJ, BK = 32;
-  constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;   // padded strides
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
-
-  const int row0 = blockIdx.x * BM, j0 = blockIdx.y * BJ;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = warp % 4, wc = warp / 4;   // 16-row strip, 64-column half
-  const int Kt = E + 2 * H;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  for (int k0 = 0; k0 < Kt; k0 += BK) {
-    // A = bf16([emb; ctx; h]) rows row0.., columns k0..k0+31
-    for (int i = tid; i < BM * BK; i += blockDim.x) {
-      const int r = i / BK, kk = i % BK;
-      const int row = row0 + r, kc = k0 + kk;
-      float v = 0.f;
-      if (row < M && kc < Kt) {
-        if (kc < E) v = emb(row, kc, E);
-        else if (kc < E + H) v = ctx[(size_t)row * H + (kc - E)];
-        else v = h[(size_t)row * H + (kc - E - H)];
-      }
-      As[r * LDA + kk] = __float2bfloat16_rn(v);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
     }
-    // B = Wg rows k0..k0+31, columns g*H + j0 + (0..31) of each gate g
-    for (int i = tid; i < BK * BN / 8; i += blockDim.x) {
-      const int r = i / (BN / 8), cc = (i % (BN / 8)) * 8;
-      const int g = cc / BJ, jj = cc % BJ, kc = k0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kc < Kt)
-        v = *reinterpret_cast<const uint4*>(wg + (size_t)kc * 4 * H +
-                                            (size_t)g * H + j0 + jj);
-      *reinterpret_cast<uint4*>(Bs + r * LDB + cc) = v;
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wmma::fill_fragment(part[i], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, As + (wr * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Bs + kk * LDB + wc * 64 + i * 16, LDB);
-        wmma::mma_sync(part[i], af, bfr, part[i]);
-      }
-    }
-    promote(acc, part);
-    __syncthreads();
+    mbar_init_fence();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    wmma::store_matrix_sync(Cs + (wr * 16) * LDC + wc * 64 + i * 16, acc[i],
-                            LDC, wmma::mem_row_major);
   __syncthreads();
 
-  // LSTM update: gate order i, f, g, o; forget gate sigma(f + 1)
-  for (int i = tid; i < BM * BJ; i += blockDim.x) {
-    const int r = i / BJ, jj = i % BJ, row = row0 + r, j = j0 + jj;
-    if (row >= M) continue;
-    const float gi = Cs[r * LDC + 0 * BJ + jj] + bg[j];
-    const float gf = Cs[r * LDC + 1 * BJ + jj] + bg[H + j];
-    const float gg = Cs[r * LDC + 2 * BJ + jj] + bg[2 * H + j];
-    const float go = Cs[r * LDC + 3 * BJ + jj] + bg[3 * H + j];
-    const size_t o = (size_t)row * H + j;
-    const float cn = sigmoidf(gf + 1.f) * c[o] + sigmoidf(gi) * tanhf(gg);
-    c_out[o] = cn;
-    h_out[o] = sigmoidf(go) * tanhf(cn);
+  if (warp == 8) {   // producer
+    if (lane == 0) {
+      const int col0 = blockIdx.y * col_tile;
+      for (int ks = 0; ks < n_steps; ++ks) {
+        const int s = ks % kGemmStages, r = ks / kGemmStages;
+        if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+        mbar_expect_tx(&full[s], kGemmATile + kGemmBTile);
+        tma_load(a_s + s * kGemmATile, &ta, ks * kDepthStep, row0, &full[s]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          tma_load(b_s + s * kGemmBTile + q * kSlabBytes, &tb,
+                   col0 + q * slab_stride, ks * kDepthStep, &full[s]);
+      }
+    }
+    return;
   }
+
+  const int wg = threadIdx.x / 128;   // consumer warpgroup: rows 64 wg..
+  float acc[kAccRegs], part[kAccRegs];
+#pragma unroll
+  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+  for (int ks = 0; ks < n_steps; ++ks) {
+    const int s = ks % kGemmStages;
+    mbar_wait(&full[s], (ks / kGemmStages) & 1);
+    mma_depth_step(acc, part,
+                   smem_u32(a_s + s * kGemmATile + wg * 64 * 128),
+                   smem_u32(b_s + s * kGemmBTile));
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  epi(acc, row0 + wg * 64);
+}
+
+// The four TMA maps of one recurrent step; made once per call on the host
+// (K3: once per rollout, the buffers stay put across its steps).
+struct RecurrentMaps {
+  CUtensorMap q_a, q_b, g_a, g_b;
+};
+
+// xh bf16 [M, E+2H], wq bf16 [H, A], wg bf16 [E+2H, 4H]. Returns 0 or an
+// error code (kTensorMapError + CUresult).
+inline int make_recurrent_maps(RecurrentMaps* m, const void* xh,
+                               const void* wq, const void* wg, int M, int E,
+                               int H, int A) {
+  const int D = E + 2 * H;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(xh);
+  int err = make_tmap(&m->q_a, x + E + H, H, M, D, kDepthStep, kGemmRows);
+  if (!err) err = make_tmap(&m->q_b, wq, A, H, A, kSlabCols, kDepthStep);
+  if (!err) err = make_tmap(&m->g_a, x, D, M, D, kDepthStep, kGemmRows);
+  if (!err) err = make_tmap(&m->g_b, wg, 4 * H, D, 4 * H, kSlabCols, kDepthStep);
+  return err;
+}
+
+// Allow the kernels' dynamic shared memory past 48 KB.
+inline int recurrent_setup() {
+  int err = allow_max_smem<attention_kernel>();
+  if (!err) err = allow_max_smem<rec_gemm_kernel<QEpilogue>>();
+  if (!err) err = allow_max_smem<rec_gemm_kernel<GateEpilogue>>();
+  return err;
+}
+
+// One recurrent step for M = B*K rows: xh and q are scratch; h' and c' are
+// written to h_out, c_out (which must not alias h, c). Returns the
+// cudaError_t of the launches.
+template <typename Emb>
+inline int recurrent_step(const RecurrentMaps& m, Emb emb, const float* h,
+                          const float* c, const __nv_bfloat16* keys,
+                          const __nv_bfloat16* values, const float* fmask,
+                          const float* u, const float* bg, __nv_bfloat16* xh,
+                          __nv_bfloat16* q, float* h_out, float* c_out, int B,
+                          int K, int T, int E, int H, int A, cudaStream_t s) {
+  const int M = B * K;
+  const int vecs = M * (E + H) / 8;
+  pack_kernel<Emb><<<(vecs + kPackThreads - 1) / kPackThreads, kPackThreads, 0,
+                     s>>>(emb, h, xh, M, E, H);
+  const int row_tiles = (M + kGemmRows - 1) / kGemmRows;
+  rec_gemm_kernel<QEpilogue><<<dim3(row_tiles, (A + kWgCols - 1) / kWgCols),
+                               kGemmThreads, kGemmSmem, s>>>(
+      m.q_a, m.q_b, H, kWgCols, kSlabCols, QEpilogue{q, M, A});
+  attention_kernel<<<B, kAttnThreads, attention_smem(K, T, H, A), s>>>(
+      q, keys, values, fmask, u, xh, K, T, E, H, A);
+  rec_gemm_kernel<GateEpilogue><<<dim3(row_tiles, H / kSlabCols),
+                                  kGemmThreads, kGemmSmem, s>>>(
+      m.g_a, m.g_b, E + 2 * H, kSlabCols, H,
+      GateEpilogue{c, bg, h_out, c_out, M, H});
+  return (int)cudaGetLastError();
 }
 
 }  // namespace vidcap

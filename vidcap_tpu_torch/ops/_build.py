@@ -22,7 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -33,6 +33,7 @@ KERNELS = ("beam_core", "topk_project", "rollout")
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_counts() -> None:
@@ -92,8 +93,51 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def entry(name: str, n_ptrs: int, n_ints: int, tail: Sequence = ()):
+    """The C entry point ``vidcap_<name>`` of kernel ``name``, its argument
+    types set once: ``n_ptrs`` pointers, ``n_ints`` ints, then ``tail``
+    (ctypes types), then the stream; returns an int error code."""
+    if name not in _fns:
+        fn = getattr(load(name), f"vidcap_{name}")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + list(tail) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def require(kernel: str, specs) -> None:
+    """Raise ValueError unless each (tensor, name, dtype, shape) of ``specs``
+    is a contiguous CUDA tensor of that dtype and shape. The passing test is
+    kept cheap (``is`` for the dtype, no tuple copies): it runs on every
+    launch of a decode loop."""
+    for t, name, dt, shape in specs:
+        if t.is_cuda and t.dtype is dt and t.shape == shape \
+                and t.is_contiguous():
+            continue
+        raise ValueError(f"{kernel}: {name} must be a contiguous CUDA {dt} "
+                         f"tensor of shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}"
+                         + ("" if t.is_contiguous() else ", not contiguous"))
+
+
+def scratch(device, nbytes: Sequence[int]) -> Tuple["torch.Tensor", List[int]]:
+    """One device allocation carved into parts of ``nbytes`` (each start
+    256-byte aligned): (the tensor, which must outlive the launches, and
+    the parts' addresses). One allocation instead of one per buffer keeps
+    the wrappers' host time down."""
+    import torch
+    starts, total = [], 0
+    for n in nbytes:
+        starts.append(total)
+        total += -(-n // 256) * 256
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + o for o in starts]
+
+
 def check(err: int, name: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{err}")
+        what = (f"TMA tensor map failed (CUresult {err - 1000})"
+                if err >= 1000 else f"CUDA launch failed with cudaError_t {err}")
+        raise RuntimeError(f"{name}: {what}")

@@ -15,7 +15,6 @@ other.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -39,18 +38,6 @@ def beam_core_plain(emb, h, c, keys, values, frame_mask, wq, u, wg, bg,
     return lstm_update(xh @ wg.float() + bg.float(), c.float())
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"beam_core: {name} is on {t.device}, not CUDA")
-    if t.dtype != dtype:
-        raise ValueError(f"beam_core: {name} is {t.dtype}, needs {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"beam_core: {name} has shape {tuple(t.shape)}, "
-                         f"needs {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"beam_core: {name} is not contiguous")
-
-
 def beam_core(emb, h, c, keys, values, frame_mask, wq, u, wg, bg,
               beam_width: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """emb f32[B·K, E], h/c f32[B·K, H], keys bf16[B, T, A], values
@@ -66,28 +53,25 @@ def beam_core(emb, h, c, keys, values, frame_mask, wq, u, wg, bg,
     if BK != B * K or not 1 <= K <= MAX_BEAM:
         raise ValueError(f"beam_core: {BK} rows for {B} videos × beam {K} "
                          f"(beam must be in 1..{MAX_BEAM})")
-    if H % 32 or A % 32:
+    if H % 32 or A % 32 or E % 8:
         raise ValueError(f"beam_core: hidden {H} and attention {A} widths "
-                         "must be multiples of 32")
+                         f"must be multiples of 32 and embedding {E} of 8")
     f32, bf16 = torch.float32, torch.bfloat16
-    for t, name, dt, shape in (
-            (emb, "emb", f32, (BK, E)), (h, "h", f32, (BK, H)),
-            (c, "c", f32, (BK, H)), (keys, "keys", bf16, (B, T, A)),
-            (values, "values", bf16, (B, T, H)),
-            (frame_mask, "frame_mask", f32, (B, T)), (wq, "wq", bf16, (H, A)),
-            (u, "u", f32, (A,)), (wg, "wg", bf16, (E + 2 * H, 4 * H)),
-            (bg, "bg", f32, (4 * H,))):
-        _check(t, name, dt, shape)
-    lib = _build.load("beam_core")
-    fn = lib.vidcap_beam_core
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ctx = torch.empty(BK, H, device=h.device, dtype=f32)
+    _build.require("beam_core", (
+        (emb, "emb", f32, (BK, E)), (h, "h", f32, (BK, H)),
+        (c, "c", f32, (BK, H)), (keys, "keys", bf16, (B, T, A)),
+        (values, "values", bf16, (B, T, H)),
+        (frame_mask, "frame_mask", f32, (B, T)), (wq, "wq", bf16, (H, A)),
+        (u, "u", f32, (A,)), (wg, "wg", bf16, (E + 2 * H, 4 * H)),
+        (bg, "bg", f32, (4 * H,))))
+    fn = _build.entry("beam_core", 14, 6)
+    # scratch: the gate GEMM's A operand bf16([emb; ctx; h]) and q (bf16)
+    buf, (xh, q) = _build.scratch(h.device, (BK * (E + 2 * H) * 2, BK * A * 2))
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     err = fn(emb.data_ptr(), h.data_ptr(), c.data_ptr(), keys.data_ptr(),
              values.data_ptr(), frame_mask.data_ptr(), wq.data_ptr(),
-             u.data_ptr(), wg.data_ptr(), bg.data_ptr(), ctx.data_ptr(),
+             u.data_ptr(), wg.data_ptr(), bg.data_ptr(), xh, q,
              h_out.data_ptr(), c_out.data_ptr(), B, K, T, E, H, A,
              torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "beam_core")

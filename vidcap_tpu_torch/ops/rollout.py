@@ -208,34 +208,27 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
     B, T, A = keys.shape
     H = h0.shape[1]
     Vp, E = w.emb.shape
-    if H % 32 or A % 32 or Vp % 8:
+    if H % 32 or A % 32 or Vp % 8 or E % 8:
         raise ValueError(f"rollout: hidden {H} and attention {A} widths must "
-                         f"be multiples of 32 and the vocab width {Vp} of 8")
+                         f"be multiples of 32 and the vocab {Vp} and "
+                         f"embedding {E} widths of 8")
     if max_len < 1 or not 1 <= w.vocab_size <= Vp:
         raise ValueError(f"rollout: max_len={max_len} must be ≥ 1 and "
                          f"vocab_size={w.vocab_size} in 1..{Vp}")
     f32, bf16 = torch.float32, torch.bfloat16
-    for t, name, dt, shape in (
-            (keys, "keys", bf16, (B, T, A)), (values, "values", bf16, (B, T, H)),
-            (frame_mask, "frame_mask", f32, (B, T)), (h0, "h0", f32, (B, H)),
-            (c0, "c0", f32, (B, H)), (w.emb, "emb", bf16, (Vp, E)),
-            (w.wq, "wq", bf16, (H, A)), (w.u, "u", f32, (A,)),
-            (w.wg, "wg", bf16, (E + 2 * H, 4 * H)), (w.bg, "bg", f32, (4 * H,)),
-            (w.w_out, "w_out", bf16, (H, Vp)), (w.b_out, "b_out", f32, (Vp,))):
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"rollout: {name} must be a contiguous CUDA {dt} "
-                             f"tensor of shape {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    lib = _build.load("rollout")
-    fn = lib.vidcap_rollout
-    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 9
-                   + [ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    _build.require("rollout", (
+        (keys, "keys", bf16, (B, T, A)), (values, "values", bf16, (B, T, H)),
+        (frame_mask, "frame_mask", f32, (B, T)), (h0, "h0", f32, (B, H)),
+        (c0, "c0", f32, (B, H)), (w.emb, "emb", bf16, (Vp, E)),
+        (w.wq, "wq", bf16, (H, A)), (w.u, "u", f32, (A,)),
+        (w.wg, "wg", bf16, (E + 2 * H, 4 * H)), (w.bg, "bg", f32, (4 * H,)),
+        (w.w_out, "w_out", bf16, (H, Vp)), (w.b_out, "b_out", f32, (Vp,))))
+    fn = _build.entry("rollout", 26, 9, (ctypes.c_uint32, ctypes.c_float))
     dev = h0.device
     n_tiles = (Vp + TILE_N - 1) // TILE_N
     e = lambda *shape, dt=f32: torch.empty(*shape, device=dev, dtype=dt)
-    hbuf, cbuf, ctx = e(2, B, H), e(2, B, H), e(B, H)
+    hbuf, cbuf = e(2, B, H), e(2, B, H)
+    xh, q = e(B, E + 2 * H, dt=bf16), e(B, A, dt=bf16)
     tok, fin = e(B, dt=torch.int32), e(B, dt=torch.int32)
     tmax, tsum, tnoisy, tclean = (e(B, n_tiles) for _ in range(4))
     tcol = e(B, n_tiles, dt=torch.int32)
@@ -245,8 +238,8 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
              frame_mask.data_ptr(), h0.data_ptr(), c0.data_ptr(),
              w.wq.data_ptr(), w.u.data_ptr(), w.wg.data_ptr(),
              w.bg.data_ptr(), w.w_out.data_ptr(), w.b_out.data_ptr(),
-             hbuf.data_ptr(), cbuf.data_ptr(), ctx.data_ptr(), tok.data_ptr(),
-             fin.data_ptr(), tmax.data_ptr(), tsum.data_ptr(),
+             hbuf.data_ptr(), cbuf.data_ptr(), xh.data_ptr(), q.data_ptr(),
+             tok.data_ptr(), fin.data_ptr(), tmax.data_ptr(), tsum.data_ptr(),
              tnoisy.data_ptr(), tclean.data_ptr(), tcol.data_ptr(),
              out_tok.data_ptr(), out_logp.data_ptr(), out_mask.data_ptr(),
              B, T, E, H, A, Vp, w.vocab_size, max_len, int(sample),
