@@ -13,7 +13,10 @@ and sampled (``scst_cider``) captioning (vocab 12,000, 32 videos) through K3.
 Phases:
 
   1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
-  2 K1 beam_core vs plain             seeded and raised-<eos> weights)
+  2 K1 beam_core vs plain             seeded and raised-<eos> weights; W_out
+                                      resident and streamed; all-equal
+                                      logits; runs repeat; kernels per
+                                      rollout; a vocab too wide to keep)
   3 K2 topk_project vs plain        7 greedy/sample end to end: Captioner
   4 beam end to end: Captioner,     8 CLI: caption --preset msvd_greedy and
     kernels vs plain                  sample --preset scst_cider
@@ -75,6 +78,8 @@ BG, VOCAB_G, VG, L = 32, 12_000, 12_032, 30
 # by a bf16 ulp or two (0.008-0.016 at |logit| ~ 1). Where the plain top-2
 # margin is wider the picks must agree; the log-probs agree within it.
 K3_LOGIT_TOL = 0.03
+# K3's W_out modes (rollout(..., resident_wout=...)), both held in phase 6
+K3_MODES = {"resident": True, "streamed": False}
 # the rollouts held: greedy, and sampled at seeds 1, 2 and temperatures 1, 0.7
 K3_RUNS = (("greedy", False, 0, 1.0), ("sample_s1_t1", True, 1, 1.0),
            ("sample_s1_t0.7", True, 1, 0.7), ("sample_s2_t1", True, 2, 1.0),
@@ -394,7 +399,7 @@ def run_cli(cmd, preset: str, vocab: int, tmp: str, never=()):
     random weights on the synthetic fallback corpus, the output bias of the
     tokens ``never`` at -30 so that they are never picked: checks one
     non-empty caption per video and returns (captions, method, decodes,
-    steps, launches) from the stderr line."""
+    steps, launches, K3's W_out mode or None) from the stderr line."""
     cfg = get_preset(preset)
     weights = os.path.join(tmp, f"{preset}.npz")
     model = init_params(create_model(cfg, vocab), cfg.train.seed)
@@ -415,17 +420,19 @@ def run_cli(cmd, preset: str, vocab: int, tmp: str, never=()):
     if not results or not all(isinstance(c, list) and len(c) == 1 and c[0]
                               for c in results.values()):
         fail(f"CLI {cmd}: every video needs one non-empty caption")
-    line = re.findall(r"\] (\w+): (\d+) decodes, (\d+) steps on .*kernel "
-                      r"launches (\{.*\})", r.stderr)
+    line = re.findall(r"\] (\w+): (\d+) decodes, (\d+) steps on [^;]*"
+                      r"(?:; rollout W_out (\w+))?; kernel launches (\{.*\})",
+                      r.stderr)
     if not line:
         fail(f"CLI {cmd} printed no launch counts: {r.stderr[-2000:]}")
-    method, decodes, steps, launches = line[-1]
-    return results, method, int(decodes), int(steps), json.loads(launches)
+    method, decodes, steps, mode, launches = line[-1]
+    return (results, method, int(decodes), int(steps), json.loads(launches),
+            mode or None)
 
 
 def phase_cli():
     with tempfile.TemporaryDirectory() as tmp:
-        results, method, _, steps, launches = run_cli(
+        results, method, _, steps, launches, _ = run_cli(
             ["caption"], "msrvtt_attn_beam5", VP, tmp)
     if method != "beam" or steps < 1 or launches != {
             "beam_core": steps, "topk_project": steps, "rollout": 0}:
@@ -478,14 +485,35 @@ def check_rollout(tk, lk, mk, pick, margin, logp_ref, tol):
     return problems, err, clear.float().sum().item() / live.float().sum().item()
 
 
+def kernels_per_rollout(w, args, length: int) -> int:
+    """Device kernels one rollout of ``length`` steps enqueues, counted by
+    torch.profiler (copies and fills are not kernels and the wrapper makes
+    none)."""
+    from torch.profiler import ProfilerActivity, profile
+    rollout(w, *args, length)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rollout(w, *args, length)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
 def phase_k3():
     """K3 at msvd_greedy width, greedy and sampled, on the seeded weights
-    and on raised-<eos> copies: (a) each rollout replayed through the plain
-    step along the kernel's tokens; (b) the share of rows identical to the
-    plain rollout on the card, pooled per run over both weight sets, against
-    the plain-on-CPU-vs-card floor less ROW_SLACK, as compare_paths does;
-    (c) finish semantics, and some rows ending before max_len on the
-    raised copies; (d) times and the bound."""
+    and on raised-<eos> copies, in both W_out modes (resident, streamed):
+    (a) each rollout replayed through the plain step along the kernel's
+    tokens; (b) the share of rows identical to the plain rollout on the
+    card, pooled per run over both weight sets, against the plain-on-CPU-
+    vs-card floor less ROW_SLACK, as compare_paths does; (c) finish
+    semantics, and some rows ending before max_len on the raised copies;
+    (d) each rollout run twice gives the same tokens and log-probs; (e) all
+    logits equal (W_out = 0, b_out constant): greedy takes column 0 at every
+    step, sampled what the plain version takes, logp = -log(vocab); (f) one
+    rollout is at most two device kernels, as many at L = 8 as at L = 30;
+    (g) a resident W_out of 65,536 columns is refused (and streams); (h)
+    times of both modes and the bound."""
     cfg = get_preset("msvd_greedy")
     model = init_params(create_model(cfg, VOCAB_G), cfg.train.seed)
     model = model.cuda().eval()
@@ -507,48 +535,104 @@ def phase_k3():
         f.name: getattr(x, f.name).cpu() for f in dataclasses.fields(x)
         if isinstance(getattr(x, f.name), torch.Tensor)})
     args_cpu = tuple(a.cpu() for a in args)
-    problems, errs, clear, same, floors, ended = [], [], [], {}, {}, {}
+    problems, errs, clear, floors = [], [], [], {}
+    same = {m: {} for m in K3_MODES}
+    ended = {m: {} for m in K3_MODES}
     for name, sample, seed, temp in K3_RUNS:
         tol = K3_LOGIT_TOL / temp
-        rows_same, rows_floor = [], []
+        rows_same, rows_floor = {m: [] for m in K3_MODES}, []
         for wname, wt in (("seeded", w), ("raised", raised[sample][0])):
             run = (L, sample, seed, temp)
-            tk, lk, mk = rollout(wt, *args, *run)
             tp, _, _ = rollout_plain(wt, *args, *run)
             tc, _, _ = rollout_plain(cpu(wt), *args_cpu, *run)
-            torch.cuda.synchronize()
-            pick, margin, logp_ref = replay_plain(wt, *args, tk, sample, seed,
-                                                  temp)
-            p, err, c = check_rollout(tk, lk, mk, pick, margin, logp_ref, tol)
-            problems += [f"{name} {wname}: {x}" for x in p]
-            errs.append(err)
-            clear.append(c)
-            rows_same.append((tk == tp).all(1))
             rows_floor.append((tc.cuda() == tp).all(1))
-            if wname == "raised":
-                ended[name] = (tk == EOS).any(1).float().mean().item()
-        same[name] = torch.cat(rows_same).float().mean().item()
+            for mode, resident in K3_MODES.items():
+                tk, lk, mk = rollout(wt, *args, *run, resident_wout=resident)
+                tk2, lk2, _ = rollout(wt, *args, *run, resident_wout=resident)
+                torch.cuda.synchronize()
+                if not (torch.equal(tk, tk2) and torch.equal(lk, lk2)):
+                    problems.append(f"{name} {wname} {mode}: two runs differ")
+                pick, margin, logp_ref = replay_plain(wt, *args, tk, sample,
+                                                      seed, temp)
+                p, err, c = check_rollout(tk, lk, mk, pick, margin, logp_ref,
+                                          tol)
+                problems += [f"{name} {wname} {mode}: {x}" for x in p]
+                errs.append(err)
+                clear.append(c)
+                rows_same[mode].append((tk == tp).all(1))
+                if wname == "raised":
+                    ended[mode][name] = (tk == EOS).any(1).float().mean().item()
+        for mode in K3_MODES:
+            same[mode][name] = torch.cat(rows_same[mode]).float().mean().item()
         floors[name] = torch.cat(rows_floor).float().mean().item()
-    pooled = float(np.mean(list(same.values())))
-    if pooled < min(floors.values()) - ROW_SLACK:
-        problems.append(f"kernel vs plain rollouts: {pooled} of the rows "
-                        f"identical, below the lowest plain CPU-vs-card floor "
-                        f"{min(floors.values())} less {ROW_SLACK}")
-    for mode in ("greedy", "sample"):
-        share = [v for k, v in ended.items() if k.startswith(mode)]
-        if not 0 < float(np.mean(share)) < 1:
-            problems.append(f"raised-<eos> {mode}: share of rows ending "
-                            f"{share}: need some to end and some not")
+    pooled = {m: float(np.mean(list(same[m].values()))) for m in K3_MODES}
+    for mode in K3_MODES:
+        if pooled[mode] < min(floors.values()) - ROW_SLACK:
+            problems.append(f"kernel vs plain rollouts, {mode}: "
+                            f"{pooled[mode]} of the rows identical, below the "
+                            f"lowest plain CPU-vs-card floor "
+                            f"{min(floors.values())} less {ROW_SLACK}")
+        for kind in ("greedy", "sample"):
+            share = [v for k, v in ended[mode].items() if k.startswith(kind)]
+            if not 0 < float(np.mean(share)) < 1:
+                problems.append(f"raised-<eos> {kind} {mode}: share of rows "
+                                f"ending {share}: need some to end and some "
+                                "not")
+    # (e) all logits equal
+    flat = dataclasses.replace(w, w_out=torch.zeros_like(w.w_out),
+                               b_out=torch.full_like(w.b_out, 0.5))
+    flat_logp = -float(np.log(VOCAB_G))
+    for mode, resident in K3_MODES.items():
+        for sample in (False, True):
+            tk, lk, _ = rollout(flat, *args, L, sample, 1, 1.0,
+                                resident_wout=resident)
+            tp, _, _ = rollout_plain(flat, *args, L, sample, 1, 1.0)
+            if not sample and not (tk == 0).all():
+                problems.append(f"all-equal logits, greedy {mode}: picks "
+                                f"{tk.unique().tolist()[:8]}, not column 0")
+            if sample and not torch.equal(tk, tp):
+                problems.append(f"all-equal logits, sampled {mode}: "
+                                f"{(tk != tp).sum().item()} picks differ from "
+                                "the plain version's")
+            if not torch.allclose(lk, torch.full_like(lk, flat_logp),
+                                  rtol=0, atol=1e-4):
+                problems.append(f"all-equal logits, {mode}: logp "
+                                f"{lk.min().item()}..{lk.max().item()}, not "
+                                f"{flat_logp}")
+    # (f) kernels per rollout
+    kernels = {n: kernels_per_rollout(w, args, n) for n in (L, 8)}
+    if not 1 <= kernels[L] == kernels[8] <= 2:
+        problems.append(f"device kernels per rollout {kernels} (L = {L}, 8):"
+                        " need the same count, at most 2")
+    # (g) a vocab too wide for a resident W_out
+    wide_vp = 65_536
+    gw = torch.Generator("cuda").manual_seed(5)
+    randn = lambda *shape: torch.randn(*shape, generator=gw, device="cuda")
+    wide = dataclasses.replace(
+        w, emb=(randn(wide_vp, w.emb.shape[1]) * 0.1).bfloat16(),
+        w_out=(randn(w.w_out.shape[0], wide_vp) * 0.05).bfloat16(),
+        b_out=torch.zeros(wide_vp, device="cuda"), vocab_size=wide_vp)
+    try:
+        rollout(wide, *args, L)
+        problems.append(f"resident_wout=True at Vp={wide_vp} did not raise")
+    except ValueError as e:
+        if "resident_wout=False" not in str(e):
+            problems.append(f"Vp={wide_vp}: the error names no "
+                            f"resident_wout=False: {e}")
+    tw, _, _ = rollout(wide, *args, L, resident_wout=False)
+    if not ((tw >= 0) & (tw < wide_vp)).all():
+        problems.append(f"streamed rollout at Vp={wide_vp}: bad tokens")
     out = dict(max_abs_logp_err=max(errs), clear_step_share_min=min(clear),
                identical_rows=pooled, identical_rows_by_run=same,
                identical_rows_plain_cpu_vs_card_by_run=floors,
                raised_eos_by={"greedy": raised[False][1],
                               "sample": raised[True][1]},
-               raised_eos_rows_ended=ended)
+               raised_eos_rows_ended=ended,
+               kernels_per_rollout_by_length=kernels)
     if problems:
         fail("K3 rollout: " + "; ".join(problems) + " | " + json.dumps(out))
 
-    # (d) the bound: every product once per row and step; the weights, the
+    # (h) the bound: every product once per row and step; the weights, the
     # attention keys/values, h0/c0 and the gathered embedding rows read once
     # per launch (one launch is one rollout), the outputs written once
     E_, H_, A_ = w.emb.shape[1], args[3].shape[1], args[0].shape[2]
@@ -562,6 +646,10 @@ def phase_k3():
     times = dict(
         ms=time_ms(lambda: rollout(w, *args, L), iters=5),
         sample_ms=time_ms(lambda: rollout(w, *args, L, True, 1, 1.0), iters=5),
+        streamed_ms=time_ms(lambda: rollout(w, *args, L, resident_wout=False),
+                            iters=5),
+        streamed_sample_ms=time_ms(lambda: rollout(
+            w, *args, L, True, 1, 1.0, resident_wout=False), iters=5),
         plain_ms=time_ms(lambda: rollout_plain(w, *args, L), iters=2, reps=3),
         matmul_h_wout_ms=time_ms(lambda: torch.matmul(h16, w.w_out)))
     k3 = dict(name="rollout", route="cuda",
@@ -569,7 +657,8 @@ def phase_k3():
               replaces="vidcap_tpu/ops/pallas_decoder.py:338",
               max_abs_err=out["max_abs_logp_err"], ms=times["ms"],
               plain_ms=times["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-              library_ms=None)
+              library_ms=None, mode="resident",
+              kernels_per_rollout=kernels[L])
     return k3, dict(out, **times, bound_flops=flops, bound_bytes=nbytes)
 
 
@@ -606,6 +695,8 @@ def phase_rollout_end_to_end():
             fail(f"{method}: two decodes of the same input and seed differ")
         if method == "sample" and np.array_equal(again[0], again[2]):
             fail("sample: two seeds gave the same tokens")
+        if cap.rollout_resident is not True:
+            fail(f"{method}: the Captioner did not keep W_out resident")
         out[method] = dict(captions_per_s=BG / float(np.median(dts)),
                            trial_captions_per_s=[BG / d for d in dts],
                            decodes=decodes, launches=launches)
@@ -620,15 +711,17 @@ def phase_cli_rollout():
     with tempfile.TemporaryDirectory() as tmp:
         for cmd, preset in ((["caption"], "msvd_greedy"),
                             (["sample", "--seed", "1"], "scst_cider")):
-            results, method, decodes, steps, launches = run_cli(
+            results, method, decodes, steps, launches, mode = run_cli(
                 cmd, preset, VOCAB_G, tmp, never=(PAD, BOS, EOS))
             if method != ("sample" if cmd[0] == "sample" else "greedy") or \
                     decodes < 1 or steps != decodes * L or launches != {
-                        "beam_core": 0, "topk_project": 0, "rollout": decodes}:
+                        "beam_core": 0, "topk_project": 0,
+                        "rollout": decodes} or mode != "resident":
                 fail(f"CLI {cmd}: {method}, {decodes} decodes, {steps} steps,"
-                     f" launches {launches}")
+                     f" launches {launches}, W_out {mode}")
             out[" ".join(cmd)] = dict(preset=preset, videos=len(results),
-                                      decodes=decodes, launches=launches)
+                                      decodes=decodes, launches=launches,
+                                      w_out=mode)
     return out
 
 

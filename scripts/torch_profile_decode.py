@@ -14,7 +14,9 @@ more decode of that same input with ``torch.profiler``. It prints the
 device time by kernel, the device-busy time of the profiled decode, the
 median wall time of the unprofiled ones (the profiler slows the host, so
 its own wall time is printed apart), their ratio as the device-busy share,
-and the card (``nvidia-smi`` name and power limit).
+the device kernels of the profiled decode (greedy and sample: K3 is one
+persistent kernel a rollout; ``init_state`` adds PyTorch's own), K3's W_out
+mode, and the card (``nvidia-smi`` name and power limit).
 """
 from __future__ import annotations
 
@@ -81,6 +83,8 @@ def main() -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key[:60]] = (e.self_device_time_total / 1e3, e.count)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
+    kernels = sum(n for k, (_, n) in by_kernel.items()
+                  if not k.startswith(("Memcpy", "Memset")))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -89,7 +93,9 @@ def main() -> int:
         "steps": cap.decode_steps - steps0, "device_busy_ms": busy_ms,
         "wall_ms": wall_ms, "wall_ms_each": walls,
         "profiled_wall_ms": profiled_wall_ms,
-        "device_busy_share": busy_ms / wall_ms,
+        "device_busy_share": busy_ms / wall_ms, "device_kernels": kernels,
+        "rollout_w_out": (None if cap.rollout_resident is None else
+                          "resident" if cap.rollout_resident else "streamed"),
         "top_device_ms": dict(sorted(by_kernel.items(),
                                      key=lambda kv: -kv[1][0])[:8])}))
     return 0

@@ -182,18 +182,19 @@ def _rollout_args(dev, B=24, T=10, E=64, H=64, A=32, Vp=384, vocab=300,
                t(g.normal(size=(B, H))))
 
 
-@pytest.mark.parametrize("sample,seed,temperature", [
-    (False, 0, 1.0), (True, 1, 1.0), (True, 2, 0.7)])
-def test_rollout_matches_plain(dev, sample, seed, temperature):
+@pytest.mark.parametrize("sample,seed,temperature,B", [
+    (False, 0, 1.0, 24), (True, 1, 1.0, 24), (True, 2, 0.7, 24),
+    (True, 4, 1.0, 40)])   # 40 rows: two launches of up to 32
+def test_rollout_matches_plain(dev, sample, seed, temperature, B):
     """The kernel's rollout, replayed through the plain version: its tokens
     are the plain picks wherever the plain top-2 margin is clear, its logp
     within the tolerance; PAD, logp 0 and mask 0 after the first <eos>."""
-    w, args = _rollout_args(dev)
+    w, args = _rollout_args(dev, B=B)
     L = 12
     n = _build.launch_counts["rollout"]
     tk, lk, mk = rollout(w, *args, L, sample, seed, temperature)
     torch.cuda.synchronize()
-    assert _build.launch_counts["rollout"] == n + 1
+    assert _build.launch_counts["rollout"] == n + -(-B // 32)
     pick, margin, logp = replay_plain(w, *args, tk, sample, seed, temperature)
     tol = K3_LOGIT_TOL / temperature
     live = mk > 0
@@ -207,6 +208,21 @@ def test_rollout_matches_plain(dev, sample, seed, temperature):
     assert 0 < (tk == EOS).any(1).sum().item() < tk.shape[0]
     tp, _, mp = rollout_plain(w, *args, L, sample, seed, temperature)
     assert (tk == tp).all(1).float().mean().item() >= 0.5
+
+
+@pytest.mark.parametrize("sample,seed,temperature", [
+    (False, 0, 1.0), (True, 3, 0.7)])
+def test_rollout_modes_agree_and_repeat(dev, sample, seed, temperature):
+    """W_out resident and streamed give the same tokens, log-probs and mask,
+    and a rollout run again gives them again: the blocks' hand-offs through
+    memory leave no race."""
+    w, args = _rollout_args(dev)
+    runs = [rollout(w, *args, 12, sample, seed, temperature,
+                    resident_wout=resident)
+            for resident in (True, True, False, False)]
+    torch.cuda.synchronize()
+    for got in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(got, runs[0]))
 
 
 def test_rollout_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -75,8 +75,12 @@ def _decode_split(args, cfg: Config, method: str, beam: int = 5,
     else:
         for vid, caps in list(results.items())[:20]:
             print(f"{vid}\t{caps[0]}")
+    mode = ""
+    if cap.rollout_resident is not None and cap.device.type == "cuda":
+        mode = "; rollout W_out " + ("resident" if cap.rollout_resident
+                                     else "streamed")
     print(f"[vidcap] {method}: {cap.decode_calls} decodes, "
-          f"{cap.decode_steps} steps on {cap.device}; kernel launches "
+          f"{cap.decode_steps} steps on {cap.device}{mode}; kernel launches "
           f"{json.dumps(launch_counts)}", file=sys.stderr)
 
 

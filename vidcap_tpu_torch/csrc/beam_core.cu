@@ -16,8 +16,7 @@
 // reading keys[b] and values[b] once for all K beams and writing ctx into
 // xh; the gate GEMM, TMA + wgmma through a 4-stage mbarrier ring with a
 // producer warp and two consumer warpgroups, promoted 32-deep partial sums
-// and the LSTM update in its epilogue. The embedding rows are dense f32
-// rows (vidcap::DenseEmb).
+// and the LSTM update in its epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,8 +45,7 @@ extern "C" int vidcap_beam_core(const void* emb, const void* h, const void* c,
   err = recurrent_setup();
   if (err) return err;
   return recurrent_step(
-      maps, DenseEmb{static_cast<const float*>(emb)},
-      static_cast<const float*>(h), static_cast<const float*>(c),
+      maps, static_cast<const float*>(emb), static_cast<const float*>(h), static_cast<const float*>(c),
       static_cast<const bf16*>(keys), static_cast<const bf16*>(values),
       static_cast<const float*>(fmask), static_cast<const float*>(u),
       static_cast<const float*>(bg), static_cast<bf16*>(xh),

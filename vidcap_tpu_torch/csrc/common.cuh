@@ -3,7 +3,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace vidcap {
 
@@ -27,6 +26,17 @@ __device__ __forceinline__ uint4 bf16x8(const float* p) {
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   return make_uint4(pack2(a.x, a.y), pack2(a.z, a.w), pack2(b.x, b.y),
                     pack2(b.z, b.w));
+}
+
+// the eight bf16 of a 16-byte vector as floats
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(p[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
 }
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -55,22 +65,11 @@ __device__ __forceinline__ bool before(float v1, int i1, float v2, int i2) {
 // acc[i] += part[i], element by element, in f32 with round-to-nearest. The
 // tensor cores' own f32 accumulation rounds less exactly; chained over a deep
 // product its error grows several times past an f32 GEMM's, so the kernels
-// let it sum only 32-deep slices and add each slice here. This form takes
-// wgmma accumulators (register arrays); the one below wmma fragments.
+// let it sum only 32-deep slices and add each slice here.
 template <int N>
 __device__ __forceinline__ void promote(float (&acc)[N], const float (&part)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] += part[i];
-}
-
-template <int N>
-__device__ __forceinline__ void promote(
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (&acc)[N],
-    const nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (&part)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < acc[i].num_elements; ++e) acc[i].x[e] += part[i].x[e];
 }
 
 }  // namespace vidcap

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the tensor-core kernels: mbarriers, TMA
-// tile loads, wgmma on shared-memory descriptors, and the host-side encoding
-// of TMA tensor maps.
+// tile loads, wgmma on shared-memory descriptors, the host-side encoding of
+// TMA tensor maps, and the grid barrier and cooperative launch of a
+// persistent kernel (K3).
 //
 // The operand layouts every product here uses (bf16, f32 accumulate):
 //  A, K-major (rows of the activations, depth contiguous): TMA boxes of
@@ -18,6 +19,7 @@
 // out-of-bounds fill), so ragged edges need no masking in the product.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,7 +276,9 @@ static int allow_max_smem() {
 // A 2-D bf16 tensor map: `cols` innermost (contiguous), `rows` outer with
 // `row_elems` elements from one row to the next; boxes of box_cols x
 // box_rows; 128-byte swizzle for A operands (box_cols = 64), 64-byte for B
-// slabs (box_cols = 32). Needs base and row stride 16-byte aligned.
+// slabs (box_cols = 32), none for 8-column panels (box_cols = 8: a box
+// lands as box_rows rows of 16 bytes). Needs base and row stride 16-byte
+// aligned.
 inline int make_tmap(CUtensorMap* map, const void* base, uint64_t cols,
                      uint64_t rows, uint64_t row_elems, uint32_t box_cols,
                      uint32_t box_rows) {
@@ -287,10 +291,72 @@ inline int make_tmap(CUtensorMap* map, const void* base, uint64_t cols,
   const CUresult r = enc(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
+      box_cols * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
+}
+
+// ---- persistent kernels: grid barrier and cooperative launch ---------------
+
+// Every block of a cooperative launch waits here until all have arrived.
+// cooperative_groups' grid barrier: __syncthreads, a gpu-scope fence and an
+// arrival counter per launch, then a fence again, so that ordinary stores
+// made before it by any block are seen by loads after it in every block.
+// Buffers that blocks hand to each other are read with ld_cg below and are
+// never read by TMA, so no async-proxy fence is needed.
+__device__ __forceinline__ void grid_barrier() {
+  cooperative_groups::this_grid().sync();
+}
+
+// Loads of what other blocks of the launch wrote before the last grid
+// barrier: at L2 (ld.global.cg, never the non-coherent path or a stale L1
+// line), and volatile with a memory clobber, so that the compiler neither
+// moves one across a barrier nor issues one that its guard rules out
+// (__ldcg is a plain asm it may speculate or hoist out of the step loop).
+__device__ __forceinline__ float ld_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_cg(const int* p) {
+  int v;
+  asm volatile("ld.global.cg.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned long long ld_cg(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.global.cg.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint4 ld_cg(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Launch `kernel` on `grid` blocks of `threads` that must all be resident at
+// once (cudaLaunchCooperativeKernel). Checks first that the card can hold
+// them with `smem` bytes of dynamic shared memory each; returns
+// cudaErrorCooperativeLaunchTooLarge if not, else the launch's error.
+template <typename Kernel>
+inline int cooperative_launch(Kernel kernel, int grid, int threads,
+                              size_t smem, cudaStream_t s, void** args) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm * sms < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel,
+                                          grid, threads, args, smem, s);
 }
 
 }  // namespace vidcap

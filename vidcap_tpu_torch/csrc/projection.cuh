@@ -3,7 +3,7 @@
 // W_out's 128-column tiles past them, handing each tile's 128 x 128 f32
 // products to the caller's epilogue in registers. With topk_project.cu it
 // replaces the streamed W_out product of vidcap_tpu/ops/pallas_topk.py's
-// _kernel, and the first version's wmma tile (now K3's own, in rollout.cu).
+// _kernel, and the first version's wmma tile.
 //
 // What bounds it: the tensor cores (15.1 GFLOP at the bench shape, ~15 us);
 // alone it takes about three times that, because the 8 row tiles each read

@@ -1,7 +1,6 @@
-// The recurrent core of one decode step, shared by K1 (beam_core.cu) and K3
-// (rollout.cu); the part of vidcap_tpu/ops/pallas_beam_core.py's
-// _beam_core_kernel and of pallas_decoder.py's _rollout_kernel before the
-// vocab projection. For M = B*K rows (video-major, K rows per video),
+// The recurrent core of one beam step, K1 (beam_core.cu): the part of
+// vidcap_tpu/ops/pallas_beam_core.py's _beam_core_kernel before the vocab
+// projection. For M = B*K rows (video-major, K rows per video),
 //
 //   xh = bf16([emb; ctx; h]) [M, E+2H],  q = bf16(bf16(h) . Wq)
 //   ctx = attention over the video's keys/values with q
@@ -15,8 +14,7 @@
 // four kernels on the caller's stream:
 //
 //  pack_kernel: writes the emb and h columns of xh in bf16, 16 bytes a
-//      thread. The embedding rows come from an `Emb` source: dense f32 rows
-//      (K1) or a bf16 table gathered by each row's token on the device (K3).
+//      thread, from the dense f32 embedding rows of the beam's tokens.
 //  rec_gemm_kernel<QEpilogue>: q = bf16(xh[:, E+H:] . Wq) on tensor cores
 //      (wgmma, TMA ring), over 128-row tiles, so Wq is read once per row
 //      tile and not once per video.
@@ -39,6 +37,8 @@
 // bf16(tanh) a beam step in f32 at full accuracy, on 184 blocks over 132
 // SMs; the two products re-read Wq and Wg from L2 once per 128-row tile and
 // wait for each 32-deep partial sum to be promoted.
+// K3 (rollout.cu) computes the same arithmetic for one row per video inside
+// its persistent kernel and does not launch these.
 // Needs E % 8 == 0, H % 32 == 0, A % 32 == 0 and K <= kMaxBeam.
 #pragma once
 
@@ -54,40 +54,10 @@ constexpr int kMaxBeam = 8;
 constexpr int kAttnThreads = 512;
 constexpr int kPackThreads = 256;
 
-// Embedding rows of xh: dense f32 rows [M, E] (K1).
-struct DenseEmb {
-  const float* emb;
-  __device__ uint4 load8(int row, int k, int E) const {   // bf16 of k..k+7
-    return bf16x8(emb + (size_t)row * E + k);
-  }
-};
-
-// Embedding rows of xh: row tok[r] of a bf16 table [Vp, E] for output row r
-// (K3: the token chosen on the device last step).
-struct TableEmb {
-  const __nv_bfloat16* table;
-  const int* tok;
-  __device__ uint4 load8(int row, int k, int E) const {
-    return *reinterpret_cast<const uint4*>(table + (size_t)tok[row] * E + k);
-  }
-};
-
-// the eight bf16 of a 16-byte vector as floats
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 x = __bfloat1622float2(p[j]);
-    f[2 * j] = x.x;
-    f[2 * j + 1] = x.y;
-  }
-}
-
-// xh[:, 0:E] = bf16(emb), xh[:, E+H:E+2H] = bf16(h); one 8-wide vector a
-// thread.
-template <typename Emb>
+// xh[:, 0:E] = bf16(emb), xh[:, E+H:E+2H] = bf16(h) from the dense f32
+// rows emb [M, E] and h [M, H]; one 8-wide vector a thread.
 __global__ void __launch_bounds__(kPackThreads)
-pack_kernel(Emb emb, const float* __restrict__ h,
+pack_kernel(const float* emb, const float* __restrict__ h,
             __nv_bfloat16* __restrict__ xh, int M, int E, int H) {
   const int per_row = (E + H) / 8;
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
@@ -95,7 +65,7 @@ pack_kernel(Emb emb, const float* __restrict__ h,
   const int row = v / per_row, c8 = (v % per_row) * 8;
   __nv_bfloat16* dst = xh + (size_t)row * (E + 2 * H);
   if (c8 < E)
-    *reinterpret_cast<uint4*>(dst + c8) = emb.load8(row, c8, E);
+    *reinterpret_cast<uint4*>(dst + c8) = bf16x8(emb + (size_t)row * E + c8);
   else
     *reinterpret_cast<uint4*>(dst + H + c8) =
         bf16x8(h + (size_t)row * H + (c8 - E));
@@ -353,8 +323,7 @@ rec_gemm_kernel(const __grid_constant__ CUtensorMap ta,
   epi(acc, row0 + wg * 64);
 }
 
-// The four TMA maps of one recurrent step; made once per call on the host
-// (K3: once per rollout, the buffers stay put across its steps).
+// The four TMA maps of one recurrent step; made once per call on the host.
 struct RecurrentMaps {
   CUtensorMap q_a, q_b, g_a, g_b;
 };
@@ -384,17 +353,17 @@ inline int recurrent_setup() {
 // One recurrent step for M = B*K rows: xh and q are scratch; h' and c' are
 // written to h_out, c_out (which must not alias h, c). Returns the
 // cudaError_t of the launches.
-template <typename Emb>
-inline int recurrent_step(const RecurrentMaps& m, Emb emb, const float* h,
-                          const float* c, const __nv_bfloat16* keys,
+inline int recurrent_step(const RecurrentMaps& m, const float* emb,
+                          const float* h, const float* c,
+                          const __nv_bfloat16* keys,
                           const __nv_bfloat16* values, const float* fmask,
                           const float* u, const float* bg, __nv_bfloat16* xh,
                           __nv_bfloat16* q, float* h_out, float* c_out, int B,
                           int K, int T, int E, int H, int A, cudaStream_t s) {
   const int M = B * K;
   const int vecs = M * (E + H) / 8;
-  pack_kernel<Emb><<<(vecs + kPackThreads - 1) / kPackThreads, kPackThreads, 0,
-                     s>>>(emb, h, xh, M, E, H);
+  pack_kernel<<<(vecs + kPackThreads - 1) / kPackThreads, kPackThreads, 0, s>>>(
+      emb, h, xh, M, E, H);
   const int row_tiles = (M + kGemmRows - 1) / kGemmRows;
   rec_gemm_kernel<QEpilogue><<<dim3(row_tiles, (A + kWgCols - 1) / kWgCols),
                                kGemmThreads, kGemmSmem, s>>>(

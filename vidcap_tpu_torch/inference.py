@@ -22,7 +22,8 @@ from vidcap_tpu_torch.models.decoding import (BeamWeights, beam_decode,
                                               use_finished_pool)
 from vidcap_tpu_torch.models.model import (VidCapModel, create_model,
                                            init_params)
-from vidcap_tpu_torch.ops.rollout import RolloutWeights, model_rollout
+from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
+                                          resident_mode)
 
 
 class NoDeviceError(RuntimeError):
@@ -55,6 +56,9 @@ class Captioner:
         self._sample_calls = 0        # makes successive sample seeds differ
         self._beam_weights: Optional[BeamWeights] = None
         self._rollout_weights: Optional[RolloutWeights] = None
+        # K3's W_out mode of the last greedy/sample decode: True resident in
+        # shared memory, False streamed from L2 (ops/rollout.py)
+        self.rollout_resident: Optional[bool] = None
         self.decode_calls = 0   # decode_batch calls run so far
         self.decode_steps = 0   # decode steps run so far, any method (early
         #   exit ends some beam decodes; a greedy/sample rollout runs max_len)
@@ -109,10 +113,13 @@ class Captioner:
         if self._rollout_weights is None:
             self._rollout_weights = RolloutWeights.from_model(self.model)
         sample = method == "sample"
+        self.rollout_resident = resident_mode(self._rollout_weights,
+                                              f.shape[1], self.device)
         r = model_rollout(self.model, f, m, self.max_len, sample=sample,
                           seed=self._sample_seed(seed) if sample else 0,
                           temperature=temperature if sample else 1.0,
-                          weights=self._rollout_weights)
+                          weights=self._rollout_weights,
+                          resident_wout=self.rollout_resident)
         self.decode_calls += 1
         self.decode_steps += self.max_len
         return r.tokens.cpu().numpy()

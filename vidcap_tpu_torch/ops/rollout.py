@@ -17,7 +17,10 @@ BOS first, each of the max_len steps:
 Ties go to the smallest column. There is no early exit: all max_len steps
 run. :func:`rollout` launches the kernel for CUDA tensors and runs
 :func:`rollout_plain` for CPU tensors; it never falls back from one to the
-other.
+other. On the card the kernel keeps W_out in shared memory for the whole
+rollout (``resident_wout=True``) or streams it from L2 each step
+(``False``), as ``pallas_rollout`` does; :func:`resident_mode` is the
+choice ``model_rollout`` and ``Captioner`` make.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD
 from vidcap_tpu_torch.models.decoder import NEG
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core_plain
-from vidcap_tpu_torch.ops.topk_project import TILE_N, masked_logits
+from vidcap_tpu_torch.ops.topk_project import masked_logits
 
 _U32 = 0xFFFFFFFF
 
@@ -194,13 +197,131 @@ def replay_plain(w: RolloutWeights, keys, values, frame_mask, h0, c0,
             torch.stack(logps, 1))
 
 
+# The kernel's grid and shared memory (csrc/rollout.cu): one block per SM;
+# a launch takes up to ROWS rows; a block holds HID hidden columns of the
+# gates, a slice of W_out's columns (resident) or streams it through STAGES
+# ring stages of up to PASS_COLS columns.
+ROWS, HID, STAGES, PASS_COLS = 32, 4, 3, 128
+H100_SMS, H100_SMEM = 132, 232_448   # SMs; shared memory a block may opt into
+MAX_WIDTH = 512   # hidden and attention widths: a column pair per thread
+MAX_GRID = 256    # blocks: a warp merges a row's partials, 8 a lane
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def vocab_slice_cols(vp: int, blocks: int) -> int:
+    """W_out columns each block of the kernel holds: ``vp / blocks`` rounded
+    up to a multiple of 8 (an 8-column panel). The last blocks may hold
+    fewer, or none. Wq's columns are sliced by the same rule."""
+    return _up(-(-vp // 8), blocks) // blocks * 8
+
+
+def rollout_smem_bytes(resident: bool, vp: int, e: int, h: int, a: int,
+                       t: int, blocks: int) -> int:
+    """Shared memory one block of the kernel takes (``smem_layout`` in
+    csrc/rollout.cu, plus its 8 static bytes): the W_out slice (resident) or
+    its ring, Wg's 16 gate columns, the Wq slice, the b_out slice, bf16(h)
+    of 32 rows (or the gate partials, whichever is larger), c, the pick
+    partials, the scores, the barriers and 1 KB for alignment."""
+    nc, qc = vocab_slice_cols(vp, blocks), vocab_slice_cols(a, blocks)
+    kd = 64 if h % 64 == 0 else 32
+    wout = nc * h * 2 if resident else STAGES * min(nc, PASS_COLS) * kd * 2
+    parts = (wout, 2 * (e + 2 * h) * 16, qc * h * 2, nc * 4,
+             max(ROWS * (h + 8) * 2, 8 * ROWS * 4 * HID * 4), ROWS * HID * 4,
+             4 * ROWS * 5 * 4, t * 4, 8 * (1 + STAGES))
+    return sum(_up(x, 128) for x in parts) + 1024 + 8
+
+
+def rollout_fits_resident(vp: int, e: int, h: int, a: int, t: int,
+                          blocks: int = H100_SMS,
+                          smem_per_block: int = H100_SMEM) -> bool:
+    """Whether the kernel can keep W_out resident in shared memory on a card
+    of ``blocks`` SMs that lets a block take ``smem_per_block`` bytes (the
+    H100's by default): the choice ``model_rollout`` and ``Captioner`` make.
+    When it does not, W_out streams from L2 each step (``resident_wout=
+    False``), as the reference's ``pallas_rollout(resident_wout=False)``."""
+    return rollout_smem_bytes(True, vp, e, h, a, t, blocks) <= smem_per_block
+
+
+_limits = {}
+
+
+def device_limits(dev: torch.device) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt into) of a CUDA device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _limits:
+        lib = _build.load("rollout")
+        smem, sms = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(idx):
+            _build.check(lib.vidcap_rollout_limits(ctypes.byref(smem),
+                                                   ctypes.byref(sms)),
+                         "rollout")
+        _limits[idx] = (sms.value, smem.value)
+    return _limits[idx]
+
+
+def resident_mode(w: RolloutWeights, frames: int, device) -> bool:
+    """The W_out mode of a rollout of these weights over ``frames`` frames
+    on ``device``: resident when it fits (:func:`rollout_fits_resident`),
+    else streamed. True on the CPU, whose plain version has no mode."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    sms, smem = device_limits(device)
+    (H, A), (Vp, E) = w.wq.shape, w.emb.shape
+    return rollout_fits_resident(Vp, E, H, A, frames, sms, smem)
+
+
+def select_sliced_plain(clean, sample: bool, seed, step: int,
+                        slice_cols: int):
+    """:func:`select_plain` by the kernel's decomposition: the columns in
+    contiguous slices of ``slice_cols`` (one per block; slices past the
+    width are empty); per slice its max m_j, Σ exp(clean − m_j) and best
+    (noisy desc, column asc) with its clean value; merged in slice order:
+    lse = m + log(max(Σ_j s_j · exp(m_j − m), 1e-30)) and the best of the
+    slices' bests, ties to the smaller column. Returns (pick i64[B], logp
+    f32[B]). The CPU tests hold it to :func:`select_plain`."""
+    scored = gumbel_noise(clean, seed, step) if sample else clean
+    B, V = clean.shape
+    m = torch.full((B,), -torch.inf)
+    s = torch.zeros(B)
+    bv = torch.full((B,), -torch.inf)
+    bc = torch.zeros(B)
+    bi = torch.full((B,), 2 ** 31 - 1, dtype=torch.long)
+    for c0 in range(0, _up(V, slice_cols), slice_cols):
+        x, nz = clean[:, c0:c0 + slice_cols], scored[:, c0:c0 + slice_cols]
+        if x.shape[1] == 0:
+            continue   # an empty slice: (−inf, 0, −inf, 2³¹−1) merges to nothing
+        mj = x.max(-1).values
+        sj = torch.exp(x - mj[:, None]).sum(-1)
+        vj, ij = nz.max(-1)   # the first maximum: the smallest column
+        cj = x.gather(1, ij[:, None])[:, 0]
+        mn = torch.maximum(m, mj)
+        s = torch.where(m > -torch.inf, s * torch.exp(m - mn), 0.0) \
+            + sj * torch.exp(mj - mn)
+        m = mn
+        take = (vj > bv) | ((vj == bv) & (ij + c0 < bi))
+        bv, bc = torch.where(take, vj, bv), torch.where(take, cj, bc)
+        bi = torch.where(take, ij + c0, bi)
+    return bi, bc - (m + torch.log(torch.clamp(s, min=1e-30)))
+
+
 def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
             max_len: int, sample: bool = False, seed: int = 0,
-            temperature: float = 1.0
+            temperature: float = 1.0, resident_wout: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """keys bf16[B, T, A], values bf16[B, T, H], frame_mask f32[B, T],
     h0/c0 f32[B, H] and the weights of :class:`RolloutWeights` → (tokens
-    i32[B, L], logp f32[B, L], mask f32[B, L]); one host call, one count."""
+    i32[B, L], logp f32[B, L], mask f32[B, L]).
+
+    On the card: one launch of the persistent kernel per 32 rows (one for
+    B ≤ 32), one count each. ``resident_wout`` mirrors
+    ``pallas_rollout(resident_wout=...)``: True keeps W_out in shared
+    memory for the whole rollout and raises ValueError if it does not fit
+    (:func:`rollout_fits_resident`); False streams it from L2 each step.
+    CPU tensors take :func:`rollout_plain`, which has no mode."""
     if not h0.is_cuda:
         return rollout_plain(w, keys, values, frame_mask, h0, c0, max_len,
                              sample, seed, temperature)
@@ -208,13 +329,31 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
     B, T, A = keys.shape
     H = h0.shape[1]
     Vp, E = w.emb.shape
-    if H % 32 or A % 32 or Vp % 8 or E % 8:
-        raise ValueError(f"rollout: hidden {H} and attention {A} widths must "
-                         f"be multiples of 32 and the vocab {Vp} and "
-                         f"embedding {E} widths of 8")
+    dev = h0.device
+    sms, smem = device_limits(dev)
+    if H % 32 or A % 32 or E % 32 or Vp % 8 or max(H, A) > MAX_WIDTH:
+        raise ValueError(f"rollout: embedding {E}, hidden {H} and attention "
+                         f"{A} widths must be multiples of 32, hidden and "
+                         f"attention at most {MAX_WIDTH}, and the vocab "
+                         f"width {Vp} a multiple of 8")
+    if not 2 * ROWS <= sms <= MAX_GRID or H > HID * sms:
+        raise ValueError(f"rollout: the kernel runs one block per SM on "
+                         f"{2 * ROWS}..{MAX_GRID} SMs, {HID} hidden columns "
+                         f"a block; the card has {sms} SMs for hidden {H}")
     if max_len < 1 or not 1 <= w.vocab_size <= Vp:
         raise ValueError(f"rollout: max_len={max_len} must be ≥ 1 and "
                          f"vocab_size={w.vocab_size} in 1..{Vp}")
+    need = rollout_smem_bytes(resident_wout, Vp, E, H, A, T, sms)
+    if need > smem:
+        if resident_wout:
+            raise ValueError(
+                f"rollout: resident W_out needs {need} bytes of shared "
+                f"memory a block ({Vp} vocab columns over {sms} SMs), more "
+                f"than the {smem} the card allows; set resident_wout=False "
+                "to stream W_out from L2 each step")
+        raise ValueError(f"rollout: {need} bytes of shared memory a block "
+                         f"even with W_out streamed, more than the card's "
+                         f"{smem}")
     f32, bf16 = torch.float32, torch.bfloat16
     _build.require("rollout", (
         (keys, "keys", bf16, (B, T, A)), (values, "values", bf16, (B, T, H)),
@@ -223,29 +362,37 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
         (w.wq, "wq", bf16, (H, A)), (w.u, "u", f32, (A,)),
         (w.wg, "wg", bf16, (E + 2 * H, 4 * H)), (w.bg, "bg", f32, (4 * H,)),
         (w.w_out, "w_out", bf16, (H, Vp)), (w.b_out, "b_out", f32, (Vp,))))
-    fn = _build.entry("rollout", 26, 9, (ctypes.c_uint32, ctypes.c_float))
-    dev = h0.device
-    n_tiles = (Vp + TILE_N - 1) // TILE_N
-    e = lambda *shape, dt=f32: torch.empty(*shape, device=dev, dtype=dt)
-    hbuf, cbuf = e(2, B, H), e(2, B, H)
-    xh, q = e(B, E + 2 * H, dt=bf16), e(B, A, dt=bf16)
-    tok, fin = e(B, dt=torch.int32), e(B, dt=torch.int32)
-    tmax, tsum, tnoisy, tclean = (e(B, n_tiles) for _ in range(4))
-    tcol = e(B, n_tiles, dt=torch.int32)
-    out_tok, out_logp, out_mask = e(B, max_len, dt=torch.int32), \
-        e(B, max_len), e(B, max_len)
-    err = fn(w.emb.data_ptr(), keys.data_ptr(), values.data_ptr(),
-             frame_mask.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-             w.wq.data_ptr(), w.u.data_ptr(), w.wg.data_ptr(),
-             w.bg.data_ptr(), w.w_out.data_ptr(), w.b_out.data_ptr(),
-             hbuf.data_ptr(), cbuf.data_ptr(), xh.data_ptr(), q.data_ptr(),
-             tok.data_ptr(), fin.data_ptr(), tmax.data_ptr(), tsum.data_ptr(),
-             tnoisy.data_ptr(), tclean.data_ptr(), tcol.data_ptr(),
-             out_tok.data_ptr(), out_logp.data_ptr(), out_mask.data_ptr(),
-             B, T, E, H, A, Vp, w.vocab_size, max_len, int(sample),
-             int(seed) & _U32, inv_t, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "rollout")
-    _build.launch_counts["rollout"] += 1
+    fn = _build.entry("rollout", 24, 14, (ctypes.c_uint32, ctypes.c_float))
+    n = min(B, ROWS)
+    # scratch handed between the blocks: bf16 [emb; ctx], bf16(h'), q, per
+    # (row, block) the pick partials (max, exp-sum, best noisy, its clean
+    # value f32; its column i32), and two steps' pick keys per row (u64)
+    buf, (xh, h16, q, pm, ps, pn, pc, pi, pick) = _build.scratch(dev, (
+        n * (E + H) * 2, n * H * 2, n * A * 2, *(n * sms * 4,) * 5, 2 * n * 8))
+    out_tok = torch.empty(B, max_len, device=dev, dtype=torch.int32)
+    out_logp = torch.empty(B, max_len, device=dev, dtype=f32)
+    out_mask = torch.empty(B, max_len, device=dev, dtype=f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nc, qc = vocab_slice_cols(Vp, sms), vocab_slice_cols(A, sms)
+    for r0 in range(0, B, ROWS):
+        r1 = min(B, r0 + ROWS)
+        at = lambda x: x.data_ptr() + r0 * x.stride(0) * x.element_size()
+        err = fn(w.emb.data_ptr(), at(keys), at(values), at(frame_mask),
+                 at(h0), at(c0), w.wq.data_ptr(), w.u.data_ptr(),
+                 w.wg.data_ptr(), w.bg.data_ptr(), w.w_out.data_ptr(),
+                 w.b_out.data_ptr(), xh, h16, q, pm, ps, pn, pc, pi, pick,
+                 at(out_tok), at(out_logp), at(out_mask), r1 - r0, T, E, H, A,
+                 Vp, w.vocab_size, max_len, r0, sms, nc, qc,
+                 int(resident_wout), int(sample), int(seed) & _U32, inv_t,
+                 stream)
+        if err == 82:   # cudaErrorCooperativeLaunchTooLarge
+            raise RuntimeError(
+                f"rollout: the card cannot hold all {sms} blocks of the "
+                f"persistent kernel at once ({need} bytes of shared memory "
+                "and 256 threads a block); the cooperative launch was "
+                "refused")
+        _build.check(err, "rollout")
+        _build.launch_counts["rollout"] += 1
     return out_tok, out_logp, out_mask
 
 
@@ -253,15 +400,21 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
 def model_rollout(model, feats, frame_mask, max_len: int,
                   sample: bool = False, seed: int = 0,
                   temperature: float = 1.0,
-                  weights: Optional[RolloutWeights] = None):
+                  weights: Optional[RolloutWeights] = None,
+                  resident_wout: Optional[bool] = None):
     """The model's ``init_state`` (feature/key projections, h0/c0), then
     :func:`rollout`. ``weights``: :meth:`RolloutWeights.from_model` of this
-    model, cast once by the caller, or None to cast them here. Returns a
-    ``models.decoding.Rollout``."""
+    model, cast once by the caller, or None to cast them here.
+    ``resident_wout``: None takes :func:`resident_mode` (resident where it
+    fits, else streamed). Returns a ``models.decoding.Rollout``."""
     from vidcap_tpu_torch.models.decoding import Rollout
     state = model.init_state(feats, frame_mask)
     w = weights if weights is not None else RolloutWeights.from_model(model)
+    if resident_wout is None:
+        resident_wout = resident_mode(w, state.keys.shape[1],
+                                      state.keys.device)
     toks, logp, mask = rollout(
         w, state.keys, state.values, state.frame_mask, state.h[0].contiguous(),
-        state.c[0].contiguous(), max_len, sample, seed, temperature)
+        state.c[0].contiguous(), max_len, sample, seed, temperature,
+        resident_wout)
     return Rollout(tokens=toks, logp=logp, mask=mask)
