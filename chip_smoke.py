@@ -5,12 +5,13 @@
 
 Builds the Hopper kernels from ``vidcap_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version at the shapes of its path, and drives
-the port's two paths through ``Captioner`` and the CLI with seeded random
-weights, showing with the launch counts that each went through its kernels:
-beam-5 captioning under preset ``msrvtt_attn_beam5`` (vocab 16,000, 184
-videos of synthetic features) through K1 and K2, and greedy (``msvd_greedy``)
-and sampled (``scst_cider``) captioning (vocab 12,000, 32 videos) through K3.
-Phases:
+the port's three paths with seeded random weights, showing with the launch
+counts that each went through its kernels: beam-5 captioning under preset
+``msrvtt_attn_beam5`` (vocab 16,000, 184 videos of synthetic features)
+through K1 and K2; greedy (``msvd_greedy``) and sampled (``scst_cider``)
+captioning (vocab 12,000, 32 videos) through K3; and the staged XE → SCST
+training of ``scst_cider`` (B=32, vocab 12,000), whose SCST step runs its
+sampled and greedy rollouts on K3. Phases:
 
   1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
   2 K1 beam_core vs plain             seeded and raised-<eos> weights; W_out
@@ -20,7 +21,10 @@ Phases:
   3 K2 topk_project vs plain        7 greedy/sample end to end: Captioner
   4 beam end to end: Captioner,     8 CLI: caption --preset msvd_greedy and
     kernels vs plain                  sample --preset scst_cider
-  5 CLI: caption (beam)             9 the kernels line (one JSON object)
+  5 CLI: caption (beam)             9 an SCST step at scst_cider width: K3
+                                      vs plain rollouts, times
+                                   10 CLI: train --stages xe,scst, --resume
+  then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device
@@ -49,11 +53,19 @@ from vidcap_tpu_torch.models.decoder import NEG, DecoderState
 from vidcap_tpu_torch.models.decoding import (beam_decode, fused_beam_step,
                                               tile_recurrent)
 from vidcap_tpu_torch.models.model import create_model, init_params
+from vidcap_tpu_torch.objectives.xe import shift_right
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
                                           rollout, rollout_plain, step_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
+from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
+from vidcap_tpu_torch.models.decoding import Rollout
+from vidcap_tpu_torch.train.loop import batch_to_device
+from vidcap_tpu_torch.train.scst import make_scst_step_body
+from vidcap_tpu_torch.train.state import (create_train_state,
+                                          optax_global_norm)
+from vidcap_tpu_torch.train.steps import apply_loss
 
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
@@ -84,6 +96,13 @@ K3_MODES = {"resident": True, "streamed": False}
 K3_RUNS = (("greedy", False, 0, 1.0), ("sample_s1_t1", True, 1, 1.0),
            ("sample_s1_t0.7", True, 1, 0.7), ("sample_s2_t1", True, 2, 1.0),
            ("sample_s2_t0.7", True, 2, 0.7))
+# Phase 9: the SCST step's rewards and loss pieces, kernel rollouts vs plain
+# ones on the rows where they are identical: the same code on the same
+# tokens, so only the card's reductions may reorder (1e-5 relative); two
+# runs of the step at one seed, the same (the embedding's gradient sums by
+# index, whose order the card may change: 1e-6 relative).
+SCST_TOL, REPEAT_TOL = 1e-5, 1e-6
+SCST_STEPS = 5   # timed steps after one warm-up
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -725,6 +744,251 @@ def phase_cli_rollout():
     return out
 
 
+def scst_dataset(cfg, model, g):
+    """64 videos of N(0,1) features, 5 captions each (up to 29 words, then
+    <eos>), over the 12,000-word vocab: caption 0 of a video is a prefix of
+    the plain greedy rollout of the seeded model on it, the others mix its
+    words with words of a 300-word pool, so that references share n-grams
+    and both rollouts earn rewards above 0."""
+    n = 64
+    feats = g.normal(size=(n, T, D)).astype(np.float32)
+    vocab = vocab_of(VOCAB_G)
+    with torch.inference_mode():
+        st = model.init_state(torch.tensor(feats, device="cuda"))
+        toks, _, _ = rollout_plain(RolloutWeights.from_model(model), st.keys,
+                                   st.values, st.frame_mask, st.h[0], st.c[0],
+                                   L)
+    toks = toks.cpu().numpy()
+    pool = g.integers(4, VOCAB_G, 300)
+    ids = [f"video{i}" for i in range(n)]
+    captions = {}
+    for i, v in enumerate(ids):
+        own = [t for t in toks[i] if t >= 4] or [int(pool[0])]
+        caps = [own[:int(g.integers(8, 30))]]
+        for _ in range(4):
+            k = int(g.integers(5, 30))
+            caps.append([int(own[j % len(own)]) if g.random() < 0.4
+                         else int(g.choice(pool)) for j in range(k)])
+        captions[v] = [" ".join(vocab.id_to_word[t] for t in c)
+                       for c in caps]
+    return CaptionDataset(feats, ids, captions, cfg.data, vocab=vocab)
+
+
+def plain_rollouts(state, batch, seed: int, cfg):
+    """The SCST step's two rollouts through the plain version on the card,
+    as ``ScstStep.rollouts`` takes them through K3."""
+    model, d = state.model, cfg.decode
+    with torch.inference_mode():
+        st = model.init_state(batch["features"])
+        w = RolloutWeights.from_model(model)
+        args = (w, st.keys, st.values, st.frame_mask, st.h[0].contiguous(),
+                st.c[0].contiguous(), d.max_len)
+        return (Rollout(*rollout_plain(*args, True, seed, d.temperature)),
+                Rollout(*rollout_plain(*args)))
+
+
+def loss_pieces(step, state, batch, sample, greedy, rows):
+    """The step's differentiable part on ``rows`` of the batch, without the
+    update: (rewards, metrics with the gradient norm)."""
+    sub = {k: v[rows] for k, v in batch.items()}
+    pick = lambda r: Rollout(r.tokens[rows], r.logp[rows], r.mask[rows])
+    s, gr = pick(sample), pick(greedy)
+    rewards = step.rewards(sub, s, gr)
+    loss, m = step.loss(state.model, sub, s, gr, rewards)
+    params = state.params
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    m["grad_norm"] = optax_global_norm({k: g for k, g in zip(params, grads)
+                                        if g is not None})
+    return rewards, {k: float(v.detach()) for k, v in m.items()}
+
+
+def phase_scst(row_floor: float):
+    """One SCST step at scst_cider width (B=32, vocab 12,000) on the seeded
+    weights: the rollouts through K3 (2 launches) and through the plain
+    version from the same state and seed; the kernel's rows identical to the
+    plain ones on at least ``row_floor`` of them (phase 6's floor), pooled;
+    on identical rows the rewards and the loss pieces of both paths within
+    SCST_TOL; K3's log-probs of the sampled tokens against the
+    differentiable re-score's within K3_LOGIT_TOL / temperature; the loss
+    and gradient norm finite, the parameters changed, two runs at one seed
+    the same. Then the step's time: whole (host clock, synchronized), K3's
+    share (CUDA events around the two rollouts), the reward, the re-score +
+    backward + update; medians of SCST_STEPS steps after one warm-up, the
+    counts at 0 before them and read after."""
+    cfg = get_preset("scst_cider")
+    seed = 12345
+    fresh = lambda: create_train_state(cfg, init_params(
+        create_model(cfg, VOCAB_G), cfg.train.seed).cuda())
+    state = fresh()
+    ds = scst_dataset(cfg, state.model, np.random.default_rng(9))
+    step = make_scst_step_body(cfg, ds)
+    batches = DeterministicBatcher(ds, cfg.train.batch_size, seed=0)
+    batch = batch_to_device(next(batches), "cuda")
+    problems = []
+
+    _build.reset_counts()
+    sample, greedy = step.rollouts(state, batch, seed)
+    torch.cuda.synchronize()
+    one_step = dict(_build.launch_counts)
+    if one_step != {"beam_core": 0, "topk_project": 0, "rollout": 2}:
+        problems.append(f"one SCST step's rollouts launched {one_step}")
+    if step.rollout_resident is not True:
+        problems.append("the SCST step did not keep W_out resident")
+    ps, pg = plain_rollouts(state, batch, seed, cfg)
+    same_s = (sample.tokens == ps.tokens).all(1)
+    same_g = (greedy.tokens == pg.tokens).all(1)
+    identical = torch.cat([same_s, same_g]).float().mean().item()
+    if identical < row_floor:
+        problems.append(f"{identical} of the rollout rows identical to the "
+                        f"plain path, below phase 6's floor {row_floor}")
+    rows = same_s & same_g
+    r_k, m_k = loss_pieces(step, state, batch, sample, greedy, rows)
+    r_p, m_p = loss_pieces(step, state, batch, ps, pg, rows)
+    for a, b in zip(r_k, r_p):
+        if not torch.allclose(a, b, rtol=SCST_TOL, atol=SCST_TOL):
+            problems.append("rewards differ on identical rows")
+    for k in ("pg_loss", "xe_anchor", "attr_loss", "loss", "grad_norm",
+              "reward_sample", "reward_greedy"):
+        if not abs(m_k[k] - m_p[k]) <= SCST_TOL * max(abs(m_p[k]), 1e-6):
+            problems.append(f"{k}: kernel path {m_k[k]}, plain {m_p[k]}")
+    # the kernel's log-probs against the differentiable re-score's
+    with torch.no_grad():
+        logits = state.model.xe_logits(batch["features"], None,
+                                       shift_right(sample.tokens))
+        rescored = torch.log_softmax(logits / cfg.decode.temperature, -1) \
+            .gather(-1, sample.tokens.long()[..., None])[..., 0]
+    live = sample.mask > 0
+    logp_err = (rescored - sample.logp)[live].abs().max().item()
+    if not logp_err <= K3_LOGIT_TOL / cfg.decode.temperature:
+        problems.append(f"K3 logp vs the re-score's: |err| {logp_err}")
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    state, m = step.update(state, batch, sample, greedy)
+    m = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        problems.append(f"non-finite metrics {m}")
+    if all(torch.equal(p, before[k]) for k, p in state.params.items()):
+        problems.append("the step changed no parameter")
+    twin, m2 = step(fresh(), batch, seed)
+    m2 = {k: float(v) for k, v in m2.items()}
+    for k in m:
+        if not abs(m[k] - m2[k]) <= REPEAT_TOL * max(abs(m[k]), 1e-6):
+            problems.append(f"two runs at one seed: {k} {m[k]} vs {m2[k]}")
+    param_repeat = max((p - twin.params[k]).abs().max().item()
+                       for k, p in state.params.items())
+    if not param_repeat <= REPEAT_TOL:
+        problems.append(f"two runs at one seed: parameters {param_repeat} "
+                        "apart")
+
+    # ---- the main path, timed: the counts at 0 just before, read just after
+    _build.reset_counts()
+    times = {"step_ms": [], "rollouts_ms": [], "reward_ms": [],
+             "rescore_backward_update_ms": []}
+    for i in range(1 + SCST_STEPS):
+        b = batch_to_device(next(batches), "cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        s, gr = step.rollouts(state, b)
+        ev[1].record()
+        rewards = step.rewards(b, s, gr)
+        ev[2].record()
+        state, mi = apply_loss(state, *step.loss(state.model, b, s, gr,
+                                                 rewards))
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i:
+            times["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            for k, (a, z) in zip(list(times)[1:], ((0, 1), (1, 2), (2, 3))):
+                times[k].append(ev[a].elapsed_time(ev[z]))
+        if not all(torch.isfinite(v) for v in mi.values()):
+            problems.append(f"step {i}: non-finite metrics")
+    launches = dict(_build.launch_counts)
+    if launches != {"beam_core": 0, "topk_project": 0,
+                    "rollout": 2 * (1 + SCST_STEPS)}:
+        problems.append(f"{1 + SCST_STEPS} SCST steps launched {launches}")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    out = dict(identical_rows=identical, identical_rows_floor=row_floor,
+               rows_compared=int(rows.sum().item()),
+               kernel_path=m_k, plain_path=m_p, logp_vs_rescore=logp_err,
+               step_metrics=m, repeat_param_max_abs_diff=param_repeat,
+               launches=launches, **med,
+               k3_share=med["rollouts_ms"] / med["step_ms"],
+               steps_per_s=1e3 / med["step_ms"], trials=times)
+    if problems:
+        fail("SCST step: " + "; ".join(problems) + " | " + json.dumps(out))
+    return ds, out
+
+
+def phase_cli_train(ds):
+    """``train --preset scst_cider --stages xe,scst --steps 3,3`` on phase
+    9's dataset written as the preset's msrvtt files (vocab 12,000 → Vp
+    12,032), then ``--resume --steps 3,4``: 3 XE rows, then 3 SCST rows,
+    all finite; the stage lines report 0 launches during XE and 6 rollout
+    launches (2 a step) during SCST, W_out resident; stage.json reads scst;
+    the resume runs exactly one more SCST step (2 launches)."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        np.save(os.path.join(data, "msrvtt_train_feats.npy"), ds.features)
+        with open(os.path.join(data, "msrvtt_train_ids.json"), "w") as f:
+            json.dump(ds.video_ids, f)
+        with open(os.path.join(data, "msrvtt_captions.json"), "w") as f:
+            json.dump(ds.video_captions, f)
+        ds.vocab.save(os.path.join(data, "msrvtt_vocab.json"))
+        line = re.compile(r"\[vidcap\] (\w+): (\d+) steps on (\S+?)"
+                          r"(?:; rollout W_out (\w+))?; kernel launches "
+                          r"(\{.*\})")
+        for steps, resume, want in (
+                ("3,3", [], [("xe", 3, 0), ("scst", 3, 6)]),
+                ("3,4", ["--resume"], [("xe", 0, 0), ("scst", 1, 2)])):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "vidcap_tpu_torch", "train",
+                 "--preset", "scst_cider", "--stages", "xe,scst", "--steps",
+                 steps, "--eval-every", "0", "--log-every", "1",
+                 "--set", f"data.data_dir={data}", "--log-file", "log.jsonl",
+                 *resume], cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=600)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                fail(f"CLI train {steps} {resume} exited {r.returncode}: "
+                     f"{r.stderr[-3000:]}")
+            got = [(st, int(n), mode or None, json.loads(lc))
+                   for st, n, _, mode, lc in line.findall(r.stderr)]
+            # (stage, steps, K3's W_out mode, launches) for each stage line
+            ok = got == [(st, n, "resident" if st == "scst" and n else None,
+                          {"beam_core": 0, "topk_project": 0, "rollout": k3})
+                         for st, n, k3 in want]
+            if not ok:
+                fail(f"CLI train {steps} {resume}: stage lines {got}, want "
+                     f"{want}: {r.stderr[-3000:]}")
+            out[f"steps {steps}{' resume' if resume else ''}"] = dict(
+                stages=got, wall_s=wall)
+        with open(os.path.join(tmp, "log.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        kinds = ["xe" if "xe_loss" in r else "scst" if "pg_loss" in r
+                 else "?" for r in rows]
+        finite = all(np.isfinite(v) for r in rows for v in r.values()
+                     if isinstance(v, float))
+        with open(os.path.join(tmp, "checkpoints", "stage.json")) as f:
+            stages = json.load(f)
+        if [r["step"] for r in rows] != list(range(1, 8)) or kinds != \
+                ["xe"] * 3 + ["scst"] * 4 or not finite:
+            fail(f"CLI train: log rows {[(r['step'], k) for r, k in zip(rows, kinds)]}"
+                 f", finite {finite}")
+        if stages.get("7") != "scst" or stages.get("6") != "scst":
+            fail(f"CLI train: stage.json {stages}")
+        out["rows"] = [{k: r[k] for k in ("step", "loss", "grad_norm")
+                        if k in r} for r in rows]
+        out["stage_json"] = stages
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -770,12 +1034,23 @@ def main() -> int:
           f"on {card}: " + json.dumps(roll), flush=True)
     print("phase 8 CLI caption --preset msvd_greedy, sample --preset "
           "scst_cider: " + json.dumps(phase_cli_rollout()), flush=True)
+    row_floor = min(k3_out["identical_rows_plain_cpu_vs_card_by_run"]
+                    .values()) - ROW_SLACK
+    ds, scst = phase_scst(row_floor)
+    print(f"phase 9 SCST step scst_cider B={BG} Vp={VG} L={L} on {card}: "
+          + json.dumps({**scst, "tolerance": {
+              "loss_pieces_and_rewards": SCST_TOL, "repeat": REPEAT_TOL,
+              "logp_vs_rescore": f"{K3_LOGIT_TOL} / temperature"}}),
+          flush=True)
+    print("phase 10 CLI train --preset scst_cider --stages xe,scst: "
+          + json.dumps(phase_cli_train(ds)), flush=True)
 
     # max_abs_err is the max |err| against the plain version (K3: of the
     # log-probs along the kernel's tokens), ms the kernel's time; bound_ms
-    # alone is computed, not measured. K3's launches are those of phase 7's
-    # greedy and sampled paths.
-    k3["launches"] = sum(r["launches"]["rollout"] for r in roll.values())
+    # alone is computed, not measured. K3's launches are those of its main
+    # paths: phase 7's greedy and sampled decodes and phase 9's SCST steps.
+    k3["launches"] = (sum(r["launches"]["rollout"] for r in roll.values())
+                      + scst["launches"]["rollout"])
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]])
                                   for k in (k1, k2)] + [k3]}), flush=True)
     print(gpu_line(), flush=True)

@@ -22,6 +22,13 @@ from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
                                           rollout, rollout_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
+from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
+from vidcap_tpu_torch.models.decoding import Rollout
+from vidcap_tpu_torch.models.model import create_model, init_params
+from vidcap_tpu_torch.objectives.xe import shift_right
+from vidcap_tpu_torch.train.loop import batch_to_device
+from vidcap_tpu_torch.train.scst import make_scst_step_body
+from vidcap_tpu_torch.train.state import create_train_state
 
 pytestmark = pytest.mark.cuda
 
@@ -269,3 +276,48 @@ def test_captioner_beam_goes_through_both_kernels(dev):
     assert _build.launch_counts == {"beam_core": cap.decode_steps,
                                     "topk_project": cap.decode_steps,
                                     "rollout": 0}
+
+
+def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
+    """One SCST step on synthetic_tiny at B=32: its two rollouts are two K3
+    launches; against the plain rollouts from the same state and seed, at
+    least half the rows identical (random weights, as
+    test_rollout_matches_plain), equal rewards on identical rows, and K3's
+    sampled log-probs within K3_LOGIT_TOL of the differentiable re-score's;
+    the update leaves finite metrics and changed parameters."""
+    cfg = get_preset("synthetic_tiny")
+    ds = CaptionDataset.synthetic(cfg.data)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, stage="scst", batch_size=32))
+    state = create_train_state(cfg, init_params(
+        create_model(cfg, ds.vocab.size), 0).to(dev))
+    step = make_scst_step_body(cfg, ds)
+    batch = batch_to_device(next(DeterministicBatcher(ds, 32, seed=0)), dev)
+    _build.reset_counts()
+    sample, greedy = step.rollouts(state, batch, seed=5)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
+                                    "rollout": 2}
+    with torch.no_grad():
+        st = state.model.init_state(batch["features"])
+        w = RolloutWeights.from_model(state.model)
+        args = (w, st.keys, st.values, st.frame_mask, st.h[0], st.c[0],
+                cfg.decode.max_len)
+        ps = Rollout(*rollout_plain(*args, True, 5, cfg.decode.temperature))
+        pg = Rollout(*rollout_plain(*args))
+        logits = state.model.xe_logits(batch["features"], None,
+                                       shift_right(sample.tokens))
+    same = (sample.tokens == ps.tokens).all(1) & (greedy.tokens ==
+                                                  pg.tokens).all(1)
+    assert same.float().mean().item() >= 0.5
+    for a, b in zip(step.rewards(batch, sample, greedy),
+                    step.rewards(batch, ps, pg)):
+        torch.testing.assert_close(a[same], b[same])
+    rescored = torch.log_softmax(logits, -1).gather(
+        -1, sample.tokens.long()[..., None])[..., 0]
+    live = sample.mask > 0
+    assert (rescored - sample.logp)[live].abs().max().item() <= K3_LOGIT_TOL
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    state, m = step.update(state, batch, sample, greedy)
+    assert all(torch.isfinite(v) for v in m.values())
+    assert any(not torch.equal(p, before[k]) for k, p in state.params.items())

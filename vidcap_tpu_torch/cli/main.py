@@ -1,5 +1,9 @@
 """CLI of the PyTorch package:
 
+  python -m vidcap_tpu_torch train --preset scst_cider --stages xe,scst
+      [--steps N | --steps N1,N2] [--batch-size B] [--resume]
+      [--log-file log.jsonl] [--eval-every 0] [--log-every K]
+      [--checkpoint-dir DIR] [--seed S] [--set ...] [--device cpu]
   python -m vidcap_tpu_torch caption --preset msvd_greedy --weights W.npz
       [--method greedy|beam|sample] [--beam 5] [--nbest N] [--temperature T]
       [--seed S] [--split test] [--out caps.json]
@@ -7,15 +11,18 @@
   python -m vidcap_tpu_torch sample --preset scst_cider --weights W.npz
       [--temperature T] [--seed S] [--split test] [--out caps.json] ...
 
-``caption`` decodes the split (the synthetic fixture when the dataset is not
-on disk) with the preset's method unless ``--method`` is given, and writes
-{video_id: [caption, ...]} json; ``sample`` is ``caption --method sample``.
-Both run on the card unless ``--device cpu`` is given. The other commands of
+``train`` runs the preset's stage, or each of ``--stages`` in turn, each
+resuming from the previous one's checkpoint; step counts add up over the
+stages. ``caption`` decodes the split (the synthetic fixture when the
+dataset is not on disk) with the preset's method unless ``--method`` is
+given, and writes {video_id: [caption, ...]} json; ``sample`` is ``caption
+--method sample``. All run on the card unless ``--device cpu`` is given. The other commands of
 the JAX CLI are not ported yet and say which ROADMAP item they wait for.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -24,7 +31,9 @@ from vidcap_tpu_torch.ops._build import launch_counts
 
 # command or flag → the ROADMAP item that ports it
 _NOT_PORTED = {
-    "train": "Queue 1 items 6 and 8 (XE and SCST training)",
+    "--feature-bank": "Queue 1 item 12 (the device feature bank)",
+    "--steps-per-dispatch": "Queue 1 item 12 (multi-step dispatch)",
+    "--sharded": "Queue 1 item 12 (multi-GPU training)",
     "eval": "Queue 1 item 4 remainder (scoring with metrics/evaluate.py)",
     "serve": "Queue 1 item 10 (serving and export)",
     "export": "Queue 1 item 10 (serving and export)",
@@ -40,7 +49,7 @@ def _not_ported(what: str):
         "has it")
 
 
-def _load_dataset(cfg: Config, split: str = "test"):
+def _load_dataset(cfg: Config, split: str):
     from vidcap_tpu_torch.data.loader import CaptionDataset
     if cfg.data.dataset == "synthetic":
         return CaptionDataset.synthetic(cfg.data)
@@ -82,6 +91,56 @@ def _decode_split(args, cfg: Config, method: str, beam: int = 5,
     print(f"[vidcap] {method}: {cap.decode_calls} decodes, "
           f"{cap.decode_steps} steps on {cap.device}{mode}; kernel launches "
           f"{json.dumps(launch_counts)}", file=sys.stderr)
+
+
+def cmd_train(args) -> int:
+    for flag in ("feature_bank", "steps_per_dispatch", "sharded"):
+        if getattr(args, flag):
+            _not_ported("--" + flag.replace("_", "-"))
+    cfg = apply_overrides(get_preset(args.preset), args.set)
+    # --steps: one count for every stage, or a comma list matched to
+    # --stages (e.g. --stages xe,scst --steps 2500,1000)
+    per_stage_steps = None
+    train_over = {}
+    if args.steps:
+        counts = [int(s) for s in str(args.steps).split(",")]
+        if len(counts) > 1:
+            per_stage_steps = counts
+        train_over["num_steps"] = counts[0]
+    for flag, field in (("batch_size", "batch_size"),
+                        ("eval_every", "eval_every"),
+                        ("log_every", "log_every"),
+                        ("checkpoint_dir", "checkpoint_dir"),
+                        ("seed", "seed")):
+        if getattr(args, flag) is not None:
+            train_over[field] = getattr(args, flag)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             **train_over))
+    stages = [s.strip() for s in args.stages.split(",")] if args.stages \
+        else [cfg.train.stage]
+    if per_stage_steps is not None and len(per_stage_steps) != len(stages):
+        raise SystemExit(f"--steps lists {len(per_stage_steps)} counts for "
+                         f"{len(stages)} stages")
+    from vidcap_tpu_torch.inference import resolve_device
+    from vidcap_tpu_torch.train.loop import train
+    from vidcap_tpu_torch.utils.logging import MetricsLogger
+    resolve_device(args.device)   # no card and no --device cpu: exit 2 now
+    dataset = _load_dataset(cfg, split="train")
+    logger = MetricsLogger(path=args.log_file)
+    # the staged schedule: each stage resumes from the previous stage's
+    # checkpoint, and the step counts are cumulative
+    total = 0
+    try:
+        for i, stage in enumerate(stages):
+            total += (per_stage_steps[i] if per_stage_steps is not None
+                      else cfg.train.num_steps)
+            scfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, stage=stage, num_steps=total))
+            train(scfg, dataset=dataset, logger=logger,
+                  resume=args.resume or i > 0, device=args.device)
+    finally:
+        logger.close()
+    return 0
 
 
 def cmd_caption(args) -> int:
@@ -141,7 +200,38 @@ def build_parser() -> argparse.ArgumentParser:
     common(s)
     s.set_defaults(fn=cmd_sample)
 
-    for name in ("train", "eval", "serve", "export"):
+    t = sub.add_parser("train", help="run the preset's training stage(s)")
+    t.add_argument("--preset", default="msvd_greedy")
+    t.add_argument("--set", action="append", default=None,
+                   metavar="SECTION.FIELD=VALUE",
+                   help="override any config field, repeatable")
+    t.add_argument("--steps", default=None,
+                   help="steps per stage: one count for all stages, or a "
+                        "comma list matched to --stages (e.g. 2500,1000)")
+    t.add_argument("--stages", default=None,
+                   help="comma list overriding the preset stage, e.g. xe,scst")
+    t.add_argument("--batch-size", type=int, default=None)
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--log-file", default=None)
+    t.add_argument("--eval-every", type=int, default=None,
+                   help="the periodic-eval cadence; 0 disables it (periodic "
+                        "eval is not ported yet, so a cadence within the "
+                        "run is refused)")
+    t.add_argument("--log-every", type=int, default=None,
+                   help="cadence of train log rows (0: only the last step)")
+    t.add_argument("--checkpoint-dir", default=None)
+    t.add_argument("--seed", type=int, default=None,
+                   help="train.seed: the init, the batch order and the "
+                        "sampling generator")
+    t.add_argument("--device", default=None, help="cuda (default) or cpu")
+    t.add_argument("--feature-bank", action="store_true",
+                   help=argparse.SUPPRESS)
+    t.add_argument("--steps-per-dispatch", default=None,
+                   help=argparse.SUPPRESS)
+    t.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
+    t.set_defaults(fn=cmd_train)
+
+    for name in ("eval", "serve", "export"):
         s = sub.add_parser(name, help=f"not ported yet ({_NOT_PORTED[name]})",
                            add_help=False)
         s.set_defaults(fn=lambda args, name=name: _not_ported(name))
@@ -150,7 +240,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args, rest = build_parser().parse_known_args(argv)
-    if rest and args.cmd in ("caption", "sample"):
+    if rest and args.cmd in ("train", "caption", "sample"):
         build_parser().parse_args(argv)   # reports the unknown arguments
     from vidcap_tpu_torch.inference import NoDeviceError
     try:

@@ -137,6 +137,10 @@ class CaptionDataset:
     def num_videos(self) -> int:
         return len(self.video_ids)
 
+    @property
+    def num_captions(self) -> int:
+        return self.tokens.shape[0]
+
     def video_batches(self, batch_size: int) -> Iterator[Batch]:
         """Deterministic per-video batches for inference/eval; the last batch is
         padded by repeating the final video (callers slice with ``video_idx``)."""

@@ -166,8 +166,8 @@ class CaptionDecoder(nn.Module):
         cd = self.compute_dtype = dtype_of(c.compute_dtype)
         if c.dropout_rate > 0:
             raise NotImplementedError(
-                "dropout is a training feature; training is not ported to "
-                "vidcap_tpu_torch yet (ROADMAP Queue 1 item 6)")
+                "model.dropout_rate > 0 is not ported to vidcap_tpu_torch "
+                "(ROADMAP Queue 1 item 13, 'dropout'); every preset has 0")
         self.embed = Embed(padded_vocab, c.embed_dim)
         self.feat_proj = Dense(feature_dim, c.hidden_dim, cd)
         self.key_proj = Dense(c.hidden_dim, c.attn_dim, cd, use_bias=False)
@@ -245,7 +245,10 @@ class CaptionDecoder(nn.Module):
              ) -> Tuple[DecoderState, torch.Tensor]:
         """One decode step, per-row attention tensors: token i32[B] →
         (state, logits f32[B, Vp])."""
-        emb = self.embed(token)
+        return self._step_from_emb(state, self.embed(token))
+
+    def _step_from_emb(self, state: DecoderState, emb: torch.Tensor
+                       ) -> Tuple[DecoderState, torch.Tensor]:
         if self.cfg.use_attention:
             ctx, _ = self.attention(state.h[-1], state.keys, state.values,
                                     state.frame_mask)
@@ -274,3 +277,19 @@ class CaptionDecoder(nn.Module):
         """Like :meth:`step_beam_hidden` but returns logits f32[B·K, Vp]."""
         state, h = self.step_beam_hidden(state, token, beam_width)
         return state, self.logits(h)
+
+    # ------------------------------------------------------------------ XE path
+
+    def xe_logits(self, feats: torch.Tensor,
+                  frame_mask: Optional[torch.Tensor], inputs: torch.Tensor
+                  ) -> torch.Tensor:
+        """Teacher-forced logits: inputs int[B, L] (<bos>-shifted tokens) →
+        f32[B, L, Vp]. The embeddings of the whole sequence are gathered
+        once, outside the loop over L; differentiable throughout."""
+        state = self.init_state(feats, frame_mask)
+        embs = self.embed(inputs.long())                   # [B, L, E]
+        logits = []
+        for t in range(inputs.shape[1]):
+            state, lg = self._step_from_emb(state, embs[:, t])
+            logits.append(lg)
+        return torch.stack(logits, dim=1)

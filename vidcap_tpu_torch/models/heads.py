@@ -1,6 +1,6 @@
 """Multitask attribute head: an MLP over the masked-mean-pooled encoded
-features → multi-hot attribute logits. Ported so the parameter tree is whole;
-nothing on the captioning path calls it."""
+features → multi-hot attribute logits (``VidCapModel.attribute_logits``),
+trained by the attribute BCE (objectives/multitask.py)."""
 from __future__ import annotations
 
 import torch

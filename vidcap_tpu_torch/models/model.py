@@ -38,6 +38,10 @@ class VidCapModel(nn.Module):
                                        cfg.model.hidden_dim,
                                        dtype_of(cfg.model.compute_dtype))
 
+    def encode_features(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Features [B, T, D] → themselves: feature mode has no backbone."""
+        return inputs
+
     def init_state(self, feats: torch.Tensor,
                    frame_mask: Optional[torch.Tensor] = None) -> DecoderState:
         return self.decoder.init_state(feats, frame_mask)
@@ -52,6 +56,22 @@ class VidCapModel(nn.Module):
     def step_beam_hidden(self, state: DecoderState, token: torch.Tensor,
                          beam_width: int):
         return self.decoder.step_beam_hidden(state, token, beam_width)
+
+    def xe_logits(self, inputs: torch.Tensor,
+                  frame_mask: Optional[torch.Tensor],
+                  teacher_inputs: torch.Tensor) -> torch.Tensor:
+        return self.decoder.xe_logits(self.encode_features(inputs),
+                                      frame_mask, teacher_inputs)
+
+    def attribute_logits(self, inputs: torch.Tensor,
+                         frame_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """The multitask head on the masked-mean-pooled projected features:
+        f32[B, num_attributes]."""
+        feats = self.encode_features(inputs)
+        if frame_mask is None:
+            frame_mask = torch.ones(feats.shape[:2], device=feats.device)
+        return self.attr_head(self.decoder.encode_video(feats, frame_mask))
 
 
 def create_model(cfg: Config, vocab_size: int) -> VidCapModel:
