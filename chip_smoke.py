@@ -9,9 +9,12 @@ the port's three paths with seeded random weights, showing with the launch
 counts that each went through its kernels: beam-5 captioning under preset
 ``msrvtt_attn_beam5`` (vocab 16,000, 184 videos of synthetic features)
 through K1 and K2; greedy (``msvd_greedy``) and sampled (``scst_cider``)
-captioning (vocab 12,000, 32 videos) through K3; and the staged XE → SCST
+captioning (vocab 12,000, 32 videos) through K3; the staged XE → SCST
 training of ``scst_cider`` (B=32, vocab 12,000), whose SCST step runs its
-sampled and greedy rollouts on K3. Phases:
+sampled and greedy rollouts on K3 and whose validation decodes on K3; and
+the offline path at ``msrvtt_attn_beam5``'s width (``prepare`` → ``train``
+with validation through K1 and K2 and a best checkpoint → ``caption
+--checkpoint-dir best/ --inputs`` → ``eval``). Phases:
 
   1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
   2 K1 beam_core vs plain             seeded and raised-<eos> weights; W_out
@@ -23,7 +26,13 @@ sampled and greedy rollouts on K3. Phases:
     kernels vs plain                  sample --preset scst_cider
   5 CLI: caption (beam)             9 an SCST step at scst_cider width: K3
                                       vs plain rollouts, times
-                                   10 CLI: train --stages xe,scst, --resume
+                                   10 CLI: train --stages xe,scst
+                                      --eval-every 3 (validation on K3),
+                                      --resume
+                                   11 the offline path at msrvtt_attn_beam5
+                                      width: prepare, train with validation
+                                      on K1/K2, caption --checkpoint-dir
+                                      best/ --inputs, eval
   then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
@@ -922,12 +931,16 @@ def phase_scst(row_floor: float):
 
 
 def phase_cli_train(ds):
-    """``train --preset scst_cider --stages xe,scst --steps 3,3`` on phase
-    9's dataset written as the preset's msrvtt files (vocab 12,000 → Vp
-    12,032), then ``--resume --steps 3,4``: 3 XE rows, then 3 SCST rows,
-    all finite; the stage lines report 0 launches during XE and 6 rollout
-    launches (2 a step) during SCST, W_out resident; stage.json reads scst;
-    the resume runs exactly one more SCST step (2 launches)."""
+    """``train --preset scst_cider --stages xe,scst --steps 3,3
+    --eval-every 3`` on phase 9's dataset written as the preset's msrvtt
+    files (vocab 12,000 → Vp 12,032; no val split, so validation greedy-
+    decodes the 64 train videos, 2 K3 launches of 32 rows), then ``--resume
+    --steps 3,4``: 3 XE rows, then 3 SCST rows, all finite, and eval rows at
+    steps 3 and 6 flagged as the train-subset fallback; the stage lines
+    report 2 rollout launches during XE (validation) and 8 during SCST (2 a
+    step and validation), W_out resident; best/ holds one checkpoint;
+    stage.json reads scst; the resume runs exactly one more SCST step (2
+    launches) and no validation."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
     out = {}
@@ -944,13 +957,13 @@ def phase_cli_train(ds):
                           r"(?:; rollout W_out (\w+))?; kernel launches "
                           r"(\{.*\})")
         for steps, resume, want in (
-                ("3,3", [], [("xe", 3, 0), ("scst", 3, 6)]),
+                ("3,3", [], [("xe", 3, 2), ("scst", 3, 8)]),
                 ("3,4", ["--resume"], [("xe", 0, 0), ("scst", 1, 2)])):
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", "vidcap_tpu_torch", "train",
                  "--preset", "scst_cider", "--stages", "xe,scst", "--steps",
-                 steps, "--eval-every", "0", "--log-every", "1",
+                 steps, "--eval-every", "3", "--log-every", "1",
                  "--set", f"data.data_dir={data}", "--log-file", "log.jsonl",
                  *resume], cwd=tmp, env=env, capture_output=True, text=True,
                 timeout=600)
@@ -971,21 +984,267 @@ def phase_cli_train(ds):
                 stages=got, wall_s=wall)
         with open(os.path.join(tmp, "log.jsonl")) as f:
             rows = [json.loads(x) for x in f]
+        evals = [r for r in rows if "eval_CIDEr" in r]
+        rows = [r for r in rows if "eval_CIDEr" not in r]
         kinds = ["xe" if "xe_loss" in r else "scst" if "pg_loss" in r
                  else "?" for r in rows]
-        finite = all(np.isfinite(v) for r in rows for v in r.values()
-                     if isinstance(v, float))
+        finite = all(np.isfinite(v) for r in rows + evals
+                     for v in r.values() if isinstance(v, float))
         with open(os.path.join(tmp, "checkpoints", "stage.json")) as f:
             stages = json.load(f)
         if [r["step"] for r in rows] != list(range(1, 8)) or kinds != \
                 ["xe"] * 3 + ["scst"] * 4 or not finite:
             fail(f"CLI train: log rows {[(r['step'], k) for r, k in zip(rows, kinds)]}"
                  f", finite {finite}")
+        best = [f for f in os.listdir(os.path.join(tmp, "checkpoints",
+                                                   "best"))
+                if f.startswith("ckpt_")]
+        if [r["step"] for r in evals] != [3, 6] or len(best) != 1 or not all(
+                r.get("eval_on_train_fallback") == 1.0 for r in evals):
+            fail(f"CLI train: eval rows {evals}, best/ {best}")
+        out["eval_rows"] = evals
+        # K3 launches of validation: those of the stage lines less the SCST
+        # steps' two a step
+        out["validation_rollout_launches"] = sum(
+            lc["rollout"] - (2 * n if st == "scst" else 0)
+            for run in out.values() if isinstance(run, dict)
+            for st, n, _, lc in run.get("stages", []))
         if stages.get("7") != "scst" or stages.get("6") != "scst":
             fail(f"CLI train: stage.json {stages}")
         out["rows"] = [{k: r[k] for k in ("step", "loss", "grad_norm")
                         if k in r} for r in rows]
         out["stage_json"] = stages
+    return out
+
+
+# Phase 11: the offline path at msrvtt_attn_beam5's width. 300 MSR-VTT
+# videos (train 200, val 50, test 50) of 20 captions each; every word of a
+# 16,000-word made-up pool twice or more in train, so that the vocab (capped
+# at the preset's 16,000 with the specials) gives Vp = 16,000 as in phase 4.
+OFF_SPLITS = (("train", 200), ("validate", 50), ("test", 50))
+OFF_CAPTIONS, OFF_WORDS, OFF_POOL = 20, 12, 16_000
+
+
+def made_up_words(n: int):
+    """n distinct lower-case letter strings ('qa', 'qb', ...)."""
+    out = []
+    for i in range(n):
+        w = ""
+        while True:
+            w = chr(97 + i % 26) + w
+            i //= 26
+            if not i:
+                break
+        out.append("q" + w)
+    return out
+
+
+def offline_annotations(g):
+    """MSR-VTT videodatainfo json: the train captions hold every pool word
+    twice (shuffled), the rest of their words and the other splits' draw
+    from the pool."""
+    pool = np.array(made_up_words(OFF_POOL))
+    n_train = OFF_SPLITS[0][1] * OFF_CAPTIONS
+    slots = np.concatenate([np.repeat(np.arange(OFF_POOL), 2),
+                            g.integers(0, OFF_POOL,
+                                       n_train * OFF_WORDS - 2 * OFF_POOL)])
+    train_words = pool[g.permutation(slots)].reshape(n_train, OFF_WORDS)
+    videos, sentences, k = [], [], 0
+    for split, n in OFF_SPLITS:
+        for _ in range(n):
+            vid = f"video{len(videos)}"
+            videos.append({"video_id": vid, "split": split})
+            for _ in range(OFF_CAPTIONS):
+                if split == "train":
+                    words = train_words[k]
+                    k += 1
+                else:
+                    words = pool[g.integers(0, OFF_POOL,
+                                            int(g.integers(6, 16)))]
+                sentences.append({"video_id": vid,
+                                  "caption": " ".join(words)})
+    return {"videos": videos, "sentences": sentences}
+
+
+def run_port(args, cwd: str, what: str):
+    """``python -m vidcap_tpu_torch <args>`` in ``cwd``: (completed process,
+    wall seconds); fails the phase on a nonzero exit."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vidcap_tpu_torch", *args],
+                       cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        fail(f"phase 11 {what} exited {r.returncode}: {r.stderr[-3000:]}")
+    return r, time.perf_counter() - t0
+
+
+def phase_offline(row_floor: float):
+    """prepare → train with validation on K1/K2 → caption --checkpoint-dir
+    best/ --inputs → eval, through the CLI at msrvtt_attn_beam5's width
+    (E=H=A=512, D=1536, T=26, train B=64, beam 5, Vp=16,000), with seeded
+    data and a seeded init:
+    (1) the annotations; (2) ``prepare``, then N(0,1) features for the three
+    splits; (3) ``train --stages xe --steps 4 --eval-every 2 --set
+    train.eval_method=beam``: eval rows at steps 2 and 4 from the val split
+    (no fallback flag), one checkpoint under best/, K1 and K2 launched (as
+    many K1 as K2) and no K3; (4) ``caption --inputs`` of 50 .npy files of
+    1-40 frames (the test videos): 50 keys, equal to an in-process decode of
+    the same padded batch through K1/K2 on the card, and the kernel rows
+    equal to the plain path's on at least ``row_floor`` of them (phase 4's
+    floor), four in-process decodes the same; (5) ``eval --refs`` and ``eval --split test``: the 7 scores
+    finite, the same from both, equal to the in-process evaluate_captions
+    within 1e-9. Times: the XE step (log rows of steps 2 and 4, whose
+    intervals hold no validation), each validation, the CLI calls, and the
+    captions/s of the --inputs loading and decode in process: cold (the
+    first, as the CLI pays it) and warm (the median of three more)."""
+    from vidcap_tpu_torch.metrics.evaluate import evaluate_captions
+    from vidcap_tpu_torch.serving import _FeatureLoader, _pad_batch
+    cfg = get_preset("msrvtt_attn_beam5")
+    g = np.random.default_rng(11)
+    out, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        ann = os.path.join(tmp, "videodatainfo.json")
+        with open(ann, "w") as f:
+            json.dump(offline_annotations(g), f)
+        common = ["--preset", "msrvtt_attn_beam5", "--set",
+                  f"data.data_dir={data}"]
+        _, walls["prepare_s"] = run_port(["prepare", *common, ann], tmp,
+                                         "prepare")
+        vocab = Vocab.load(os.path.join(data, "msrvtt_vocab.json"))
+        if vocab.size != VP:
+            fail(f"phase 11: prepared vocab {vocab.size}, want {VP}")
+        ids = {}
+        for split in ("train", "val", "test"):
+            with open(os.path.join(data, f"msrvtt_{split}_ids.json")) as f:
+                ids[split] = json.load(f)
+            np.save(os.path.join(data, f"msrvtt_{split}_feats.npy"),
+                    g.normal(size=(len(ids[split]), T, D))
+                    .astype(np.float32))
+
+        # ---- train with validation through K1/K2
+        r, walls["train_s"] = run_port(
+            ["train", *common, "--stages", "xe", "--steps", "4",
+             "--eval-every", "2", "--log-every", "1", "--set",
+             "train.eval_method=beam", "--log-file", "log.jsonl"], tmp,
+            "train")
+        stage = re.findall(r"\[vidcap\] xe: 4 steps on cuda\S*; kernel "
+                           r"launches (\{.*\})", r.stderr)
+        train_launches = json.loads(stage[-1]) if stage else None
+        with open(os.path.join(tmp, "log.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        evals = {x["step"]: x for x in rows if "eval_CIDEr" in x}
+        steps = {x["step"]: x for x in rows if "xe_loss" in x}
+        best_dir = os.path.join(tmp, "checkpoints", "best")
+        best = sorted(f for f in os.listdir(best_dir)
+                      if f.startswith("ckpt_"))
+        if not train_launches or train_launches["rollout"] != 0 or \
+                not train_launches["beam_core"] > 0 or \
+                train_launches["beam_core"] != \
+                train_launches["topk_project"]:
+            fail(f"phase 11 train: stage line launches {train_launches}: "
+                 f"{r.stderr[-2000:]}")
+        if sorted(evals) != [2, 4] or any(
+                "eval_on_train_fallback" in x for x in evals.values()) or \
+                "TRAIN subset" in r.stderr or len(best) != 1 or \
+                sorted(steps) != [1, 2, 3, 4] or not all(
+                np.isfinite(v) for x in rows for v in x.values()
+                if isinstance(v, float)):
+            fail(f"phase 11 train: eval rows {evals}, best/ {best}, rows "
+                 f"{sorted(steps)}: {r.stderr[-2000:]}")
+
+        # ---- caption --inputs from best/ through K1/K2
+        inputs = os.path.join(tmp, "inputs")
+        os.makedirs(inputs)
+        frames = g.integers(1, 41, len(ids["test"]))
+        for v, n in zip(ids["test"], frames):
+            np.save(os.path.join(inputs, f"{v}.npy"),
+                    g.normal(size=(int(n), D)).astype(np.float32))
+        r, walls["caption_inputs_s"] = run_port(
+            ["caption", *common, "--checkpoint-dir", best_dir, "--inputs",
+             inputs, "--out", "caps.json"], tmp, "caption --inputs")
+        line = re.findall(r"\] beam: (\d+) decodes, (\d+) steps on cuda\S*; "
+                          r"kernel launches (\{.*\})", r.stderr)
+        with open(os.path.join(tmp, "caps.json")) as f:
+            caps = json.load(f)
+        if not line or sorted(caps) != sorted(ids["test"]):
+            fail(f"phase 11 caption --inputs: {len(caps)} keys, line "
+                 f"{line}: {r.stderr[-2000:]}")
+        caption_launches = json.loads(line[-1][2])
+        if caption_launches != {"beam_core": int(line[-1][1]),
+                                "topk_project": int(line[-1][1]),
+                                "rollout": 0}:
+            fail(f"phase 11 caption --inputs launches {caption_launches}")
+
+        # the same padded batch in process: through K1/K2, and plain
+        holder = CaptionDataset(np.zeros((1, T, D), np.float32), ["x"],
+                                {"x": []}, cfg.data, vocab=vocab)
+        cap = Captioner.from_checkpoint(cfg, holder, checkpoint_dir=best_dir)
+        paths = sorted(os.path.join(inputs, f) for f in os.listdir(inputs))
+        loader = _FeatureLoader(cfg)
+        decode_s = []
+        for i in range(4):        # the first as the CLI runs it: cold
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch, mask = _pad_batch(cfg, [loader(p) for p in paths],
+                                     min(len(paths), cfg.train.batch_size))
+            got = cap.decode_batch(batch, frame_mask=mask, beam_width=K)
+            decode_s.append(time.perf_counter() - t0)
+            if i and not np.array_equal(got, toks):
+                fail("phase 11: two decodes of the --inputs batch differ")
+            toks = got
+        mine = {os.path.splitext(os.path.basename(p))[0]:
+                [vocab.decode_str(row)] for p, row in zip(paths, toks)}
+        if mine != caps:
+            fail("phase 11: caption --inputs differs from the in-process "
+                 "K1/K2 decode of the same batch")
+        with torch.inference_mode():
+            f_, m_ = (torch.tensor(a, device="cuda") for a in (batch, mask))
+            st = tile_recurrent(cap.model.init_state(f_, m_), K)
+            plain, _ = beam_decode(plain_beam_step(cap._beam_weights, K), st,
+                                   batch=len(paths),
+                                   max_len=cfg.decode.max_len, beam_width=K,
+                                   early_exit=cfg.decode.early_exit)
+        same = float(np.mean((plain.cpu().numpy() == toks).all(1)))
+        if same < row_floor:
+            fail(f"phase 11: {same} of the caption --inputs rows identical "
+                 f"to the plain path, below phase 4's floor {row_floor}")
+
+        # ---- eval, against --refs and against the test split
+        with open(os.path.join(data, "msrvtt_captions.json")) as f:
+            refs = {v: c for v, c in json.load(f).items() if v in caps}
+        with open(os.path.join(tmp, "refs.json"), "w") as f:
+            json.dump(refs, f)
+        want = evaluate_captions(refs, caps)
+        scores = {}
+        for name, extra in (("refs", ["--refs", "refs.json"]),
+                            ("split", [*common, "--split", "test"])):
+            r, walls[f"eval_{name}_s"] = run_port(
+                ["eval", "--captions", "caps.json", *extra], tmp, "eval")
+            scores[name] = json.loads(r.stdout)
+            if set(scores[name]) != set(want) or not all(
+                    np.isfinite(v) and abs(v - want[k]) <= 1e-9
+                    for k, v in scores[name].items()):
+                fail(f"phase 11 eval {name}: {scores[name]}, in process "
+                     f"{want}")
+    xe_ms = [1e3 / steps[i]["steps_per_sec"] for i in (2, 4)]
+    out.update(
+        vocab=vocab.size, videos={s: len(v) for s, v in ids.items()},
+        train_launches=train_launches, caption_launches=caption_launches,
+        xe_step_ms=float(np.median(xe_ms)), xe_step_ms_steps_2_4=xe_ms,
+        validation_s={k: x["val_seconds"] for k, x in evals.items()},
+        eval_rows={k: {m: v for m, v in x.items() if m.startswith("eval_")}
+                   for k, x in evals.items()},
+        best=best[0], inputs_frames=[int(n) for n in frames],
+        inputs_decode_captions_per_s_cold=len(paths) / decode_s[0],
+        inputs_decode_captions_per_s=len(paths)
+        / float(np.median(decode_s[1:])),
+        caption_inputs_cli_captions_per_s=len(paths)
+        / walls["caption_inputs_s"],
+        identical_rows_vs_plain=same, identical_rows_floor=row_floor,
+        scores=scores["refs"], cli_wall_s=walls)
     return out
 
 
@@ -1042,16 +1301,26 @@ def main() -> int:
               "loss_pieces_and_rewards": SCST_TOL, "repeat": REPEAT_TOL,
               "logp_vs_rescore": f"{K3_LOGIT_TOL} / temperature"}}),
           flush=True)
-    print("phase 10 CLI train --preset scst_cider --stages xe,scst: "
-          + json.dumps(phase_cli_train(ds)), flush=True)
+    cli_train = phase_cli_train(ds)
+    print("phase 10 CLI train --preset scst_cider --stages xe,scst "
+          "--eval-every 3: " + json.dumps(cli_train), flush=True)
+    offline = phase_offline(min(
+        e2e["identical_rows_plain_cpu_vs_card_by_trial"]) - ROW_SLACK)
+    print(f"phase 11 offline path msrvtt_attn_beam5 (train B=64, beam {K}, "
+          f"Vp={VP}) on {card}: " + json.dumps(offline), flush=True)
 
     # max_abs_err is the max |err| against the plain version (K3: of the
     # log-probs along the kernel's tokens), ms the kernel's time; bound_ms
-    # alone is computed, not measured. K3's launches are those of its main
-    # paths: phase 7's greedy and sampled decodes and phase 9's SCST steps.
+    # alone is computed, not measured. The launches are those of the main
+    # paths: K1/K2 phase 4's beam decodes and phase 11's validation and
+    # caption --inputs; K3 phase 7's greedy and sampled decodes, phase 9's
+    # SCST steps and phase 10's validation.
     k3["launches"] = (sum(r["launches"]["rollout"] for r in roll.values())
-                      + scst["launches"]["rollout"])
-    print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]])
+                      + scst["launches"]["rollout"]
+                      + cli_train["validation_rollout_launches"])
+    print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]
+                                       + offline["train_launches"][k["name"]]
+                                       + offline["caption_launches"][k["name"]])
                                   for k in (k1, k2)] + [k3]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,15 @@
 """Where one train step of the PyTorch port spends its time, XE and SCST.
 
     python3 scripts/torch_profile_train.py [--stages xe,scst] [--steps 5]
+        [--preset scst_cider]
 
 Runs on one NVIDIA GPU (no CPU fallback). Builds the Hopper kernels, makes
-the seeded model of preset ``scst_cider`` (E = H = A = 512, D = 1536, T = 26,
-vocab 12,000 padded to 12,032, B = 32, max_len 30, the attribute head at
-0.2, ``scst_xe_mix`` 0.1) and a synthetic corpus over that vocab (64 videos
-of N(0,1) features, 5 captions each of 5-29 words from a 300-word pool),
+the seeded model of the preset (``scst_cider``: E = H = A = 512, D = 1536,
+T = 26, vocab 12,000 padded to 12,032, B = 32, max_len 30, the attribute
+head at 0.2, ``scst_xe_mix`` 0.1; ``msrvtt_attn_beam5``: vocab 16,000,
+B = 64, no attribute head) and a synthetic corpus over the preset's vocab
+(64 videos of N(0,1) features, 5 captions each of 5-29 words from a
+300-word pool),
 then for each stage takes one warm-up step and ``--steps`` timed steps on
 the host clock (each ends in a synchronize), the SCST ones with CUDA events
 around the two K3 rollouts, and profiles one more step with
@@ -46,13 +49,11 @@ from vidcap_tpu_torch.train.scst import make_scst_step_body  # noqa: E402
 from vidcap_tpu_torch.train.state import create_train_state  # noqa: E402
 from vidcap_tpu_torch.train.steps import make_xe_step_body  # noqa: E402
 
-VOCAB = 12_000
-
-
 def corpus(cfg) -> CaptionDataset:
     g = np.random.default_rng(0)
-    words = SPECIALS + [f"w{i}" for i in range(VOCAB - len(SPECIALS))]
-    pool = g.integers(4, VOCAB, 300)
+    vocab = cfg.data.vocab_size
+    words = SPECIALS + [f"w{i}" for i in range(vocab - len(SPECIALS))]
+    pool = g.integers(4, vocab, 300)
     ids = [f"video{i}" for i in range(64)]
     caps = {v: [" ".join(words[int(t)] for t in g.choice(
         pool, int(g.integers(5, 30)))) for _ in range(5)] for v in ids}
@@ -135,12 +136,13 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--stages", default="xe,scst")
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--preset", default="scst_cider")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     _build.build_all()
-    cfg = get_preset("scst_cider")
+    cfg = get_preset(args.preset)
     ds = corpus(cfg)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -197,3 +197,30 @@ def test_empty_candidate_and_bleu_mix():
     ref = jax_reward.scst_reward(jax_build_tables(refs), jnp.asarray(vids),
                                  jnp.asarray(toks), jnp.asarray(mask), 0.3)
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("max_probes", [1, 2])
+def test_idf_table_grows_past_max_probes(max_probes):
+    """A corpus whose IDF table, at the first size, needs more than
+    ``max_probes`` probes: the reference refuses it (RuntimeError), the port
+    doubles the table until every lookup fits, and its CIDEr-D stays the
+    host oracle's, the JAX package's and the port's own copy of it."""
+    from vidcap_tpu_torch.metrics.cider import CiderScorer as PortScorer
+    rng = np.random.default_rng(11)
+    refs = _random_corpus(rng, n_videos=24)
+    cands, vids = _candidates(rng, refs, range(len(refs)))
+    with pytest.raises(RuntimeError, match="probes"):
+        jax_build_tables(refs, max_probes=max_probes)
+    t = build_reward_tables(refs, max_probes=max_probes)
+    keys = sum(1 for lo in t.idf_key_lo.tolist() if lo)
+    first = 1 << max(int(np.ceil(np.log2(max(keys * 2, 16)))), 4)
+    assert len(t.idf_key_lo) > first and t.num_probes <= max_probes
+    toks, mask = _pad_candidates(cands)
+    port = cider_reward(t, torch.tensor(vids), torch.tensor(toks),
+                        torch.tensor(mask)).numpy()
+    docs = {str(v): [list(map(int, r)) for r in rs]
+            for v, rs in enumerate(refs)}
+    for scorer in (CiderScorer(docs), PortScorer(docs)):
+        host = np.array([scorer.score(str(v), c) for v, c in zip(vids, cands)])
+        np.testing.assert_allclose(port, host, **TOL)
+    assert (host > 1.0).any() and (host < 0.5).any()

@@ -393,9 +393,20 @@ def test_cli_train_staged_and_resume(tmp_path, capsys, monkeypatch):
     assert [json.loads(x)["step"] for x in open("log.jsonl")][-1] == 5
 
 
+def test_train_eval_every_one_runs_validation(tmp_path, capsys, monkeypatch):
+    """``--eval-every 1`` within the run, once refused, now validates after
+    every step: eval_CIDEr rows at steps 1 and 2 and one best checkpoint."""
+    monkeypatch.chdir(tmp_path)
+    assert cli_main(["train", "--preset", "synthetic_tiny", "--steps", "2",
+                     "--device", "cpu", "--eval-every", "1", "--log-file",
+                     "log.jsonl"]) == 0
+    rows = [json.loads(x) for x in open("log.jsonl")]
+    assert [r["step"] for r in rows if "eval_CIDEr" in r] == [1, 2]
+    assert len(CheckpointManager("checkpoints/best").all_steps()) == 1
+
+
 @pytest.mark.parametrize("extra,message", [
     ([], "no CUDA device"),
-    (["--device", "cpu", "--eval-every", "1"], "Queue 1 item 4"),
     (["--device", "cpu", "--sharded"], "Queue 1 item 12"),
     (["--device", "cpu", "--feature-bank"], "Queue 1 item 12"),
     (["--device", "cpu", "--set", "train.grad_accum=2"], "Queue 1 item 11"),

@@ -1,30 +1,44 @@
 """CLI of the PyTorch package:
 
+  python -m vidcap_tpu_torch prepare --preset msrvtt_attn_beam5 ANNOTATIONS...
+      [--mapping youtube_mapping.txt] [--set data.data_dir=DIR]
   python -m vidcap_tpu_torch train --preset scst_cider --stages xe,scst
       [--steps N | --steps N1,N2] [--batch-size B] [--resume]
-      [--log-file log.jsonl] [--eval-every 0] [--log-every K]
+      [--log-file log.jsonl] [--eval-every N] [--log-every K]
       [--checkpoint-dir DIR] [--seed S] [--set ...] [--device cpu]
-  python -m vidcap_tpu_torch caption --preset msvd_greedy --weights W.npz
+  python -m vidcap_tpu_torch caption --preset msvd_greedy
+      [--checkpoint-dir DIR | --weights W.npz]
       [--method greedy|beam|sample] [--beam 5] [--nbest N] [--temperature T]
-      [--seed S] [--split test] [--out caps.json]
+      [--seed S] [--split test | --inputs FILE|DIR ...] [--out caps.json]
       [--set section.field=value ...] [--device cpu]
-  python -m vidcap_tpu_torch sample --preset scst_cider --weights W.npz
-      [--temperature T] [--seed S] [--split test] [--out caps.json] ...
+  python -m vidcap_tpu_torch sample --preset scst_cider [--checkpoint-dir DIR
+      | --weights W.npz] [--temperature T] [--seed S] [--split test] ...
+  python -m vidcap_tpu_torch eval --preset msvd_greedy --captions caps.json
+      [--refs refs.json | --split test]
 
-``train`` runs the preset's stage, or each of ``--stages`` in turn, each
-resuming from the previous one's checkpoint; step counts add up over the
-stages. ``caption`` decodes the split (the synthetic fixture when the
-dataset is not on disk) with the preset's method unless ``--method`` is
-given, and writes {video_id: [caption, ...]} json; ``sample`` is ``caption
---method sample``. All run on the card unless ``--device cpu`` is given. The other commands of
-the JAX CLI are not ported yet and say which ROADMAP item they wait for.
+``prepare`` turns MSVD/MSR-VTT annotation files into the layout that
+``CaptionDataset.from_files`` reads. ``train`` runs the preset's stage, or
+each of ``--stages`` in turn, each resuming from the previous one's
+checkpoint; step counts add up over the stages; every ``--eval-every`` steps
+it scores the val split and keeps the best-CIDEr state under
+``{checkpoint_dir}/best``. ``caption`` decodes the split (the synthetic
+fixture when the dataset is not on disk), or the ``.npy`` feature files of
+``--inputs``, with the preset's method unless ``--method`` is given, and
+writes {video_id: [caption, ...]} json; ``sample`` is ``caption --method
+sample``. Both read the newest checkpoint of ``--checkpoint-dir`` (default
+the preset's ``train.checkpoint_dir``) or a ``--weights`` file. ``eval``
+scores a captions json on the host. Train and decode run on the card unless
+``--device cpu`` is given. The other commands of the JAX CLI are not ported
+yet and say which ROADMAP item they wait for.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
+from typing import Optional
 
 from vidcap_tpu_torch.config import Config, apply_overrides, get_preset
 from vidcap_tpu_torch.ops._build import launch_counts
@@ -34,11 +48,12 @@ _NOT_PORTED = {
     "--feature-bank": "Queue 1 item 12 (the device feature bank)",
     "--steps-per-dispatch": "Queue 1 item 12 (multi-step dispatch)",
     "--sharded": "Queue 1 item 12 (multi-GPU training)",
-    "eval": "Queue 1 item 4 remainder (scoring with metrics/evaluate.py)",
     "serve": "Queue 1 item 10 (serving and export)",
     "export": "Queue 1 item 10 (serving and export)",
-    "--inputs": "Queue 1 item 4 remainder (caption --inputs)",
     "--from-export": "Queue 1 item 10 (serving and export)",
+    "info": "Queue 1 item 14 (the preflight census)",
+    "extract": "Queue 1 item 11 (feature extraction from video)",
+    "convert": "Queue 1 item 11 (TF-slim IRv2 weights)",
 }
 
 
@@ -68,22 +83,33 @@ def _load_dataset(cfg: Config, split: str):
     return CaptionDataset.synthetic(cfg.data)
 
 
-def _decode_split(args, cfg: Config, method: str, beam: int = 5,
-                  nbest: int = 1) -> None:
+def _captioner(args, cfg: Config, dataset):
+    """The captioner of ``caption``/``sample``: the parameters of
+    ``--weights`` or of the newest checkpoint in ``--checkpoint-dir``
+    (default ``train.checkpoint_dir``)."""
     from vidcap_tpu_torch.inference import Captioner
-    dataset = _load_dataset(cfg, split=args.split)
-    cap = Captioner.from_checkpoint(cfg, dataset, weights=args.weights,
-                                    device=args.device, seed=args.seed)
-    results = cap.caption_dataset(method=method, beam_width=beam,
-                                  temperature=args.temperature, nbest=nbest)
-    if args.out:
-        with open(args.out, "w") as f:
+    if args.weights and args.checkpoint_dir:
+        raise SystemExit("give --weights or --checkpoint-dir, not both")
+    return Captioner.from_checkpoint(
+        cfg, dataset, weights=args.weights, device=args.device,
+        seed=args.seed, checkpoint_dir=None if args.weights else (
+            args.checkpoint_dir or cfg.train.checkpoint_dir))
+
+
+def _write_results(results: dict, out: Optional[str], head: int) -> None:
+    if out:
+        with open(out, "w") as f:
             json.dump(results, f, indent=1)
-        print(f"[vidcap] wrote {len(results)} captions → {args.out}",
+        print(f"[vidcap] wrote {len(results)} captions → {out}",
               file=sys.stderr)
     else:
-        for vid, caps in list(results.items())[:20]:
+        for vid, caps in list(results.items())[:head]:
             print(f"{vid}\t{caps[0]}")
+
+
+def _report(cap, method: str) -> None:
+    """The stderr line that says what the decode ran: decodes, steps, the
+    device, K3's W_out mode and the kernel launches."""
     mode = ""
     if cap.rollout_resident is not None and cap.device.type == "cuda":
         mode = "; rollout W_out " + ("resident" if cap.rollout_resident
@@ -91,6 +117,16 @@ def _decode_split(args, cfg: Config, method: str, beam: int = 5,
     print(f"[vidcap] {method}: {cap.decode_calls} decodes, "
           f"{cap.decode_steps} steps on {cap.device}{mode}; kernel launches "
           f"{json.dumps(launch_counts)}", file=sys.stderr)
+
+
+def _decode_split(args, cfg: Config, method: str, beam: int = 5,
+                  nbest: int = 1) -> None:
+    dataset = _load_dataset(cfg, split=args.split)
+    cap = _captioner(args, cfg, dataset)
+    results = cap.caption_dataset(method=method, beam_width=beam,
+                                  temperature=args.temperature, nbest=nbest)
+    _write_results(results, args.out, head=20)
+    _report(cap, method)
 
 
 def cmd_train(args) -> int:
@@ -126,6 +162,13 @@ def cmd_train(args) -> int:
     from vidcap_tpu_torch.utils.logging import MetricsLogger
     resolve_device(args.device)   # no card and no --device cpu: exit 2 now
     dataset = _load_dataset(cfg, split="train")
+    val_dataset = None
+    if cfg.data.dataset != "synthetic":
+        from vidcap_tpu_torch.data.loader import CaptionDataset
+        try:
+            val_dataset = CaptionDataset.from_files(cfg.data, split="val")
+        except FileNotFoundError:
+            pass   # periodic eval falls back to a train subset
     logger = MetricsLogger(path=args.log_file)
     # the staged schedule: each stage resumes from the previous stage's
     # checkpoint, and the step counts are cumulative
@@ -137,23 +180,88 @@ def cmd_train(args) -> int:
             scfg = dataclasses.replace(cfg, train=dataclasses.replace(
                 cfg.train, stage=stage, num_steps=total))
             train(scfg, dataset=dataset, logger=logger,
-                  resume=args.resume or i > 0, device=args.device)
+                  resume=args.resume or i > 0, device=args.device,
+                  val_dataset=val_dataset)
     finally:
         logger.close()
     return 0
 
 
+def _input_paths(items) -> list:
+    """``--inputs`` → the ``.npy`` and video paths, directories scanned,
+    each file once (by normpath)."""
+    from vidcap_tpu_torch.serving import _VIDEO_EXTS
+    exts = _VIDEO_EXTS + (".npy",)
+    paths = []
+    for item in items:
+        if os.path.isdir(item):
+            found = sorted(os.path.join(item, f) for f in os.listdir(item)
+                           if f.lower().endswith(exts))
+            if not found:
+                print(f"[vidcap] warning: no matching "
+                      f"{'/'.join(exts)} files in {item!r}", file=sys.stderr)
+            paths.extend(found)
+        elif os.path.exists(item):
+            if not item.lower().endswith(exts):
+                raise SystemExit(f"--inputs: {item!r} is not a supported "
+                                 f"input ({', '.join(exts)})")
+            paths.append(item)
+        else:
+            raise SystemExit(f"--inputs: {item!r} does not exist")
+    # 'dir/f.npy' from a scan and './dir/f.npy' given by hand are one file
+    paths = list(dict.fromkeys(os.path.normpath(p) for p in paths))
+    if not paths:
+        raise SystemExit("--inputs matched no files")
+    return paths
+
+
+def _caption_inputs(args, cfg: Config, method: str, nbest: int) -> None:
+    """``caption --inputs FILE|DIR ...``: the given feature files in batches
+    of min(files, train.batch_size), zero-padded, with frame masks. Keys
+    are basenames, or the full path where two files share one."""
+    from collections import Counter
+
+    import numpy as np
+
+    from vidcap_tpu_torch.serving import _FeatureLoader, _pad_batch
+    paths = _input_paths(args.inputs)
+    base_of = {p: os.path.splitext(os.path.basename(p))[0] for p in paths}
+    dup = {b for b, n in Counter(base_of.values()).items() if n > 1}
+    # the train split supplies the vocab the checkpoint was trained with
+    dataset = _load_dataset(cfg, split="train")
+    cap = _captioner(args, cfg, dataset)
+    vocab = dataset.vocab
+    B = max(1, min(len(paths), cfg.train.batch_size))
+    loader = _FeatureLoader(cfg)
+    results = {}
+    for i in range(0, len(paths), B):
+        chunk = paths[i:i + B]
+        batch, mask = _pad_batch(cfg, [loader(p) for p in chunk], B)
+        toks = np.asarray(cap.decode_batch(
+            batch, method=method, beam_width=args.beam or cfg.decode.beam_width,
+            temperature=args.temperature, frame_mask=mask,
+            nbest=nbest))[:len(chunk)]
+        for p, row in zip(chunk, toks):
+            key = p if base_of[p] in dup else base_of[p]
+            results[key] = ([vocab.decode_str(r) for r in row]
+                            if nbest > 1 else [vocab.decode_str(row)])
+    _write_results(results, args.out, head=len(results))
+    _report(cap, method)
+
+
 def cmd_caption(args) -> int:
-    if args.inputs:
-        _not_ported("--inputs")
     if args.from_export:
         _not_ported("--from-export")
     cfg = apply_overrides(get_preset(args.preset), args.set)
     method = args.method or cfg.decode.method
     if args.nbest > 1 and method != "beam":
         raise SystemExit(f"--nbest {args.nbest} requires --method beam")
-    _decode_split(args, cfg, method, beam=args.beam or cfg.decode.beam_width,
-                  nbest=args.nbest)
+    if args.inputs:
+        _caption_inputs(args, cfg, method, args.nbest)
+    else:
+        _decode_split(args, cfg, method,
+                      beam=args.beam or cfg.decode.beam_width,
+                      nbest=args.nbest)
     return 0
 
 
@@ -163,17 +271,66 @@ def cmd_sample(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    """Score a captions json against ``--refs`` {video_id: [reference,
+    ...]}, or against the references of the preset's ``--split``. Videos
+    without references (none, or an empty list) are skipped and counted."""
+    with open(args.captions) as f:
+        results = json.load(f)
+    if args.refs:
+        with open(args.refs) as f:
+            refs = json.load(f)
+        # a bare string would score per character: refuse the shape
+        if not isinstance(refs, dict):
+            raise SystemExit(f"--refs must be a json object "
+                             f"{{video_id: [reference, ...]}}, got "
+                             f"{type(refs).__name__}")
+        for vid, r in refs.items():
+            if (not isinstance(r, list)
+                    or not all(isinstance(c, str) for c in r)):
+                raise SystemExit(
+                    f"--refs[{vid!r}] must be a list of reference "
+                    f"strings, got {r!r:.80}")
+    else:
+        cfg = apply_overrides(get_preset(args.preset), args.set)
+        refs = _load_dataset(cfg, split=args.split).video_captions
+    gts = {v: refs[v] for v in results if refs.get(v)}
+    skipped = len(results) - len(gts)
+    if skipped:
+        print(f"[vidcap] {skipped} candidate video(s) have no references — "
+              f"skipped", file=sys.stderr)
+    if not gts:
+        raise SystemExit("no video ids in common between --captions and the "
+                         "references")
+    from vidcap_tpu_torch.metrics.evaluate import evaluate_captions
+    print(json.dumps(evaluate_captions(gts, results), indent=1))
+    return 0
+
+
+def cmd_prepare(args) -> int:
+    from vidcap_tpu_torch.data.prepare import prepare
+    cfg = apply_overrides(get_preset(args.preset), args.set)
+    prepare(cfg.data, args.annotations, mapping=args.mapping)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vidcap_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
+    def preset(sp):
         sp.add_argument("--preset", default="msvd_greedy")
         sp.add_argument("--set", action="append", default=None,
                         metavar="SECTION.FIELD=VALUE",
                         help="override any config field, repeatable")
-        sp.add_argument("--weights", required=True,
-                        help=".npz of '/'-joined Flax parameter paths "
+
+    def common(sp):
+        preset(sp)
+        sp.add_argument("--checkpoint-dir", default=None,
+                        help="decode the newest checkpoint here (default: "
+                             "the preset's train.checkpoint_dir)")
+        sp.add_argument("--weights", default=None,
+                        help="or a .npz of '/'-joined Flax parameter paths "
                              "(vidcap_tpu_torch.convert)")
         sp.add_argument("--temperature", type=float, default=1.0)
         sp.add_argument("--seed", type=int, default=None,
@@ -185,14 +342,16 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
 
-    c = sub.add_parser("caption", help="decode a split, write json")
+    c = sub.add_parser("caption", help="decode a split or files, write json")
     common(c)
     c.add_argument("--method", choices=["greedy", "beam", "sample"],
                    default=None)
     c.add_argument("--beam", type=int, default=None)
     c.add_argument("--nbest", type=int, default=1,
                    help="write the N best hypotheses per video (best first)")
-    c.add_argument("--inputs", nargs="+", default=None, help=argparse.SUPPRESS)
+    c.add_argument("--inputs", nargs="+", default=None, metavar="FILE|DIR",
+                   help="caption these [T, D] feature .npy files (or "
+                        "directories of them) instead of a split")
     c.add_argument("--from-export", default=None, help=argparse.SUPPRESS)
     c.set_defaults(fn=cmd_caption)
 
@@ -200,11 +359,30 @@ def build_parser() -> argparse.ArgumentParser:
     common(s)
     s.set_defaults(fn=cmd_sample)
 
+    e = sub.add_parser("eval", help="score a captions json (BLEU/ROUGE-L/"
+                                    "CIDEr-D/METEOR)")
+    preset(e)
+    e.add_argument("--captions", required=True)
+    e.add_argument("--refs", default=None, metavar="REFS.json",
+                   help="score against this {video_id: [reference, ...]} "
+                        "json instead of the preset dataset's captions")
+    e.add_argument("--split", default="test",
+                   help="dataset split supplying references when --refs is "
+                        "not given (default test; falls back to val)")
+    e.set_defaults(fn=cmd_eval)
+
+    pr = sub.add_parser("prepare",
+                        help="convert MSVD/MSR-VTT annotation files to the "
+                             "canonical data layout")
+    preset(pr)
+    pr.add_argument("annotations", nargs="+")
+    pr.add_argument("--mapping", default=None,
+                    help="MSVD youtube_mapping.txt fixing the canonical "
+                         "vid1..vid1970 split ordering")
+    pr.set_defaults(fn=cmd_prepare)
+
     t = sub.add_parser("train", help="run the preset's training stage(s)")
-    t.add_argument("--preset", default="msvd_greedy")
-    t.add_argument("--set", action="append", default=None,
-                   metavar="SECTION.FIELD=VALUE",
-                   help="override any config field, repeatable")
+    preset(t)
     t.add_argument("--steps", default=None,
                    help="steps per stage: one count for all stages, or a "
                         "comma list matched to --stages (e.g. 2500,1000)")
@@ -214,9 +392,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--resume", action="store_true")
     t.add_argument("--log-file", default=None)
     t.add_argument("--eval-every", type=int, default=None,
-                   help="the periodic-eval cadence; 0 disables it (periodic "
-                        "eval is not ported yet, so a cadence within the "
-                        "run is refused)")
+                   help="override the preset's periodic-eval cadence "
+                        "(0 disables)")
     t.add_argument("--log-every", type=int, default=None,
                    help="cadence of train log rows (0: only the last step)")
     t.add_argument("--checkpoint-dir", default=None)
@@ -231,7 +408,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
     t.set_defaults(fn=cmd_train)
 
-    for name in ("eval", "serve", "export"):
+    for name in ("serve", "export", "info", "extract", "convert"):
         s = sub.add_parser(name, help=f"not ported yet ({_NOT_PORTED[name]})",
                            add_help=False)
         s.set_defaults(fn=lambda args, name=name: _not_ported(name))
@@ -240,7 +417,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args, rest = build_parser().parse_known_args(argv)
-    if rest and args.cmd in ("train", "caption", "sample"):
+    if rest and args.cmd in ("train", "caption", "sample", "eval", "prepare"):
         build_parser().parse_args(argv)   # reports the unknown arguments
     from vidcap_tpu_torch.inference import NoDeviceError
     try:

@@ -22,16 +22,24 @@ from vidcap_tpu_torch.data.vocab import Vocab, build_vocab
 
 
 def _load_split_array(d: str, name: str, split: str, suffix: str):
-    """Read ``{d}/{name}_{split}{suffix}.npy`` and its ``_ids.json``."""
+    """Read ``{d}/{name}_{split}{suffix}.{npy|h5|tfrecord}`` and the video
+    ids: from the sibling ``_ids.json`` when present (container rows are
+    reordered to match it), else the ids the container embeds (h5,
+    tfrecord). An ``.npy`` without ``_ids.json`` is an error: the array
+    alone carries no alignment."""
     path = resolve_feature_path(os.path.join(d, f"{name}_{split}{suffix}"))
     ids_path = os.path.join(d, f"{name}_{split}_ids.json")
-    arr, _ = load_features(path)
-    if not os.path.exists(ids_path):
-        raise FileNotFoundError(
-            f"{ids_path} is required alongside {path} (.npy embeds no video "
-            "ids)")
-    with open(ids_path) as f:
-        video_ids = json.load(f)
+    video_ids = None
+    if os.path.exists(ids_path):
+        with open(ids_path) as f:
+            video_ids = json.load(f)
+    arr, embedded = load_features(path, video_ids)
+    if video_ids is None:
+        if embedded is None:
+            raise FileNotFoundError(
+                f"{ids_path} is required alongside {path} (this container "
+                "format embeds no video ids)")
+        video_ids = embedded
     return arr, video_ids
 
 
@@ -111,8 +119,10 @@ class CaptionDataset:
     def from_files(cls, cfg: DataConfig, split: str = "train") -> "CaptionDataset":
         """Load precomputed features + captions from disk:
 
-          {data_dir}/{dataset}_{split}_feats.npy   f32[N, T, D]
-          {data_dir}/{dataset}_{split}_ids.json    ["video1", ...]
+          {data_dir}/{dataset}_{split}_feats.{npy|h5|tfrecord}  f32[N, T, D]
+          {data_dir}/{dataset}_{split}_ids.json    ["video1", ...] (optional
+                                                   for h5/tfrecord, which
+                                                   embed ids)
           {data_dir}/{dataset}_captions.json       {"video1": ["a man ...", ...]}
           {data_dir}/{dataset}_vocab.json          (optional, else built here)
         """

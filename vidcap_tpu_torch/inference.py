@@ -8,6 +8,7 @@ K1 and K2.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -67,16 +68,50 @@ class Captioner:
     def from_checkpoint(cls, cfg: Config, dataset: CaptionDataset,
                         weights: Optional[str] = None,
                         device: Optional[str] = None,
-                        seed: Optional[int] = None) -> "Captioner":
-        """``weights``: a ``.npz`` of "/"-joined Flax paths (convert.py), or
-        None for the seeded init (``cfg.train.seed``). ``seed`` makes
-        sampled decodes reproducible."""
+                        seed: Optional[int] = None,
+                        checkpoint_dir: Optional[str] = None) -> "Captioner":
+        """The parameters of the newest ``ckpt_<step>.pt`` in
+        ``checkpoint_dir`` (train/checkpoint.py), or of ``weights``, a
+        ``.npz`` of "/"-joined Flax paths (convert.py); with neither, the
+        seeded init (``cfg.train.seed``). A named directory that holds no
+        checkpoint raises FileNotFoundError rather than decoding random
+        weights. ``seed`` makes sampled decodes reproducible."""
+        if weights and checkpoint_dir:
+            raise ValueError("give weights or checkpoint_dir, not both")
         dev = resolve_device(device)
         model = init_params(create_model(cfg, vocab_size=dataset.vocab.size),
                             seed=cfg.train.seed)
         if weights:
             load_weights(model, weights)
+        elif checkpoint_dir:
+            from vidcap_tpu_torch.train.checkpoint import CheckpointManager
+            from vidcap_tpu_torch.train.state import create_train_state
+            # (the manager makes its directory: never for an absent one)
+            mgr = (CheckpointManager(checkpoint_dir)
+                   if os.path.isdir(checkpoint_dir) else None)
+            if mgr is None or mgr.latest_step() is None:
+                raise FileNotFoundError(
+                    f"no checkpoint found in {checkpoint_dir!r} — train "
+                    "first, point --checkpoint-dir at a trained run, or pass "
+                    "--weights W.npz")
+            try:
+                mgr.restore_params_only(create_train_state(cfg, model))
+            except ValueError as e:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir!r} does not match the "
+                    f"model built from this preset/dataset (vocab size "
+                    f"{dataset.vocab.size} — wrong split or synthetic "
+                    f"fallback?): {e}") from e
         return cls(cfg, model.to(dev).eval(), dataset, dev, seed=seed)
+
+    @classmethod
+    def from_state(cls, cfg: Config, dataset: CaptionDataset, state
+                   ) -> "Captioner":
+        """A captioner on a train state's model and device, sharing its
+        parameters: the kernels' cast weights are made on the first decode,
+        so build a new one after the parameters change."""
+        return cls(cfg, state.model, dataset,
+                   next(state.model.parameters()).device)
 
     def _sample_seed(self, seed: Optional[int]) -> int:
         """The caller's seed; else one derived from ``self.seed`` and a

@@ -1,16 +1,17 @@
 """One training stage on one device, as ``vidcap_tpu/train/loop.py``'s
 ``train()``: the model from the seeded init, an exact mid-stage resume or a
 cross-stage one (xe → scst: parameters restored, optimizer fresh), the
-deterministic batch stream, logging and the checkpoint cadence.
+deterministic batch stream, logging, the checkpoint cadence, and periodic
+validation that keeps the best-CIDEr state under ``{checkpoint_dir}/best``.
 
 Runs on the card unless the caller asks for the CPU. Not ported, each
 raising ``NotImplementedError`` with its ROADMAP item: the mesh, the device
-feature bank and multi-step dispatch, prefetch, and periodic validation with
-best-checkpoint selection (it needs the metrics package).
+feature bank and multi-step dispatch, and prefetch.
 """
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from typing import Dict, Optional
@@ -21,7 +22,8 @@ import torch
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.data.loader import Batch, CaptionDataset
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
-from vidcap_tpu_torch.inference import resolve_device
+from vidcap_tpu_torch.inference import Captioner, resolve_device
+from vidcap_tpu_torch.metrics.evaluate import evaluate_captions
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops._build import launch_counts
 from vidcap_tpu_torch.train.checkpoint import CheckpointManager
@@ -38,7 +40,7 @@ def batch_to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
                       "video_idx")}
 
 
-def _refuse_unported(cfg: Config, num_steps: int, mesh) -> None:
+def _refuse_unported(cfg: Config, mesh) -> None:
     t = cfg.train
     if mesh is not None:
         raise NotImplementedError(
@@ -52,13 +54,32 @@ def _refuse_unported(cfg: Config, num_steps: int, mesh) -> None:
         raise NotImplementedError(
             "train.prefetch_depth > 0 (background prefetch) is not ported to "
             "vidcap_tpu_torch yet (ROADMAP Queue 1 item 12)")
-    if 0 < t.eval_every <= num_steps:
-        raise NotImplementedError(
-            f"periodic validation (train.eval_every={t.eval_every} within "
-            f"{num_steps} steps) and best-checkpoint selection need the "
-            "metrics package, not ported to vidcap_tpu_torch yet (ROADMAP "
-            "Queue 1 item 4 remainder, 'eval'); set train.eval_every=0 "
-            "(CLI --eval-every 0)")
+
+
+def _subset_dataset(dataset: CaptionDataset, max_videos: int
+                    ) -> CaptionDataset:
+    """The first ``max_videos`` videos of a dataset, with its vocab."""
+    n = min(max_videos, dataset.num_videos)
+    if n == dataset.num_videos:
+        return dataset
+    ids = dataset.video_ids[:n]
+    return CaptionDataset(
+        dataset.features[:n], ids,
+        {v: dataset.video_captions[v] for v in ids},
+        dataset.cfg, vocab=dataset.vocab)
+
+
+def run_validation(cfg: Config, captioner: Captioner,
+                   val_dataset: CaptionDataset) -> Dict[str, float]:
+    """Decode the val split with ``cfg.train.eval_method`` in batches of
+    ``cfg.train.batch_size`` and score the videos that have references:
+    {'CIDEr': ..., 'Bleu_4': ..., ...}."""
+    results = captioner.caption_dataset(
+        method=cfg.train.eval_method, batch_size=cfg.train.batch_size,
+        beam_width=cfg.decode.beam_width)
+    refs = {v: val_dataset.video_captions[v] for v in results
+            if val_dataset.video_captions.get(v)}  # empty list = no refs
+    return evaluate_captions(refs, {v: results[v] for v in refs})
 
 
 def _salted(gen: torch.Generator, salt: int) -> torch.Generator:
@@ -73,15 +94,21 @@ def _salted(gen: torch.Generator, salt: int) -> torch.Generator:
 def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
           num_steps: Optional[int] = None,
           logger: Optional[MetricsLogger] = None, resume: bool = False,
-          device: Optional[str] = None, mesh=None) -> TrainState:
+          device: Optional[str] = None, mesh=None,
+          val_dataset: Optional[CaptionDataset] = None) -> TrainState:
     """Run one stage (``cfg.train.stage``: "xe" or "scst") up to step
     ``num_steps`` (default ``cfg.train.num_steps``; counts are cumulative
     over stages); returns the final TrainState. Ends with one stderr line:
     the stage, the steps run, the device, K3's W_out mode (SCST) and the
-    kernel launches of this call."""
+    kernel launches of this call, validation's included.
+
+    Every ``cfg.train.eval_every`` steps the val split (``val_dataset``, or
+    without one the first 200 videos of ``dataset``) is decoded and scored,
+    and a state whose CIDEr beats every earlier one is saved under
+    ``{checkpoint_dir}/best``."""
     t = cfg.train
     num_steps = num_steps or t.num_steps
-    _refuse_unported(cfg, num_steps, mesh)
+    _refuse_unported(cfg, mesh)
     dev = resolve_device(device)
     dataset = dataset or CaptionDataset.synthetic(cfg.data)
     logger = logger or MetricsLogger()
@@ -114,6 +141,44 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
     else:
         raise ValueError(f"unknown stage {t.stage!r}")
 
+    eval_every = t.eval_every
+    eval_on_train = val_dataset is None
+    val = val_dataset
+    if eval_on_train and eval_every > 0:
+        # selection by training fit is overfit-prone, and decoding the
+        # whole train split at every cadence stalls the loop: a capped
+        # subset, and every eval row marked
+        val = _subset_dataset(dataset, max_videos=200)
+        print(f"[vidcap] no val split — periodic eval scores a "
+              f"{val.num_videos}-video TRAIN subset; 'best' checkpoint "
+              f"selection reflects training fit, not held-out quality",
+              file=sys.stderr)
+    best_ckpt = None
+    best_cider = -1.0
+
+    def maybe_eval(step_no: int) -> None:
+        nonlocal best_ckpt, best_cider
+        t0 = time.perf_counter()
+        # a new captioner each time: its kernels' cast weights must be
+        # those of the parameters as they are now
+        state.model.eval()
+        try:
+            scores = run_validation(cfg, Captioner.from_state(cfg, val,
+                                                              state), val)
+        finally:
+            state.model.train()
+        record = {f"eval_{k}": v for k, v in scores.items()}
+        if eval_on_train:
+            record["eval_on_train_fallback"] = 1.0
+        record["val_seconds"] = time.perf_counter() - t0
+        logger.log(step_no, record)
+        if scores["CIDEr"] > best_cider:
+            best_cider = scores["CIDEr"]
+            if best_ckpt is None:
+                best_ckpt = CheckpointManager(
+                    os.path.join(t.checkpoint_dir, "best"), max_to_keep=1)
+            best_ckpt.save(state, stage=t.stage)
+
     start = state.step
     launches0 = dict(launch_counts)
     it = DeterministicBatcher(dataset, t.batch_size, state=iter_state,
@@ -132,6 +197,8 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
         if (t.checkpoint_every > 0 and (i + 1) % t.checkpoint_every == 0) \
                 or i + 1 == num_steps:
             ckpt.save(state, iter_state=it.state, stage=t.stage)
+        if eval_every > 0 and (i + 1) % eval_every == 0:
+            maybe_eval(i + 1)
 
     mode = ""
     if getattr(step_fn, "rollout_resident", None) is not None \
