@@ -14,7 +14,9 @@ training of ``scst_cider`` (B=32, vocab 12,000), whose SCST step runs its
 sampled and greedy rollouts on K3 and whose validation decodes on K3; and
 the offline path at ``msrvtt_attn_beam5``'s width (``prepare`` → ``train``
 with validation through K1 and K2 and a best checkpoint → ``caption
---checkpoint-dir best/ --inputs`` → ``eval``). Phases:
+--checkpoint-dir best/ --inputs`` → ``eval``); serving (``serve`` over stdin
+and HTTP, beam through K1/K2 and greedy through K3) and export (``export``,
+``caption``/``serve --from-export``). Phases:
 
   1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
   2 K1 beam_core vs plain             seeded and raised-<eos> weights; W_out
@@ -33,6 +35,13 @@ with validation through K1 and K2 and a best checkpoint → ``caption
                                       width: prepare, train with validation
                                       on K1/K2, caption --checkpoint-dir
                                       best/ --inputs, eval
+                                   12 serve: stdin and HTTP (beam, K1/K2),
+                                      stdin greedy (K3), each caption equal
+                                      to the in-process decode
+                                   13 export (beam B=32, greedy
+                                      polymorphic), caption --from-export
+                                      (split, --inputs), serve --from-export
+                                      equal to the live decodes; refusals
   then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
@@ -41,13 +50,16 @@ it exits 2 and prints no result. Imports torch and numpy, never JAX.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1248,6 +1260,459 @@ def phase_offline(row_floor: float):
     return out
 
 
+# Phases 12-13: serving and export through the CLI, at msrvtt_attn_beam5's
+# width (beam 5, Vp=16,000) through K1/K2 and at msvd_greedy's (Vp=12,032)
+# through K3, on one set of seeded weights and feature files.
+SERVE_FILES, SERVE_B, GREEDY_FILES, HTTP_CLIENTS = 100, 32, 64, 8
+# ``python -m vidcap_tpu_torch`` with Python's SIGINT handler installed even
+# where this process's parent ignores SIGINT: SIGINT ends ``serve --http``
+SERVE_CHILD = ("import runpy, signal; signal.signal(signal.SIGINT, "
+               "signal.default_int_handler); runpy.run_module("
+               "'vidcap_tpu_torch', run_name='__main__', alter_sys=True)")
+LAUNCH_LINE = re.compile(r"\] (\w+): (\d+) decodes, (\d+) steps on [^;]*"
+                         r"(?:; rollout W_out (\w+))?; kernel launches "
+                         r"(\{.*\})")
+
+
+def launch_line(err: str, what: str):
+    """(method, decodes, steps, launches, K3's W_out mode) of the last
+    decodes line a CLI call printed."""
+    line = LAUNCH_LINE.findall(err)
+    if not line:
+        fail(f"{what} printed no launch counts: {err[-2000:]}")
+    method, decodes, steps, mode, launches = line[-1]
+    return method, int(decodes), int(steps), json.loads(launches), mode
+
+
+_CHILDREN = []
+
+
+@atexit.register
+def _stop_children():
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def port_proc(args, cwd, **kw):
+    """``python -m vidcap_tpu_torch <args>`` started in ``cwd``; killed at
+    exit if it still runs."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
+    _CHILDREN.append(subprocess.Popen(
+        [sys.executable, "-c", SERVE_CHILD, *args], cwd=cwd, env=env,
+        text=True, **kw))
+    return _CHILDREN[-1]
+
+
+class Served:
+    """A ``serve`` process: stderr read on a thread (``wait_for`` a line),
+    stdout lines timed on another, killed by ``stop`` if still running."""
+
+    def __init__(self, args, cwd, stdin=False):
+        import queue
+        self.proc = port_proc(args, cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE,
+                              stdin=subprocess.PIPE if stdin else None)
+        self.err, self.lines = [], queue.Queue()
+        self._seen = threading.Condition()
+        threading.Thread(target=self._read_err, daemon=True).start()
+        threading.Thread(target=self._read_out, daemon=True).start()
+
+    def _read_err(self):
+        for line in self.proc.stderr:
+            with self._seen:
+                self.err.append(line)
+                self._seen.notify_all()
+        with self._seen:
+            self.err.append(None)       # end of stderr
+            self._seen.notify_all()
+
+    def _read_out(self):
+        for line in self.proc.stdout:
+            self.lines.put((time.perf_counter(), line))
+        self.lines.put((time.perf_counter(), None))
+
+    def wait_for(self, text: str, timeout: float = 600) -> str:
+        with self._seen:
+            ok = self._seen.wait_for(lambda: any(
+                x is None or text in x for x in self.err), timeout)
+            hit = [x for x in self.err if x is not None and text in x]
+        if not ok or not hit:
+            self.stop()
+            fail(f"serve never printed {text!r}: {''.join(self.stderr())}")
+        return hit[0]
+
+    def read(self, n: int, what: str, timeout: float = 120):
+        """n stdout lines as [(perf_counter, path, caption)]."""
+        import queue
+        out = []
+        for _ in range(n):
+            try:
+                t, line = self.lines.get(timeout=timeout)
+            except queue.Empty:
+                line = None
+            if line is None:
+                self.stop()
+                fail(f"{what}: {len(out)} of {n} lines: "
+                     f"{''.join(self.stderr())[-3000:]}")
+            path, caption = line.rstrip("\n").split("\t")
+            out.append((t, path, caption))
+        return out
+
+    def stderr(self):
+        return [x for x in self.err if x is not None]
+
+    def finish(self, what: str, timeout: float = 120) -> str:
+        """Wait for the exit; fail unless it is 0; the whole stderr."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.stop()
+        with self._seen:
+            self._seen.wait_for(lambda: self.err and self.err[-1] is None, 30)
+        err = "".join(self.stderr())
+        if rc != 0:
+            fail(f"{what} exited {rc}: {err[-3000:]}")
+        return err
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def serving_setup(tmp: str, g):
+    """Seeded weights for msrvtt_attn_beam5 (vocab 16,000) and msvd_greedy
+    (12,000) saved with save_weights; a data dir whose train splits supply
+    those vocabularies and whose msrvtt test split holds 64 videos of N(0,1)
+    features; SERVE_FILES .npy files of 1-40 frames (the longer cut to 26,
+    the shorter masked)."""
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    out = {"data": data, "inputs": os.path.join(tmp, "inputs")}
+    for preset, vocab in (("msrvtt_attn_beam5", VP), ("msvd_greedy", VOCAB_G)):
+        cfg = get_preset(preset)
+        out[preset] = os.path.join(tmp, f"{preset}.npz")
+        save_weights(init_params(create_model(cfg, vocab), cfg.train.seed),
+                     out[preset])
+        name = cfg.data.dataset
+        vocab_of(vocab).save(os.path.join(data, f"{name}_vocab.json"))
+        splits = {"train": [f"train{i}" for i in range(2)]}
+        if name == "msrvtt":
+            splits["test"] = [f"video{i}" for i in range(2 * SERVE_B)]
+        for split, ids in splits.items():
+            feats = g.normal(size=(len(ids), T, D)).astype(np.float32)
+            np.save(os.path.join(data, f"{name}_{split}_feats.npy"), feats)
+            with open(os.path.join(data, f"{name}_{split}_ids.json"),
+                      "w") as f:
+                json.dump(ids, f)
+            out[f"{name}_{split}"] = (ids, feats)
+        with open(os.path.join(data, f"{name}_captions.json"), "w") as f:
+            json.dump({v: [] for ids in splits.values() for v in ids}, f)
+    os.makedirs(out["inputs"])
+    out["paths"] = []
+    for i, n in enumerate(g.integers(1, 41, SERVE_FILES)):
+        out["paths"].append(os.path.join(out["inputs"], f"v{i:03d}.npy"))
+        np.save(out["paths"][-1], g.normal(size=(int(n), D))
+                .astype(np.float32))
+    return out
+
+
+def served_references(setup):
+    """The in-process kernel-path decodes the served captions must equal:
+    each file decoded in the zero-padded batch of SERVE_B it is served in
+    (files in order, SERVE_B at a time), beam through K1/K2 and greedy
+    (the first GREEDY_FILES) through K3; the msrvtt test split in batches
+    of SERVE_B, unmasked, as ``caption --from-export`` decodes a split."""
+    from vidcap_tpu_torch.serving import _FeatureLoader, _pad_batch
+    refs = {}
+    for preset, method, n in (("msrvtt_attn_beam5", "beam", SERVE_FILES),
+                              ("msvd_greedy", "greedy", GREEDY_FILES)):
+        cfg = dataclasses.replace(get_preset(preset), data=dataclasses.replace(
+            get_preset(preset).data, data_dir=setup["data"]))
+        cap = Captioner.from_checkpoint(
+            cfg, CaptionDataset.from_files(cfg.data, "train"),
+            weights=setup[preset])
+        loader, vocab = _FeatureLoader(cfg), cap.dataset.vocab
+        paths, got = setup["paths"][:n], {}
+        for i in range(0, n, SERVE_B):
+            chunk = paths[i:i + SERVE_B]
+            batch, mask = _pad_batch(cfg, [loader(p) for p in chunk], SERVE_B)
+            toks = cap.decode_batch(batch, method=method, beam_width=K,
+                                    frame_mask=mask)
+            got.update((p, vocab.decode_str(t)) for p, t in zip(chunk, toks))
+        refs[method] = got
+        if method == "beam":
+            ids, feats = setup["msrvtt_test"]
+            refs["split"] = {}
+            for i in range(0, len(ids), SERVE_B):
+                toks = cap.decode_batch(feats[i:i + SERVE_B], beam_width=K)
+                refs["split"].update(
+                    (v, [vocab.decode_str(t)])
+                    for v, t in zip(ids[i:i + SERVE_B], toks))
+    return refs
+
+
+def http_request(port, method, path, body=None, ctype=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request(method, path, body=body,
+                 headers={"Content-Type": ctype} if ctype else {})
+    r = conn.getresponse()
+    out = (r.status, json.loads(r.read()))
+    conn.close()
+    return out
+
+
+def check_served(method, decodes, steps, launches, want_method, what):
+    """The decodes line of a serve or caption call: its method, and its
+    launches all on its path's kernels (K1 = K2 = steps, or one K3 launch a
+    decode of up to 32 rows: ``decodes`` here), none on the other's."""
+    if method != want_method:
+        fail(f"{what}: method {method}, want {want_method}")
+    want = ({"beam_core": steps, "topk_project": steps, "rollout": 0}
+            if method == "beam" else
+            {"beam_core": 0, "topk_project": 0, "rollout": decodes})
+    if launches != want:
+        fail(f"{what}: launches {launches} for {decodes} decodes, {steps} "
+             f"steps; want {want}")
+
+
+def phase_serving(setup, refs, tmp):
+    """``serve`` through the CLI on the card, at msrvtt_attn_beam5's width
+    (beam 5, B=32): (a) stdin with --max-wait-ms 50 --pipeline-depth 1:
+    SERVE_FILES paths written at once after the server's ready line, stdin
+    kept open until every line is out, so the partial batch of 4 must flush
+    on the deadline; each line equal to the in-process decode, 5 decodes
+    (the warmup and four batches), K1 = K2 = steps ≤ 5 × 30, no K3; (b)
+    --http 0 --max-wait-ms 20 --path-root: one request alone, then the rest
+    of 96 from HTTP_CLIENTS threads (every 8th in JSON path mode), each
+    caption equal to the in-process decode of that file, /stats served 96
+    and rejected 0, a path outside the root 403, SIGINT ends it; (c)
+    msvd_greedy on stdin, GREEDY_FILES files at B=32 through K3: 3 launches
+    (the warmup and two batches), W_out resident. Times: captions/s of (a)
+    from the first line written to the last read; p50/p99 of (a) and (b)
+    from the server and from the client; the lone first request of (b)
+    against the median client latency."""
+    from concurrent.futures import ThreadPoolExecutor
+    beam = ["--preset", "msrvtt_attn_beam5", "--weights",
+            setup["msrvtt_attn_beam5"], "--set",
+            f"data.data_dir={setup['data']}", "--batch", str(SERVE_B)]
+    paths, out = setup["paths"], {}
+
+    # ---- (a) stdin
+    srv = Served(["serve", *beam, "--max-wait-ms", "50", "--pipeline-depth",
+                  "1"], tmp, stdin=True)
+    srv.wait_for("serving stdin")
+    t0 = time.perf_counter()
+    srv.proc.stdin.write("\n".join(paths) + "\n")
+    srv.proc.stdin.flush()
+    lines = srv.read(len(paths), "serve stdin")
+    srv.proc.stdin.close()
+    err = srv.finish("serve stdin")
+    if [p for _, p, _ in lines] != paths or any(
+            c != refs["beam"][p] for _, p, c in lines):
+        fail("serve stdin: lines differ from the in-process decode")
+    served = re.findall(r"served (\d+) captions latency p50=(\d+)ms "
+                        r"p99=(\d+)ms", err)
+    method, decodes, steps, launches, _ = launch_line(err, "serve stdin")
+    check_served(method, decodes, steps, launches, "beam", "serve stdin")
+    if not served or int(served[-1][0]) != len(paths) or decodes != 5 or \
+            steps > 5 * L:
+        fail(f"serve stdin: served {served}, {decodes} decodes, {steps} "
+             f"steps: {err[-2000:]}")
+    lat = np.array([t - t0 for t, _, _ in lines]) * 1e3
+    out["stdin"] = dict(
+        captions_per_s=len(paths) / (lines[-1][0] - t0),
+        server_p50_ms=int(served[-1][1]), server_p99_ms=int(served[-1][2]),
+        client_p50_ms=float(np.percentile(lat, 50)),
+        client_p99_ms=float(np.percentile(lat, 99)),
+        batch_done_ms=[float(lat[i]) for i in range(0, len(paths), SERVE_B)]
+        + [float(lat[-1])], decodes=decodes, steps=steps, launches=launches)
+
+    # ---- (b) HTTP
+    srv = Served(["serve", *beam, "--max-wait-ms", "20", "--http", "0",
+                  "--path-root", setup["inputs"]], tmp)
+    line = srv.wait_for("serving HTTP on")
+    port = int(re.search(r"serving HTTP on [\d.]+:(\d+)", line).group(1))
+    http_paths = paths[:96]
+
+    def ask(i):
+        p = http_paths[i]
+        t = time.perf_counter()
+        if i % 8 == 1:       # path mode, inside --path-root
+            r = http_request(port, "POST", "/caption", json.dumps(
+                {"path": os.path.basename(p)}), "application/json")
+        else:
+            with open(p, "rb") as f:
+                r = http_request(port, "POST", "/caption", f.read(),
+                                 "application/octet-stream")
+        return (time.perf_counter() - t) * 1e3, r
+    try:
+        first_ms, first = ask(0)
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            rest = list(pool.map(ask, range(1, len(http_paths))))
+        answers = [first] + [r for _, r in rest]
+        bad = [(p, r) for p, r in zip(http_paths, answers)
+               if r != (200, {"caption": refs["beam"][p]})]
+        outside = http_request(port, "POST", "/caption", json.dumps(
+            {"path": "../msrvtt_attn_beam5.npz"}), "application/json")
+        stats = http_request(port, "GET", "/stats")[1]
+    finally:
+        srv.proc.send_signal(signal.SIGINT)
+    err = srv.finish("serve --http")
+    if bad:
+        fail(f"serve --http: {len(bad)} answers differ from the in-process "
+             f"decode, e.g. {bad[0]}")
+    if outside[0] != 403 or stats["served"] != 96 or stats["rejected"]:
+        fail(f"serve --http: outside the root {outside}, /stats {stats}")
+    method, decodes, steps, launches, _ = launch_line(err, "serve --http")
+    check_served(method, decodes, steps, launches, "beam", "serve --http")
+    client = np.array([ms for ms, _ in rest])
+    out["http"] = dict(
+        requests=len(answers), clients=HTTP_CLIENTS, stats=stats,
+        client_p50_ms=float(np.percentile(client, 50)),
+        client_p99_ms=float(np.percentile(client, 99)),
+        first_request_ms=first_ms, decodes=decodes, steps=steps,
+        launches=launches)
+    # no nvcc build (seconds) and no weight cast in the first request: the
+    # warmup paid them; it waits out --max-wait-ms alone and decodes once
+    if first_ms > out["http"]["client_p50_ms"] + 1000:
+        fail(f"serve --http: the first request took {first_ms} ms, the "
+             f"median {out['http']['client_p50_ms']} ms")
+
+    # ---- (c) greedy through K3
+    srv = Served(["serve", "--preset", "msvd_greedy", "--weights",
+                  setup["msvd_greedy"], "--set",
+                  f"data.data_dir={setup['data']}", "--batch", str(SERVE_B)],
+                 tmp, stdin=True)
+    srv.proc.stdin.write("\n".join(paths[:GREEDY_FILES]) + "\n")
+    srv.proc.stdin.close()
+    lines = srv.read(GREEDY_FILES, "serve greedy")
+    err = srv.finish("serve greedy")
+    if any(c != refs["greedy"][p] for _, p, c in lines):
+        fail("serve greedy: lines differ from the in-process K3 decode")
+    method, decodes, steps, launches, mode = launch_line(err, "serve greedy")
+    check_served(method, decodes, steps, launches, "greedy", "serve greedy")
+    if decodes != 3 or mode != "resident":
+        fail(f"serve greedy: {decodes} decodes, W_out {mode}")
+    out["greedy"] = dict(decodes=decodes, launches=launches, w_out=mode)
+    return out
+
+
+def phase_export(setup, refs, tmp):
+    """``export`` through the CLI: a beam artifact at B=32 from the
+    msrvtt_attn_beam5 weights and a batch-polymorphic greedy one from
+    msvd_greedy's; then, all at once, ``caption --from-export`` on the
+    msrvtt test split and with ``--inputs`` (phase 12's files) and ``serve
+    --from-export`` of the greedy artifact on stdin: each equal to the
+    in-process decode of the same inputs (phase 12's references), K1/K2
+    (beam) or K3 (greedy) launches on each decodes line. Refused, exit not
+    0: ``export --method sample``, an export of scst_cider's sampled decode,
+    ``serve --from-export`` of the beam artifact with --method greedy."""
+    data = ["--set", f"data.data_dir={setup['data']}"]
+    beam = ["--preset", "msrvtt_attn_beam5", *data]
+    greedy = ["--preset", "msvd_greedy", *data]
+    art_b, art_g = os.path.join(tmp, "art_beam"), os.path.join(tmp, "art_greedy")
+    pipes = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def finish(procs, want_ok=True):
+        res = {}
+        for name, (p, inp) in procs.items():
+            try:
+                o, e = p.communicate(inp, timeout=600)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            if (p.returncode == 0) != want_ok:
+                fail(f"phase 13 {name} exited {p.returncode}: {e[-3000:]}")
+            res[name] = (o, e)
+        return res
+
+    w_b, w_g = setup["msrvtt_attn_beam5"], setup["msvd_greedy"]
+    t0 = time.perf_counter()
+    refused = {
+        "export --method sample": (port_proc(
+            ["export", *beam, "--weights", w_b, "--method", "sample",
+             "--out", "never"], tmp, **pipes), None),
+        "export scst_cider (sample)": (port_proc(
+            ["export", "--preset", "scst_cider", *data, "--weights", w_b,
+             "--out", "never"], tmp, **pipes), None)}
+    made = finish({
+        "export beam": (port_proc(["export", *beam, "--weights", w_b,
+                                   "--batch", str(SERVE_B), "--out", art_b],
+                                  tmp, **pipes), None),
+        "export greedy": (port_proc(["export", *greedy, "--weights", w_g,
+                                     "--batch", "0", "--method", "greedy",
+                                     "--out", art_g], tmp, **pipes), None)})
+    metas = {}
+    for art in (art_b, art_g):
+        with open(os.path.join(art, "meta.json")) as f:
+            metas[os.path.basename(art)] = json.load(f)
+    if metas["art_beam"]["batch_size"] != SERVE_B or metas["art_beam"][
+            "method"] != "beam" or metas["art_greedy"]["batch_size"] is not None:
+        fail(f"phase 13 export: metas {metas}")
+    refused["serve --from-export beam --method greedy"] = (port_proc(
+        ["serve", *beam, "--from-export", art_b, "--method", "greedy"], tmp,
+        stdin=subprocess.PIPE, **pipes), "")
+    split_json = os.path.join(tmp, "split.json")
+    inputs_json = os.path.join(tmp, "inputs.json")
+    used = finish({
+        "caption --from-export split": (port_proc(
+            ["caption", *beam, "--from-export", art_b, "--split", "test",
+             "--out", split_json], tmp, **pipes), None),
+        "caption --from-export --inputs": (port_proc(
+            ["caption", *beam, "--from-export", art_b, "--inputs",
+             setup["inputs"], "--out", inputs_json], tmp, **pipes), None),
+        "serve --from-export greedy": (port_proc(
+            ["serve", *greedy, "--from-export", art_g], tmp,
+            stdin=subprocess.PIPE, **pipes),
+            "\n".join(setup["paths"][:GREEDY_FILES]) + "\n")})
+    no = finish(refused, want_ok=False)
+    wall = time.perf_counter() - t0
+    for name, text in (("export --method sample", "invalid choice"),
+                       ("export scst_cider (sample)", "greedy/beam"),
+                       ("serve --from-export beam --method greedy",
+                        "conflicts with the artifact")):
+        if text not in no[name][1]:
+            fail(f"phase 13 {name}: refused without {text!r}: "
+                 f"{no[name][1][-2000:]}")
+    out = {"metas": {k: {f: m[f] for f in ("method", "beam_width",
+                                           "batch_size", "platforms")}
+                     for k, m in metas.items()}}
+    with open(split_json) as f:
+        if json.load(f) != refs["split"]:
+            fail("phase 13: caption --from-export on the split differs from "
+                 "the in-process decode")
+    with open(inputs_json) as f:
+        want = {os.path.splitext(os.path.basename(p))[0]: [c]
+                for p, c in refs["beam"].items()}
+        if json.load(f) != want:
+            fail("phase 13: caption --from-export --inputs differs from the "
+                 "in-process decode")
+    o = used["serve --from-export greedy"][0].splitlines()
+    if o != [f"{p}\t{refs['greedy'][p]}"
+             for p in setup["paths"][:GREEDY_FILES]]:
+        fail("phase 13: serve --from-export differs from the in-process K3 "
+             "decode")
+    for name, want_method, want_decodes in (
+            ("caption --from-export split", "beam", 2),
+            ("caption --from-export --inputs", "beam", 4),
+            ("serve --from-export greedy", "greedy", 3)):
+        method, decodes, steps, launches, _ = launch_line(used[name][1],
+                                                          name)
+        check_served(method, decodes, steps, launches, want_method, name)
+        if decodes != want_decodes:
+            fail(f"phase 13 {name}: {decodes} decodes, want {want_decodes}")
+        out[name] = dict(decodes=decodes, steps=steps, launches=launches)
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -1308,19 +1773,40 @@ def main() -> int:
         e2e["identical_rows_plain_cpu_vs_card_by_trial"]) - ROW_SLACK)
     print(f"phase 11 offline path msrvtt_attn_beam5 (train B=64, beam {K}, "
           f"Vp={VP}) on {card}: " + json.dumps(offline), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        setup = serving_setup(tmp, np.random.default_rng(12))
+        refs = served_references(setup)
+        serving = phase_serving(setup, refs, tmp)
+        serving["wall_s"] = time.perf_counter() - t0
+        print(f"phase 12 serve msrvtt_attn_beam5 (B={SERVE_B}, beam {K}, "
+              f"Vp={VP}) and msvd_greedy on {card}: " + json.dumps(serving),
+              flush=True)
+        export = phase_export(setup, refs, tmp)
+        print(f"phase 13 export, caption/serve --from-export on {card}: "
+              + json.dumps(export), flush=True)
+    served_beam = [serving["stdin"], serving["http"],
+                   export["caption --from-export split"],
+                   export["caption --from-export --inputs"]]
+    served_k3 = [serving["greedy"], export["serve --from-export greedy"]]
 
     # max_abs_err is the max |err| against the plain version (K3: of the
     # log-probs along the kernel's tokens), ms the kernel's time; bound_ms
     # alone is computed, not measured. The launches are those of the main
-    # paths: K1/K2 phase 4's beam decodes and phase 11's validation and
-    # caption --inputs; K3 phase 7's greedy and sampled decodes, phase 9's
-    # SCST steps and phase 10's validation.
+    # paths: K1/K2 phase 4's beam decodes, phase 11's validation and
+    # caption --inputs, phase 12's served batches (stdin, HTTP) and phase
+    # 13's caption --from-export; K3 phase 7's greedy and sampled decodes,
+    # phase 9's SCST steps, phase 10's validation, phase 12's greedy serve
+    # and phase 13's serve --from-export (the servers' warmups included).
     k3["launches"] = (sum(r["launches"]["rollout"] for r in roll.values())
                       + scst["launches"]["rollout"]
-                      + cli_train["validation_rollout_launches"])
+                      + cli_train["validation_rollout_launches"]
+                      + sum(r["launches"]["rollout"] for r in served_k3))
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]
                                        + offline["train_launches"][k["name"]]
-                                       + offline["caption_launches"][k["name"]])
+                                       + offline["caption_launches"][k["name"]]
+                                       + sum(r["launches"][k["name"]]
+                                             for r in served_beam))
                                   for k in (k1, k2)] + [k3]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

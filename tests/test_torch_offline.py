@@ -608,11 +608,22 @@ def test_cli_offline_path_through_subprocesses(tmp_path):
     assert best.all_steps() == [best_step(rows)]
 
 
-@pytest.mark.parametrize("cmd,item", [("info", "item 14"),
-                                      ("extract", "item 11"),
-                                      ("convert", "item 11"),
-                                      ("serve", "item 10"),
-                                      ("export", "item 10")])
-def test_commands_not_ported_name_their_item(cmd, item, capsys):
-    assert cli_main([cmd, "--preset", "msrvtt_attn_beam5"]) == 2
-    assert f"ROADMAP Queue 1 {item}" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,says", [
+    (["info"], "ROADMAP Queue 1 item 14"),
+    (["extract"], "ROADMAP Queue 1 item 11"),
+    (["convert"], "ROADMAP Queue 1 item 11"),
+    (["serve", "--sharded"], "ROADMAP Queue 1 item 12"),
+    (["caption", "--from-export", "JAX_ARTIFACT"],
+     "artifact of the JAX package")])
+def test_commands_not_ported_name_their_item(argv, says, tmp_path, capsys):
+    """The commands still to port name their ROADMAP item; an artifact of
+    the JAX package (a StableHLO graph, ``decoder.jaxexp`` and its meta) is
+    named and refused."""
+    jax_artifact = tmp_path / "jax_artifact"
+    jax_artifact.mkdir()
+    (jax_artifact / "decoder.jaxexp").write_bytes(b"")
+    (jax_artifact / "meta.json").write_text(json.dumps({"schema": 1}))
+    argv = [str(jax_artifact) if a == "JAX_ARTIFACT" else a for a in argv]
+    assert cli_main([argv[0], "--preset", "msrvtt_attn_beam5", *argv[1:],
+                     "--device", "cpu"]) == 2
+    assert says in capsys.readouterr().err

@@ -15,6 +15,15 @@
       | --weights W.npz] [--temperature T] [--seed S] [--split test] ...
   python -m vidcap_tpu_torch eval --preset msvd_greedy --captions caps.json
       [--refs refs.json | --split test]
+  python -m vidcap_tpu_torch serve --preset msrvtt_attn_beam5
+      [--checkpoint-dir DIR | --weights W.npz | --from-export DIR]
+      [--method M] [--beam K] [--batch 32] [--max-wait-ms MS]
+      [--pipeline-depth 1] [--http PORT [--path-root DIR] [--max-queue N]]
+      [--device cpu]
+  python -m vidcap_tpu_torch export --preset msvd_greedy --out DIR
+      [--checkpoint-dir DIR | --weights W.npz] [--batch 32 | --batch 0]
+      [--method greedy|beam] [--beam K] [--platforms cuda,cpu]
+      [--device cpu]
 
 ``prepare`` turns MSVD/MSR-VTT annotation files into the layout that
 ``CaptionDataset.from_files`` reads. ``train`` runs the preset's stage, or
@@ -26,10 +35,13 @@ fixture when the dataset is not on disk), or the ``.npy`` feature files of
 ``--inputs``, with the preset's method unless ``--method`` is given, and
 writes {video_id: [caption, ...]} json; ``sample`` is ``caption --method
 sample``. Both read the newest checkpoint of ``--checkpoint-dir`` (default
-the preset's ``train.checkpoint_dir``) or a ``--weights`` file. ``eval``
-scores a captions json on the host. Train and decode run on the card unless
-``--device cpu`` is given. The other commands of the JAX CLI are not ported
-yet and say which ROADMAP item they wait for.
+the preset's ``train.checkpoint_dir``) or a ``--weights`` file; ``caption
+--from-export DIR`` decodes with an ``export`` artifact instead (export.py).
+``eval`` scores a captions json on the host. ``serve`` captions the feature
+paths of stdin, or of HTTP requests with ``--http`` (serving.py), and
+``export`` writes an artifact of weights, vocab and meta. Train, decode and
+serve run on the card unless ``--device cpu`` is given. The other commands
+of the JAX CLI are not ported yet and say which ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -47,10 +59,7 @@ from vidcap_tpu_torch.ops._build import launch_counts
 _NOT_PORTED = {
     "--feature-bank": "Queue 1 item 12 (the device feature bank)",
     "--steps-per-dispatch": "Queue 1 item 12 (multi-step dispatch)",
-    "--sharded": "Queue 1 item 12 (multi-GPU training)",
-    "serve": "Queue 1 item 10 (serving and export)",
-    "export": "Queue 1 item 10 (serving and export)",
-    "--from-export": "Queue 1 item 10 (serving and export)",
+    "--sharded": "Queue 1 item 12 (multi-GPU)",
     "info": "Queue 1 item 14 (the preflight census)",
     "extract": "Queue 1 item 11 (feature extraction from video)",
     "convert": "Queue 1 item 11 (TF-slim IRv2 weights)",
@@ -92,8 +101,30 @@ def _captioner(args, cfg: Config, dataset):
         raise SystemExit("give --weights or --checkpoint-dir, not both")
     return Captioner.from_checkpoint(
         cfg, dataset, weights=args.weights, device=args.device,
-        seed=args.seed, checkpoint_dir=None if args.weights else (
-            args.checkpoint_dir or cfg.train.checkpoint_dir))
+        seed=getattr(args, "seed", None), checkpoint_dir=None
+        if args.weights else (args.checkpoint_dir or cfg.train.checkpoint_dir))
+
+
+def _load_export(args, cfg: Config):
+    """``--from-export DIR``: the artifact on ``--device``, checked against
+    the preset's feature shape and the flags; a flag that conflicts with
+    what the artifact froze is an error, never a decode with another
+    method or width."""
+    from vidcap_tpu_torch.export import ExportedCaptioner
+    try:
+        ec = ExportedCaptioner.load(args.from_export, device=args.device)
+        ec.check_config(cfg)
+    except ValueError as e:
+        raise SystemExit(f"--from-export: {e}") from None
+    if args.method and args.method != ec.meta["method"]:
+        raise SystemExit(f"--method {args.method} conflicts with the "
+                         f"artifact (exported {ec.meta['method']}); the "
+                         f"decode is frozen at export time")
+    if (args.beam is not None and ec.meta["method"] == "beam"
+            and args.beam != ec.meta["beam_width"]):
+        raise SystemExit(f"--beam {args.beam} conflicts with the artifact "
+                         f"(exported beam_width {ec.meta['beam_width']})")
+    return ec
 
 
 def _write_results(results: dict, out: Optional[str], head: int) -> None:
@@ -187,11 +218,12 @@ def cmd_train(args) -> int:
     return 0
 
 
-def _input_paths(items) -> list:
-    """``--inputs`` → the ``.npy`` and video paths, directories scanned,
-    each file once (by normpath)."""
+def _input_paths(items, from_export: bool = False) -> list:
+    """``--inputs`` → the ``.npy`` and video paths (``.npy`` only with
+    ``--from-export``), directories scanned, each file once (by
+    normpath)."""
     from vidcap_tpu_torch.serving import _VIDEO_EXTS
-    exts = _VIDEO_EXTS + (".npy",)
+    exts = (".npy",) if from_export else _VIDEO_EXTS + (".npy",)
     paths = []
     for item in items:
         if os.path.isdir(item):
@@ -203,8 +235,12 @@ def _input_paths(items) -> list:
             paths.extend(found)
         elif os.path.exists(item):
             if not item.lower().endswith(exts):
-                raise SystemExit(f"--inputs: {item!r} is not a supported "
-                                 f"input ({', '.join(exts)})")
+                raise SystemExit(
+                    f"--inputs: {item!r} is not a supported input "
+                    f"({', '.join(exts)})" + (
+                        "; raw videos need the live model — drop "
+                        "--from-export" if from_export
+                        and item.lower().endswith(_VIDEO_EXTS) else ""))
             paths.append(item)
         else:
             raise SystemExit(f"--inputs: {item!r} does not exist")
@@ -217,30 +253,39 @@ def _input_paths(items) -> list:
 
 def _caption_inputs(args, cfg: Config, method: str, nbest: int) -> None:
     """``caption --inputs FILE|DIR ...``: the given feature files in batches
-    of min(files, train.batch_size), zero-padded, with frame masks. Keys
-    are basenames, or the full path where two files share one."""
+    of min(files, train.batch_size), zero-padded, with frame masks; with
+    ``--from-export`` in batches of the artifact's size (a polymorphic one:
+    as without). Keys are basenames, or the full path where two files share
+    one."""
     from collections import Counter
 
     import numpy as np
 
     from vidcap_tpu_torch.serving import _FeatureLoader, _pad_batch
-    paths = _input_paths(args.inputs)
+    paths = _input_paths(args.inputs, from_export=bool(args.from_export))
     base_of = {p: os.path.splitext(os.path.basename(p))[0] for p in paths}
     dup = {b for b, n in Counter(base_of.values()).items() if n > 1}
-    # the train split supplies the vocab the checkpoint was trained with
-    dataset = _load_dataset(cfg, split="train")
-    cap = _captioner(args, cfg, dataset)
-    vocab = dataset.vocab
     B = max(1, min(len(paths), cfg.train.batch_size))
+    if args.from_export:
+        cap = _load_export(args, cfg)
+        method, B = cap.meta["method"], cap.batch_size or B
+        # --beam goes through so the artifact validates it
+        decode = lambda batch, mask: cap.decode_batch(
+            batch, beam_width=args.beam, frame_mask=mask)
+    else:
+        # the train split supplies the vocab the checkpoint was trained with
+        cap = _captioner(args, cfg, _load_dataset(cfg, split="train"))
+        decode = lambda batch, mask: cap.decode_batch(
+            batch, method=method,
+            beam_width=args.beam or cfg.decode.beam_width,
+            temperature=args.temperature, frame_mask=mask, nbest=nbest)
+    vocab = cap.dataset.vocab
     loader = _FeatureLoader(cfg)
     results = {}
     for i in range(0, len(paths), B):
         chunk = paths[i:i + B]
         batch, mask = _pad_batch(cfg, [loader(p) for p in chunk], B)
-        toks = np.asarray(cap.decode_batch(
-            batch, method=method, beam_width=args.beam or cfg.decode.beam_width,
-            temperature=args.temperature, frame_mask=mask,
-            nbest=nbest))[:len(chunk)]
+        toks = np.asarray(decode(batch, mask))[:len(chunk)]
         for p, row in zip(chunk, toks):
             key = p if base_of[p] in dup else base_of[p]
             results[key] = ([vocab.decode_str(r) for r in row]
@@ -250,14 +295,24 @@ def _caption_inputs(args, cfg: Config, method: str, nbest: int) -> None:
 
 
 def cmd_caption(args) -> int:
-    if args.from_export:
-        _not_ported("--from-export")
     cfg = apply_overrides(get_preset(args.preset), args.set)
     method = args.method or cfg.decode.method
-    if args.nbest > 1 and method != "beam":
-        raise SystemExit(f"--nbest {args.nbest} requires --method beam")
+    if args.nbest > 1 and (method != "beam" or args.from_export):
+        raise SystemExit(f"--nbest {args.nbest} requires --method beam and "
+                         "the live model (an export artifact returns the "
+                         "single best hypothesis)")
     if args.inputs:
         _caption_inputs(args, cfg, method, args.nbest)
+    elif args.from_export:
+        # the artifact is the model: no checkpoint, no model build from the
+        # preset; the split supplies only the features
+        import numpy as np
+        dataset = _load_dataset(cfg, split=args.split)
+        ec = _load_export(args, cfg)
+        caps = ec.caption(np.asarray(dataset.features, np.float32))
+        _write_results({vid: [c] for vid, c in zip(dataset.video_ids, caps)},
+                       args.out, head=20)
+        _report(ec, ec.meta["method"])
     else:
         _decode_split(args, cfg, method,
                       beam=args.beam or cfg.decode.beam_width,
@@ -268,6 +323,79 @@ def cmd_caption(args) -> int:
 def cmd_sample(args) -> int:
     _decode_split(args, apply_overrides(get_preset(args.preset), args.set),
                   "sample")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Write the artifact of the preset's decode (export.py) from a
+    checkpoint that exists or a ``--weights`` file: never from the random
+    init."""
+    from vidcap_tpu_torch.export import export_decoder
+    cfg = apply_overrides(get_preset(args.preset), args.set)
+    dataset = _load_dataset(cfg, split="train")   # supplies the vocab
+    cap = _captioner(args, cfg, dataset)
+    try:
+        meta = export_decoder(
+            cap, args.out, batch_size=args.batch,
+            method=args.method or cfg.decode.method,
+            beam_width=args.beam or cfg.decode.beam_width,
+            platforms=args.platforms.split(",") if args.platforms else None)
+    except ValueError as e:
+        raise SystemExit(f"export: {e}") from None
+    print(f"[vidcap] exported {meta['method']} decoder "
+          f"(B={meta['batch_size'] or 'polymorphic'}, "
+          f"platforms={meta['platforms']}) → {args.out}", file=sys.stderr)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Caption the feature paths of stdin, or of HTTP requests with
+    ``--http``, until stdin ends (or the HTTP server is interrupted); the
+    last stderr line reports the decodes and kernel launches, the warmup's
+    included."""
+    if args.sharded:
+        _not_ported("--sharded")
+    cfg = apply_overrides(get_preset(args.preset), args.set)
+    from vidcap_tpu_torch.serving import CaptionServer, make_http_server
+    if args.from_export:
+        # the artifact is the model: method, beam width and (unless it is
+        # batch-polymorphic) the batch come from its meta, not the flags
+        cap = _load_export(args, cfg)
+        method, beam = cap.meta["method"], cap.meta["beam_width"] or 5
+        args.batch = cap.batch_size or args.batch
+        print(f"[vidcap] serving from export artifact ({method}, "
+              f"B={cap.batch_size})", file=sys.stderr)
+    else:
+        cap = _captioner(args, cfg, _load_dataset(cfg, split="train"))
+        method = args.method or cfg.decode.method
+        beam = args.beam or cfg.decode.beam_width
+    if args.http is not None:
+        server, svc = make_http_server(
+            cfg, cap, port=args.http, batch_size=args.batch, method=method,
+            beam_width=beam,
+            max_wait_ms=(args.max_wait_ms if args.max_wait_ms is not None
+                         else 20.0),
+            max_queue=args.max_queue, path_root=args.path_root)
+        host, port = server.server_address[:2]
+        print(f"[vidcap] serving HTTP on {host}:{port} "
+              f"(POST /caption, GET /healthz)", file=sys.stderr, flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
+            svc.close()
+            print(f"[vidcap] {svc.stats()}", file=sys.stderr)
+    else:
+        server = CaptionServer(cfg, cap, batch_size=args.batch, method=method,
+                               beam_width=beam, max_wait_ms=args.max_wait_ms,
+                               pipeline_depth=args.pipeline_depth)
+        server.warmup()
+        print(f"[vidcap] serving stdin ({method}, B={args.batch})",
+              file=sys.stderr, flush=True)
+        server.run(warmup=False)
+    _report(cap, method)
     return 0
 
 
@@ -324,14 +452,19 @@ def build_parser() -> argparse.ArgumentParser:
                         metavar="SECTION.FIELD=VALUE",
                         help="override any config field, repeatable")
 
-    def common(sp):
-        preset(sp)
+    def source(sp):
         sp.add_argument("--checkpoint-dir", default=None,
                         help="decode the newest checkpoint here (default: "
                              "the preset's train.checkpoint_dir)")
         sp.add_argument("--weights", default=None,
                         help="or a .npz of '/'-joined Flax parameter paths "
                              "(vidcap_tpu_torch.convert)")
+        sp.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+
+    def common(sp):
+        preset(sp)
+        source(sp)
         sp.add_argument("--temperature", type=float, default=1.0)
         sp.add_argument("--seed", type=int, default=None,
                         help="reproducible sampling seed")
@@ -339,8 +472,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="dataset split to decode (default test; falls "
                              "back to val)")
         sp.add_argument("--out", default=None)
-        sp.add_argument("--device", default=None,
-                        help="cuda (default) or cpu")
 
     c = sub.add_parser("caption", help="decode a split or files, write json")
     common(c)
@@ -352,7 +483,9 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--inputs", nargs="+", default=None, metavar="FILE|DIR",
                    help="caption these [T, D] feature .npy files (or "
                         "directories of them) instead of a split")
-    c.add_argument("--from-export", default=None, help=argparse.SUPPRESS)
+    c.add_argument("--from-export", default=None, metavar="DIR",
+                   help="decode with an `export` artifact instead of a "
+                        "checkpoint (with --inputs: .npy files only)")
     c.set_defaults(fn=cmd_caption)
 
     s = sub.add_parser("sample", help="multinomial-sampling decode")
@@ -408,7 +541,53 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
     t.set_defaults(fn=cmd_train)
 
-    for name in ("serve", "export", "info", "extract", "convert"):
+    ax = sub.add_parser("export", help="write a serving artifact: "
+                                       "weights + vocab + meta")
+    preset(ax)
+    source(ax)
+    ax.add_argument("--out", required=True, help="artifact directory")
+    ax.add_argument("--batch", type=int, default=32,
+                    help="fixed batch size of the artifact; 0 = batch-"
+                         "polymorphic (each call decodes exactly its rows)")
+    ax.add_argument("--method", choices=["greedy", "beam"], default=None)
+    ax.add_argument("--beam", type=int, default=None)
+    ax.add_argument("--platforms", default=None,
+                    help="comma-separated devices the artifact may load "
+                         "on: cuda, cpu (default: the --device exported on)")
+    ax.set_defaults(fn=cmd_export)
+
+    sv = sub.add_parser("serve", help="caption feature paths from stdin, or "
+                                      "over HTTP")
+    preset(sv)
+    source(sv)
+    sv.add_argument("--method", choices=["greedy", "beam", "sample"],
+                    default=None)
+    sv.add_argument("--beam", type=int, default=None)
+    sv.add_argument("--batch", type=int, default=32)
+    sv.add_argument("--seed", type=int, default=None,
+                    help="reproducible sampling seed (method=sample)")
+    sv.add_argument("--from-export", default=None, metavar="DIR",
+                    help="serve an `export` artifact: no checkpoint; "
+                         "method/beam/batch come from its meta")
+    sv.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
+    sv.add_argument("--max-wait-ms", type=float, default=None,
+                    help="flush a partial batch once its oldest request has "
+                         "waited this long (default: wait for a full batch)")
+    sv.add_argument("--pipeline-depth", type=int, default=1,
+                    help="decode-worker queue depth overlapping input loading "
+                         "with decoding (0 = serial)")
+    sv.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve over HTTP instead of stdin: POST /caption "
+                         "(.npy bytes or {\"path\": ...}), GET /healthz|/stats")
+    sv.add_argument("--path-root", type=str, default=None,
+                    help="enable HTTP JSON path mode, confined to this "
+                         "directory (.npy features); disabled when unset")
+    sv.add_argument("--max-queue", type=int, default=None,
+                    help="bound on queued HTTP requests before 429 "
+                         "(default 4×batch)")
+    sv.set_defaults(fn=cmd_serve)
+
+    for name in ("info", "extract", "convert"):
         s = sub.add_parser(name, help=f"not ported yet ({_NOT_PORTED[name]})",
                            add_help=False)
         s.set_defaults(fn=lambda args, name=name: _not_ported(name))
@@ -417,7 +596,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args, rest = build_parser().parse_known_args(argv)
-    if rest and args.cmd in ("train", "caption", "sample", "eval", "prepare"):
+    if rest and args.cmd not in ("info", "extract", "convert"):
         build_parser().parse_args(argv)   # reports the unknown arguments
     from vidcap_tpu_torch.inference import NoDeviceError
     try:

@@ -23,6 +23,7 @@ from vidcap_tpu_torch.models.decoding import (BeamWeights, beam_decode,
                                               use_finished_pool)
 from vidcap_tpu_torch.models.model import (VidCapModel, create_model,
                                            init_params)
+from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
                                           resident_mode)
 
@@ -158,6 +159,21 @@ class Captioner:
         self.decode_calls += 1
         self.decode_steps += self.max_len
         return r.tokens.cpu().numpy()
+
+    def warmup(self, method: str, batch_size: int, beam_width: int = 5
+               ) -> None:
+        """Pay before the first request what the first decode would pay:
+        on the card the nvcc build of the kernels ``method`` launches (in
+        parallel), then one decode of the flush shape, which casts the
+        weights to the kernels' layouts and, for greedy/sample, probes K3's
+        W_out mode. The servers call it before they take requests."""
+        if self.device.type == "cuda":
+            _build.build_all(("beam_core", "topk_project") if method == "beam"
+                             else ("rollout",))
+        T, D = self.cfg.data.num_frames, self.cfg.data.feature_dim
+        self.decode_batch(np.zeros((batch_size, T, D), np.float32),
+                          method=method, beam_width=beam_width,
+                          frame_mask=np.ones((batch_size, T), np.float32))
 
     def _beam(self, f: torch.Tensor, m: torch.Tensor, beam_width: int,
               nbest: int) -> np.ndarray:
