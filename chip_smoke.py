@@ -16,7 +16,8 @@ the offline path at ``msrvtt_attn_beam5``'s width (``prepare`` → ``train``
 with validation through K1 and K2 and a best checkpoint → ``caption
 --checkpoint-dir best/ --inputs`` → ``eval``); serving (``serve`` over stdin
 and HTTP, beam through K1/K2 and greedy through K3) and export (``export``,
-``caption``/``serve --from-export``). Phases:
+``caption``/``serve --from-export``); the trainer's dispatch (every step a
+CUDA graph, the feature bank, K steps a dispatch). Phases:
 
   1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
   2 K1 beam_core vs plain             seeded and raised-<eos> weights; W_out
@@ -42,6 +43,10 @@ and HTTP, beam through K1/K2 and greedy through K3) and export (``export``,
                                       polymorphic), caption --from-export
                                       (split, --inputs), serve --from-export
                                       equal to the live decodes; refusals
+                                   14 the trainer's dispatch at scst_cider
+                                      width, 6,513-video bank: captured ==
+                                      eager, step times, the CLI end state
+                                      and a resume across K
   then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
@@ -82,11 +87,15 @@ from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
 from vidcap_tpu_torch.models.decoding import Rollout
-from vidcap_tpu_torch.train.loop import batch_to_device
+from vidcap_tpu_torch.objectives.reward_tables import tables_from_dataset
+from vidcap_tpu_torch.train.loop import batch_to_device, batch_to_device_dict
 from vidcap_tpu_torch.train.scst import make_scst_step_body
 from vidcap_tpu_torch.train.state import (create_train_state,
                                           optax_global_norm)
-from vidcap_tpu_torch.train.steps import apply_loss
+from vidcap_tpu_torch.train.steps import (_build_banks, apply_loss,
+                                          draw_seeds, make_banked_multistep,
+                                          make_banked_step, make_step,
+                                          make_xe_step_body)
 
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
@@ -1713,6 +1722,371 @@ def phase_export(setup, refs, tmp):
     return out
 
 
+# Phase 14: the trainer's dispatch at scst_cider width, on a corpus the size
+# of MSR-VTT's train split: 6,513 videos of N(0,1) features (26 × 1536 f32:
+# 1.04 GB, the feature bank), 5 captions each over the 12,000-word vocab.
+BANK_VIDEOS = 6_513
+DISPATCH_STEPS = 4   # steps a stage in (b)
+# (b): (name, banked, K steps a dispatch, grad_accum)
+DISPATCH_VARIANTS = (("unbanked K=1", False, 1, 1), ("banked K=1", True, 1, 1),
+                     ("banked K=4", True, 4, 1),
+                     ("grad_accum=2", True, 1, 2))
+# (c): K of the banked dispatch, XE and SCST (the CLI's end state, (d))
+TIMED_K = {"xe": 8, "scst": 4}
+
+
+def bank_corpus(cfg, n: int, g) -> CaptionDataset:
+    """n videos of N(0,1) features, 5 captions each of 5-29 words from a
+    3,000-word pool of the 12,000-word vocab."""
+    vocab = vocab_of(VOCAB_G)
+    pool = g.integers(4, VOCAB_G, 3000)
+    ids = [f"video{i}" for i in range(n)]
+    caps = {v: [" ".join(vocab.id_to_word[int(t)] for t in g.choice(
+        pool, int(g.integers(5, 30)))) for _ in range(5)] for v in ids}
+    feats = g.standard_normal((n, T, D), dtype=np.float32)
+    return CaptionDataset(feats, ids, caps, cfg.data, vocab=vocab)
+
+
+def stage_setup(cfg, init, tables, stage: str, accum: int):
+    """(a state from ``init``, the seeded init's state dict on the card;
+    the stage's step body)."""
+    c = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, stage=stage, grad_accum=accum))
+    model = create_model(c, VOCAB_G).cuda()
+    model.load_state_dict(init)
+    state = create_train_state(c, model)
+    body = (make_xe_step_body(c) if stage == "xe"
+            else make_scst_step_body(c, tables=tables))
+    return state, body
+
+
+def chunks(batches, seeds, k: int, bank: bool):
+    """The dispatches of ``batches`` (host dicts) k at a time, stacked when
+    k > 1, features and attributes dropped in bank mode, with the seeds."""
+    for i in range(0, len(batches), k):
+        part = [{key: v for key, v in b.items() if not bank
+                 or key not in ("features", "attributes")}
+                for b in batches[i:i + k]]
+        d = part[0] if k == 1 else {key: np.stack([b[key] for b in part])
+                                    for key in part[0]}
+        if seeds is not None:
+            d["seed"] = seeds[i] if k == 1 else seeds[i:i + k]
+        yield d
+
+
+def dispatcher(body, ds, banks, bank: bool, k: int):
+    if not bank:
+        return make_step(body, "cuda")
+    if k > 1:
+        return make_banked_multistep(body, ds, k, banks=banks,
+                                     device="cuda")[0]
+    return make_banked_step(body, ds, banks=banks, device="cuda")[0]
+
+
+def state_of(state):
+    opt = state.opt_state
+    out = {f"param {k}": p.detach().clone() for k, p in state.params.items()}
+    for m in ("mu", "nu"):
+        out.update({f"{m} {k}": v.clone() for k, v in opt[m].items()})
+    out["count"] = opt["count"].clone()
+    return out
+
+
+def parting(a: dict, b: dict):
+    """(max |a - b| over the tensors of two runs, the name where it is
+    largest, the first name where they differ)."""
+    worst, where, first = 0.0, None, None
+    for k in a:
+        d = (a[k].double() - b[k].double()).abs().max().item()
+        if d > 0 and first is None:
+            first = k
+        if d > worst:
+            worst, where = d, k
+    return worst, where, first
+
+
+def run_eager(setup, stage, accum, batches, seeds):
+    """DISPATCH_STEPS steps of the eager body from the seeded init: the
+    per-step metrics and the state after, flattened."""
+    state, body = setup(stage, accum)
+    rec = {}
+    for j, b in enumerate(batches[:DISPATCH_STEPS]):
+        d = {key: torch.as_tensor(v, device="cuda") for key, v in b.items()}
+        if seeds is not None:
+            d["seed"] = seeds[j]
+        state, m = body(state, d)
+        rec.update({f"step {j + 1} {key}": v.clone() for key, v in m.items()})
+    torch.cuda.synchronize()
+    return {**rec, **state_of(state)}
+
+
+def dispatch_equal(setup, ds, banks, batches):
+    """(b): for each variant and stage, DISPATCH_STEPS steps of the
+    dispatched (captured) step against the eager body, from the seeded init
+    and the same seeds; the eager body run twice (once for the variants of
+    one grad_accum); the per-step metrics and the state after them
+    compared. Captured must equal eager where the two eager runs are equal,
+    else be within 2x their max |Δ|."""
+    out, problems, eager = {}, [], {}
+    for name, bank, k, accum in DISPATCH_VARIANTS:
+        for stage in ("xe", "scst"):
+            seeds = (torch.randint(0, 2**31 - 1, (DISPATCH_STEPS, accum),
+                                   generator=torch.Generator().manual_seed(7))
+                     if stage == "scst" else None)
+            if (stage, accum) not in eager:
+                runs = [run_eager(setup, stage, accum, batches, seeds)
+                        for _ in range(2)]
+                eager[stage, accum] = (runs[0], parting(*runs))
+            ref, floor = eager[stage, accum]
+            state, body = setup(stage, accum)
+            fn = dispatcher(body, ds, banks, bank, k)
+            rec = {}
+            for i, d in enumerate(chunks(batches[:DISPATCH_STEPS], seeds, k,
+                                         bank)):
+                state, m = fn(state, d)
+                for j in range(k):
+                    rec.update({f"step {i * k + j + 1} {key}":
+                                (v[j] if k > 1 else v).clone()
+                                for key, v in m.items()})
+            torch.cuda.synchronize()
+            rec.update(state_of(state))
+            capt = parting(ref, rec)
+            limit = 2 * floor[0]
+            ok = capt[0] <= limit and ref["count"].item() == \
+                rec["count"].item() == DISPATCH_STEPS
+            out[f"{name} {stage}"] = dict(
+                eager_vs_eager=floor[0], eager_parts_at=floor[1],
+                eager_first_parting=floor[2], captured_vs_eager=capt[0],
+                captured_parts_at=capt[1], captured_first_parting=capt[2],
+                limit=limit, loss=[rec[f"step {j + 1} loss"].item()
+                                   for j in range(DISPATCH_STEPS)])
+            if not ok:
+                problems.append(f"{name} {stage}: {out[f'{name} {stage}']}")
+    return out, problems
+
+
+def profiled(fn, steps: int):
+    """One call of ``fn`` (``steps`` steps) under torch.profiler: (device
+    busy ms, device kernels, K3's device ms, top-level host events, each a
+    step; the five kernels of most device time, ms a step). A graph's
+    kernels have no host event for a parent: only host events count."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = kernels = k3 = 0.0
+    top = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.self_device_time_total / 1e3
+            busy += ms
+            top[e.key[:50]] = top.get(e.key[:50], 0.0) + ms / steps
+            if not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
+            if "rollout_kernel" in e.key:
+                k3 += ms
+    host = sum(1 for e in prof.events() if e.cpu_parent is None
+               and e.device_type == torch.autograd.DeviceType.CPU)
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:5])
+    return busy / steps, kernels / steps, k3 / steps, host / steps, top
+
+
+def dispatch_times(setup, ds, banks):
+    """(c): ms a step of the eager body (the batch uploaded from pageable
+    memory, as the loop did before the graphs), the captured step (K=1,
+    unbanked) and the banked K-step dispatch, each from a fresh state: the
+    median of timed dispatches (host clock, each ending in a synchronize)
+    after the first, then one profiled dispatch."""
+    out = {}
+    it = DeterministicBatcher(ds, BG, seed=3)
+    for stage in ("xe", "scst"):
+        for how in ("eager", "captured K=1", f"banked K={TIMED_K[stage]}"):
+            state, body = setup(stage, 1)
+            k = TIMED_K[stage] if how.startswith("banked") else 1
+            if how == "eager":
+                call = lambda: body(state, {
+                    **batch_to_device(next(it), "cuda"),
+                    **({"seed": draw_seeds(state, 1)}
+                       if stage == "scst" else {})})
+            else:
+                bank = how.startswith("banked")
+                fn = dispatcher(body, ds, banks, bank, k)
+                call = lambda: fn(state, next(chunks(
+                    [batch_to_device_dict(next(it)) for _ in range(k)],
+                    None, k, bank)))
+            walls = []
+            for i in range(1 + (5 if how == "eager" else 8 // k + 2)):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                if i:
+                    walls.append((time.perf_counter() - t0) * 1e3 / k)
+            ms = float(np.median(walls))
+            busy, kernels, k3, host, top = profiled(call, k)
+            row = dict(ms_a_step=ms, steps_per_s=1e3 / ms,
+                       device_busy_ms_a_step=busy, busy_share=busy / ms,
+                       device_kernels_a_step=kernels,
+                       host_events_a_step=host, walls_ms_a_step=walls,
+                       top_device_ms_a_step=top)
+            if stage == "scst":
+                row["k3_ms_a_step"] = k3
+                row["k3_share"] = k3 / ms
+            out[f"{stage} {how}"] = row
+    return out
+
+
+def train_cli(args, cwd: str):
+    """``train`` through the CLI, started in ``cwd``."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
+    return subprocess.Popen([sys.executable, "-m", "vidcap_tpu_torch",
+                             "train", "--preset", "scst_cider", *args],
+                            cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finished(proc, what: str) -> str:
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 14 {what} exited {proc.returncode}: {err[-3000:]}")
+    return err
+
+
+STAGE_LINE = re.compile(r"\[vidcap\] (\w+): (\d+) steps on (\S+?)"
+                        r"(?:; rollout W_out (\w+))?; kernel launches "
+                        r"(\{.*\})")
+
+
+def dispatch_cli(ds, tmp: str):
+    """(d): the end-state command on the corpus written as msrvtt files,
+    ``--eval-every 12`` (crossed inside the XE chunk 8→16 and at 24); at
+    once, ``--stages xe --steps 16 --steps-per-dispatch 8`` in another
+    directory, then ``--resume --steps 24 --steps-per-dispatch 4`` there,
+    whose step-24 checkpoint must equal the first run's bit for bit."""
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    np.save(os.path.join(data, "msrvtt_train_feats.npy"), ds.features)
+    with open(os.path.join(data, "msrvtt_train_ids.json"), "w") as f:
+        json.dump(ds.video_ids, f)
+    with open(os.path.join(data, "msrvtt_captions.json"), "w") as f:
+        json.dump(ds.video_captions, f)
+    ds.vocab.save(os.path.join(data, "msrvtt_vocab.json"))
+    common = ["--feature-bank", "--log-every", "1", "--set",
+              f"data.data_dir={data}", "--set", "train.checkpoint_every=16"]
+    t0 = time.perf_counter()
+    end_state = train_cli(["--stages", "xe,scst", "--steps", "24,8",
+                           "--steps-per-dispatch", "8,4", "--set",
+                           "train.prefetch_depth=2", "--eval-every", "12",
+                           "--log-file", "log.jsonl", *common], tmp)
+    part = train_cli(["--stages", "xe", "--steps", "16",
+                      "--steps-per-dispatch", "8", "--eval-every", "0",
+                      "--checkpoint-dir", "ck2", *common], tmp)
+    err = finished(end_state, "train (end state)")
+    wall = time.perf_counter() - t0
+    finished(part, "train --steps 16")
+    t1 = time.perf_counter()
+    err_resume = finished(train_cli(
+        ["--stages", "xe", "--steps", "24", "--steps-per-dispatch", "4",
+         "--eval-every", "0", "--checkpoint-dir", "ck2", "--resume",
+         *common], tmp), "train --resume")
+    resume_wall = time.perf_counter() - t1
+    lines = [(st, int(n), mode or None, json.loads(lc))
+             for st, n, _, mode, lc in STAGE_LINE.findall(err)]
+    with open(os.path.join(tmp, "log.jsonl")) as f:
+        rows = [json.loads(x) for x in f]
+    evals = [r["step"] for r in rows if "eval_CIDEr" in r]
+    steps = [r["step"] for r in rows if "eval_CIDEr" not in r]
+    ckpts = sorted(int(f[5:-3]) for f in os.listdir(os.path.join(
+        tmp, "checkpoints")) if f.startswith("ckpt_"))
+    best = [f for f in os.listdir(os.path.join(tmp, "checkpoints", "best"))
+            if f.startswith("ckpt_")]
+    per_eval = -(-200 // BG)   # validation: the first 200 videos, B=32
+    want_lines = [("xe", 24, None, {"beam_core": 0, "topk_project": 0,
+                                    "rollout": per_eval * len(evals)}),
+                  ("scst", 8, "resident", {"beam_core": 0, "topk_project": 0,
+                                           "rollout": 2 * 8})]
+    a, b = (torch.load(os.path.join(tmp, d, "ckpt_24.pt"), weights_only=True)
+            for d in ("checkpoints", "ck2"))
+    flat = lambda c: {**c["params"], **{f"{m} {k}": v for m in ("mu", "nu")
+                                        for k, v in c["opt_state"][m].items()}}
+    resume_diff = parting(flat(a), flat(b))[0]
+    same_rest = (a["opt_state"]["count"] == b["opt_state"]["count"]
+                 and a["iter_state"] == b["iter_state"]
+                 and torch.equal(a["generator"], b["generator"]))
+    out = dict(stage_lines=lines, eval_steps=evals, checkpoints=ckpts,
+               best=best, resume_max_abs_diff=resume_diff,
+               end_state_wall_s=wall, resume_wall_s=resume_wall,
+               xe_steps_per_s=[r["steps_per_sec"] for r in rows
+                               if "xe_loss" in r and "steps_per_sec" in r],
+               scst_steps_per_s=[r["steps_per_sec"] for r in rows
+                                 if "pg_loss" in r and "steps_per_sec" in r],
+               resume_stage_lines=STAGE_LINE.findall(err_resume))
+    problems = []
+    if steps != list(range(1, 33)):
+        problems.append(f"log rows at steps {steps}")
+    if evals != [16, 24]:
+        problems.append(f"eval rows at {evals}")
+    if ckpts != [16, 24, 32] or len(best) != 1:
+        problems.append(f"checkpoints {ckpts}, best/ {best}")
+    if lines != want_lines:
+        problems.append(f"stage lines {lines}, want {want_lines}")
+    if resume_diff != 0.0 or not same_rest:
+        problems.append(f"resume across K: {resume_diff} apart")
+    return out, problems
+
+
+def phase_dispatch():
+    """The trainer's dispatch at scst_cider width (B=32, Vp=12,032, L=30)
+    on BANK_VIDEOS videos: (a) the bank's bytes and upload time, the reward
+    tables' build time; (b) dispatched equals eager; (c) XE and SCST ms a
+    step, eager, captured and banked K, with the busy share, host events and
+    device kernels a step and K3's share; (d) the CLI's end state, its
+    rows, checkpoints, best/, stage lines, and a resume across K."""
+    t_phase = time.perf_counter()
+    cfg = get_preset("scst_cider")
+    t0 = time.perf_counter()
+    ds = bank_corpus(cfg, BANK_VIDEOS, np.random.default_rng(14))
+    corpus_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    banks = _build_banks(ds, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = tables_from_dataset(ds)
+    tables_s = time.perf_counter() - t0
+    tables = tables.to("cuda")   # once, for every step body below
+    bank_bytes = sum(v.numel() * v.element_size() for v in banks.values())
+    it = DeterministicBatcher(ds, BG, seed=0)
+    batches = [batch_to_device_dict(next(it)) for _ in range(DISPATCH_STEPS)]
+    init = init_params(create_model(cfg, VOCAB_G),
+                       cfg.train.seed).cuda().state_dict()
+    setup = lambda stage, accum: stage_setup(cfg, init, tables, stage, accum)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    equal, problems = dispatch_equal(setup, ds, banks, batches)
+    t1 = time.perf_counter()
+    times = dispatch_times(setup, ds, banks)
+    t2 = time.perf_counter()
+    launches = dict(_build.launch_counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, cli_problems = dispatch_cli(ds, tmp)
+    out = dict(bank_bytes=bank_bytes, bank_upload_s=upload_s,
+               reward_tables_s=tables_s, corpus_s=corpus_s,
+               captured_equals_eager=equal, times=times, cli=cli,
+               launches_b_c=launches, b_s=t1 - t0, c_s=t2 - t1,
+               d_s=time.perf_counter() - t2)
+    out["seconds"] = time.perf_counter() - t_phase
+    if bank_bytes != BANK_VIDEOS * T * D * 4 + BANK_VIDEOS * \
+            cfg.data.num_attributes * 4:
+        problems.append(f"bank of {bank_bytes} bytes")
+    if problems or cli_problems:
+        fail("phase 14: " + "; ".join(problems + cli_problems) + " | "
+             + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -1785,6 +2159,11 @@ def main() -> int:
         export = phase_export(setup, refs, tmp)
         print(f"phase 13 export, caption/serve --from-export on {card}: "
               + json.dumps(export), flush=True)
+    dispatch = phase_dispatch()
+    print(f"phase 14 the trainer's dispatch scst_cider B={BG} Vp={VG} L={L}"
+          f", {BANK_VIDEOS}-video bank, on {card}: " + json.dumps(
+              {**dispatch, "tolerance": "captured == eager where two eager "
+               "runs are equal, else 2x their max |diff|"}), flush=True)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]
@@ -1797,11 +2176,16 @@ def main() -> int:
     # caption --inputs, phase 12's served batches (stdin, HTTP) and phase
     # 13's caption --from-export; K3 phase 7's greedy and sampled decodes,
     # phase 9's SCST steps, phase 10's validation, phase 12's greedy serve
-    # and phase 13's serve --from-export (the servers' warmups included).
+    # and phase 13's serve --from-export (the servers' warmups included),
+    # phase 14's captured steps (counted per replay) and its CLI's stage
+    # lines.
     k3["launches"] = (sum(r["launches"]["rollout"] for r in roll.values())
                       + scst["launches"]["rollout"]
                       + cli_train["validation_rollout_launches"]
-                      + sum(r["launches"]["rollout"] for r in served_k3))
+                      + sum(r["launches"]["rollout"] for r in served_k3)
+                      + dispatch["launches_b_c"]["rollout"]
+                      + sum(lc["rollout"] for *_, lc
+                            in dispatch["cli"]["stage_lines"]))
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]
                                        + offline["train_launches"][k["name"]]
                                        + offline["caption_launches"][k["name"]]

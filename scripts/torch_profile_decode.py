@@ -81,7 +81,11 @@ def main() -> int:
     by_kernel = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key[:60]] = (e.self_device_time_total / 1e3, e.count)
+            # summed by the name's first 60 characters: kernels that share
+            # them (the elementwise templates) all count
+            ms, n = by_kernel.get(e.key[:60], (0.0, 0))
+            by_kernel[e.key[:60]] = (ms + e.self_device_time_total / 1e3,
+                                     n + e.count)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     kernels = sum(n for k, (_, n) in by_kernel.items()
                   if not k.startswith(("Memcpy", "Memset")))

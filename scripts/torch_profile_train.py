@@ -2,7 +2,8 @@
 """Where one train step of the PyTorch port spends its time, XE and SCST.
 
     python3 scripts/torch_profile_train.py [--stages xe,scst] [--steps 5]
-        [--preset scst_cider]
+        [--preset scst_cider] [--feature-bank] [--steps-per-dispatch K]
+        [--eager-body]
 
 Runs on one NVIDIA GPU (no CPU fallback). Builds the Hopper kernels, makes
 the seeded model of the preset (``scst_cider``: E = H = A = 512, D = 1536,
@@ -10,15 +11,19 @@ T = 26, vocab 12,000 padded to 12,032, B = 32, max_len 30, the attribute
 head at 0.2, ``scst_xe_mix`` 0.1; ``msrvtt_attn_beam5``: vocab 16,000,
 B = 64, no attribute head) and a synthetic corpus over the preset's vocab
 (64 videos of N(0,1) features, 5 captions each of 5-29 words from a
-300-word pool),
-then for each stage takes one warm-up step and ``--steps`` timed steps on
-the host clock (each ends in a synchronize), the SCST ones with CUDA events
-around the two K3 rollouts, and profiles one more step with
-``torch.profiler``. It prints, per stage: the median step time and steps/s,
-K3's share of the SCST step, the device-busy time of the profiled step and
-its ratio to the median step time (the busy share; the profiler slows the
-host, so the profiled step's own wall time is printed apart), the device
-kernels and the host's top-level profiler events of that step, the
+300-word pool). For each stage it dispatches the step as the train loop
+does (train/steps.py: one CUDA graph a dispatch, captured at the first;
+``--feature-bank`` gathers the features from the device bank,
+``--steps-per-dispatch K`` with it runs K steps a dispatch), or with
+``--eager-body`` calls the step body eagerly on a batch uploaded from
+pageable memory (the loop before the graphs). One dispatch first (the
+warm-up and the capture), then ``--steps`` timed dispatches on the host
+clock (each ends in a synchronize), then one profiled with
+``torch.profiler``. It prints, per stage and a step: the median time and
+steps/s, the device-busy time of the profiled dispatch and its ratio to the
+median time (the busy share; the profiler slows the host, so the profiled
+dispatch's own wall time is printed apart), the device kernels and the
+host's top-level profiler events, K3's device time and share (SCST), the
 launch counts, and the card (``nvidia-smi`` name and power limit).
 """
 from __future__ import annotations
@@ -33,6 +38,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -44,10 +50,14 @@ from vidcap_tpu_torch.data.vocab import SPECIALS, Vocab  # noqa: E402
 from vidcap_tpu_torch.models.model import (create_model,  # noqa: E402
                                            init_params)
 from vidcap_tpu_torch.ops import _build  # noqa: E402
-from vidcap_tpu_torch.train.loop import batch_to_device  # noqa: E402
+from vidcap_tpu_torch.train.loop import (batch_to_device,  # noqa: E402
+                                         batch_to_device_dict)
 from vidcap_tpu_torch.train.scst import make_scst_step_body  # noqa: E402
 from vidcap_tpu_torch.train.state import create_train_state  # noqa: E402
-from vidcap_tpu_torch.train.steps import make_xe_step_body  # noqa: E402
+from vidcap_tpu_torch.train.steps import (draw_seeds,  # noqa: E402
+                                          make_banked_multistep,
+                                          make_banked_step, make_step,
+                                          make_xe_step_body)
 
 def corpus(cfg) -> CaptionDataset:
     g = np.random.default_rng(0)
@@ -63,71 +73,83 @@ def corpus(cfg) -> CaptionDataset:
                                       words))
 
 
-def run_stage(stage: str, steps: int, ds, base) -> dict:
+def run_stage(stage: str, args, ds, base) -> dict:
     cfg = dataclasses.replace(base, train=dataclasses.replace(
         base.train, stage=stage))
     model = init_params(create_model(cfg, ds.vocab.size),
                         cfg.train.seed).cuda()
     state = create_train_state(cfg, model)
     it = DeterministicBatcher(ds, cfg.train.batch_size, seed=0)
-    scst = make_scst_step_body(cfg, ds) if stage == "scst" else None
-    xe = make_xe_step_body(cfg)
-
-    def one(k3_ms=None):
-        nonlocal state
-        batch = batch_to_device(next(it), "cuda")
-        if scst is None:
-            state, m = xe(state, batch)
+    body = (make_scst_step_body(cfg, ds) if stage == "scst"
+            else make_xe_step_body(cfg))
+    bank, k = args.feature_bank, args.steps_per_dispatch
+    k = k if bank and not args.eager_body else 1
+    if args.eager_body:
+        def one():
+            seed = {"seed": draw_seeds(state, 1)} if stage == "scst" else {}
+            return body(state, {**batch_to_device(next(it), "cuda"), **seed})
+    else:
+        if not bank:
+            fn = make_step(body, "cuda")
+        elif k > 1:
+            fn, _ = make_banked_multistep(body, ds, k, device="cuda")
         else:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            sample, greedy = scst.rollouts(state, batch)
-            ev[1].record()
-            state, m = scst.update(state, batch, sample, greedy)
-            if k3_ms is not None:
-                torch.cuda.synchronize()
-                k3_ms.append(ev[0].elapsed_time(ev[1]))
-        return m
+            fn, _ = make_banked_step(body, ds, device="cuda")
 
-    one()                                               # warm-up
+        def one():
+            ds_ = [batch_to_device_dict(next(it), bank) for _ in range(k)]
+            return fn(state, ds_[0] if k == 1 else {
+                key: np.stack([d[key] for d in ds_]) for key in ds_[0]})
+
+    one()                                   # warm-up and capture
     torch.cuda.synchronize()
     _build.reset_counts()
-    walls, k3 = [], []
-    for _ in range(steps):
+    walls = []
+    for _ in range(args.steps):
         t0 = time.perf_counter()
-        one(k3)
+        one()
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+        walls.append((time.perf_counter() - t0) * 1e3 / k)
     launches = dict(_build.launch_counts)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         one()
         torch.cuda.synchronize()
-        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3 / k
     by_kernel = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key[:60]] = (e.self_device_time_total / 1e3, e.count)
+        if e.device_type == DeviceType.CUDA:
+            # summed by the name's first 60 characters: kernels that share
+            # them (the elementwise templates) all count
+            ms, n = by_kernel.get(e.key[:60], (0.0, 0.0))
+            by_kernel[e.key[:60]] = (ms + e.self_device_time_total / 1e3 / k,
+                                     n + e.count / k)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     wall_ms = float(np.median(walls))
+    how = ("eager body" if args.eager_body else "banked" if bank
+           else "captured")
     out = {"stage": stage, "preset": base.name, "batch": cfg.train.batch_size,
+           "dispatch": how, "steps_per_dispatch": k,
            "step_ms": wall_ms, "step_ms_each": walls,
            "steps_per_s": 1e3 / wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms,
            "profiled_wall_ms": profiled_wall_ms,
-           "device_kernels": sum(n for k, (_, n) in by_kernel.items()
-                                 if not k.startswith(("Memcpy", "Memset"))),
-           # the host events of the profiled step that have no parent
-           # event (operators, autograd functions, runtime calls)
-           "host_ops": sum(1 for e in prof.events() if e.cpu_parent is None),
+           "device_kernels": sum(n for key, (_, n) in by_kernel.items()
+                                 if not key.startswith(("Memcpy", "Memset"))),
+           # the host events of the profiled dispatch that have no parent
+           # event (operators, autograd functions, runtime calls), a step
+           "host_ops": sum(1 for e in prof.events() if e.cpu_parent is None
+                           and e.device_type == DeviceType.CPU) / k,
            "launches": launches,
            "top_device_ms": dict(sorted(by_kernel.items(),
                                         key=lambda kv: -kv[1][0])[:10])}
-    if k3:
-        out["k3_rollouts_ms"] = float(np.median(k3))
-        out["k3_share"] = out["k3_rollouts_ms"] / wall_ms
-        out["rollout_w_out"] = ("resident" if scst.rollout_resident
+    if stage == "scst":
+        k3 = sum(ms for key, (ms, _) in by_kernel.items()
+                 if "rollout_kernel" in key)
+        out["k3_ms"] = k3
+        out["k3_share"] = k3 / wall_ms
+        out["rollout_w_out"] = ("resident" if body.rollout_resident
                                 else "streamed")
     return out
 
@@ -137,6 +159,9 @@ def main() -> int:
     p.add_argument("--stages", default="xe,scst")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--preset", default="scst_cider")
+    p.add_argument("--feature-bank", action="store_true")
+    p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--eager-body", action="store_true")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -148,8 +173,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     for stage in args.stages.split(","):
-        print(json.dumps({"card": card, **run_stage(stage, args.steps, ds,
-                                                    cfg)}), flush=True)
+        print(json.dumps({"card": card, **run_stage(stage, args, ds, cfg)}),
+              flush=True)
     return 0
 
 

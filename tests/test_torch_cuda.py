@@ -26,9 +26,11 @@ from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
 from vidcap_tpu_torch.models.decoding import Rollout
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.objectives.xe import shift_right
-from vidcap_tpu_torch.train.loop import batch_to_device
+from vidcap_tpu_torch.train.loop import batch_to_device, batch_to_device_dict
 from vidcap_tpu_torch.train.scst import make_scst_step_body
 from vidcap_tpu_torch.train.state import create_train_state
+from vidcap_tpu_torch.train.steps import (make_banked_multistep, make_step,
+                                          make_xe_step_body)
 
 pytestmark = pytest.mark.cuda
 
@@ -321,3 +323,68 @@ def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
     state, m = step.update(state, batch, sample, greedy)
     assert all(torch.isfinite(v) for v in m.values())
     assert any(not torch.equal(p, before[k]) for k, p in state.params.items())
+
+
+def _eager_twice_and_captured(dev, stage, k):
+    """Three runs of 4 steps of ``stage`` on synthetic_tiny from the seeded
+    init at B=32: the eager body twice, then the dispatched step (captured
+    on the card; banked K-step chunks when k > 1) on the same batches and
+    seeds. Returns the three runs' metrics and states, flattened."""
+    cfg = get_preset("synthetic_tiny")
+    ds = CaptionDataset.synthetic(cfg.data)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, stage=stage, batch_size=32))
+    it = DeterministicBatcher(ds, 32, seed=0)
+    batches = [batch_to_device_dict(next(it)) for _ in range(4)]
+    seeds = torch.randint(0, 2**31 - 1, (4, 1),
+                          generator=torch.Generator().manual_seed(3))
+    runs = []
+    for how in ("eager", "eager", "captured"):
+        state = create_train_state(cfg, init_params(
+            create_model(cfg, ds.vocab.size), 0).to(dev))
+        body = (make_xe_step_body(cfg) if stage == "xe"
+                else make_scst_step_body(cfg, ds))
+        rec = {}
+        if how == "eager":
+            for j, b in enumerate(batches):
+                d = {key: torch.as_tensor(v, device=dev)
+                     for key, v in b.items()}
+                state, m = body(state, {**d, "seed": seeds[j]})
+                rec.update({f"{j} {key}": v.clone() for key, v in m.items()})
+        else:
+            if k == 1:
+                fn = make_step(body, dev)
+            else:
+                fn, _ = make_banked_multistep(body, ds, k, device=dev)
+            for j in range(0, 4, k):
+                part = batches[j:j + k]
+                d = part[0] if k == 1 else {
+                    key: np.stack([b[key] for b in part]) for key in part[0]
+                    if key not in ("features", "attributes")}
+                state, m = fn(state, {**d, "seed": seeds[j:j + k].reshape(
+                    k, 1) if k > 1 else seeds[j]})
+                for i in range(k):
+                    rec.update({f"{j + i} {key}": (v[i] if k > 1 else v)
+                                .clone() for key, v in m.items()})
+        rec.update({k_: p.detach().clone()
+                    for k_, p in state.params.items()})
+        rec["count"] = state.opt_state["count"].clone()
+        torch.cuda.synchronize()
+        runs.append(rec)
+    return runs
+
+
+def _max_diff(a, b):
+    return max((a[k].double() - b[k].double()).abs().max().item() for k in a)
+
+
+@pytest.mark.parametrize("stage,k", [("xe", 1), ("scst", 2)])
+def test_captured_step_equals_eager(dev, stage, k):
+    """The dispatched step on the card (one CUDA graph a call; K3 inside
+    for SCST, its seed read from the graph's buffer) against the eager body
+    from the same state and seeds: bit for bit where two eager runs are,
+    else within twice their difference; the count advanced by 4."""
+    eager, again, captured = _eager_twice_and_captured(dev, stage, k)
+    floor = _max_diff(eager, again)
+    assert _max_diff(eager, captured) <= 2 * floor
+    assert int(captured["count"]) == 4

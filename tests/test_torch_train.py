@@ -408,10 +408,6 @@ def test_train_eval_every_one_runs_validation(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("extra,message", [
     ([], "no CUDA device"),
     (["--device", "cpu", "--sharded"], "Queue 1 item 12"),
-    (["--device", "cpu", "--feature-bank"], "Queue 1 item 12"),
-    (["--device", "cpu", "--set", "train.grad_accum=2"], "Queue 1 item 11"),
-    (["--device", "cpu", "--set", "train.prefetch_depth=2"],
-     "Queue 1 item 12"),
     (["--device", "cpu", "--set", "model.dropout_rate=0.1"],
      "Queue 1 item 13")])
 def test_train_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch,
@@ -426,3 +422,26 @@ def test_train_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch,
     assert message in capsys.readouterr().err
     assert not (tmp_path / "checkpoints").exists() or not list(
         (tmp_path / "checkpoints").iterdir())
+
+
+@pytest.mark.parametrize("extra,rtol", [
+    (["--feature-bank"], 0.0),
+    (["--set", "train.grad_accum=2"], 1e-6),
+    (["--set", "train.prefetch_depth=2"], 0.0)])
+def test_train_accepts_what_is_now_ported(tmp_path, monkeypatch, extra,
+                                          rtol):
+    """Once refused, now ported: exit 0, a checkpoint written, and the
+    plain run's final loss, in f32 (bit for bit; with grad_accum=2 after
+    gradients summed in another order, within 1e-6)."""
+    monkeypatch.chdir(tmp_path)
+    args = ["train", "--preset", "synthetic_tiny", "--steps", "3",
+            "--eval-every", "0", "--device", "cpu", "--set",
+            "model.compute_dtype=float32"]
+    assert cli_main(args + ["--checkpoint-dir", "plain", "--log-file",
+                            "plain.jsonl"]) == 0
+    assert cli_main(args + extra + ["--log-file", "log.jsonl"]) == 0
+    assert CheckpointManager("checkpoints").latest_step() == 3
+    last = lambda f: [json.loads(x) for x in open(f)][-1]
+    assert last("log.jsonl")["step"] == 3
+    np.testing.assert_allclose(last("log.jsonl")["loss"],
+                               last("plain.jsonl")["loss"], rtol=rtol)

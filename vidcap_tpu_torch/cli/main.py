@@ -5,7 +5,8 @@
   python -m vidcap_tpu_torch train --preset scst_cider --stages xe,scst
       [--steps N | --steps N1,N2] [--batch-size B] [--resume]
       [--log-file log.jsonl] [--eval-every N] [--log-every K]
-      [--checkpoint-dir DIR] [--seed S] [--set ...] [--device cpu]
+      [--checkpoint-dir DIR] [--seed S] [--feature-bank]
+      [--steps-per-dispatch K | K1,K2] [--set ...] [--device cpu]
   python -m vidcap_tpu_torch caption --preset msvd_greedy
       [--checkpoint-dir DIR | --weights W.npz]
       [--method greedy|beam|sample] [--beam 5] [--nbest N] [--temperature T]
@@ -30,7 +31,8 @@
 each of ``--stages`` in turn, each resuming from the previous one's
 checkpoint; step counts add up over the stages; every ``--eval-every`` steps
 it scores the val split and keeps the best-CIDEr state under
-``{checkpoint_dir}/best``. ``caption`` decodes the split (the synthetic
+``{checkpoint_dir}/best``; ``--feature-bank`` keeps the features on the
+device and ``--steps-per-dispatch`` (with it) runs K steps a dispatch. ``caption`` decodes the split (the synthetic
 fixture when the dataset is not on disk), or the ``.npy`` feature files of
 ``--inputs``, with the preset's method unless ``--method`` is given, and
 writes {video_id: [caption, ...]} json; ``sample`` is ``caption --method
@@ -57,8 +59,6 @@ from vidcap_tpu_torch.ops._build import launch_counts
 
 # command or flag → the ROADMAP item that ports it
 _NOT_PORTED = {
-    "--feature-bank": "Queue 1 item 12 (the device feature bank)",
-    "--steps-per-dispatch": "Queue 1 item 12 (multi-step dispatch)",
     "--sharded": "Queue 1 item 12 (multi-GPU)",
     "info": "Queue 1 item 14 (the preflight census)",
     "extract": "Queue 1 item 11 (feature extraction from video)",
@@ -161,9 +161,8 @@ def _decode_split(args, cfg: Config, method: str, beam: int = 5,
 
 
 def cmd_train(args) -> int:
-    for flag in ("feature_bank", "steps_per_dispatch", "sharded"):
-        if getattr(args, flag):
-            _not_ported("--" + flag.replace("_", "-"))
+    if args.sharded:
+        _not_ported("--sharded")
     cfg = apply_overrides(get_preset(args.preset), args.set)
     # --steps: one count for every stage, or a comma list matched to
     # --stages (e.g. --stages xe,scst --steps 2500,1000)
@@ -181,6 +180,17 @@ def cmd_train(args) -> int:
                         ("seed", "seed")):
         if getattr(args, flag) is not None:
             train_over[field] = getattr(args, flag)
+    if args.feature_bank:
+        train_over["device_feature_bank"] = True
+    # --steps-per-dispatch mirrors --steps: one K for every stage or a comma
+    # list matched to --stages (e.g. --stages xe,scst --steps-per-dispatch
+    # 8,4)
+    per_stage_k = None
+    if args.steps_per_dispatch is not None:
+        ks = [int(s) for s in str(args.steps_per_dispatch).split(",")]
+        if len(ks) > 1:
+            per_stage_k = ks
+        train_over["steps_per_dispatch"] = ks[0]
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                              **train_over))
     stages = [s.strip() for s in args.stages.split(",")] if args.stages \
@@ -188,6 +198,9 @@ def cmd_train(args) -> int:
     if per_stage_steps is not None and len(per_stage_steps) != len(stages):
         raise SystemExit(f"--steps lists {len(per_stage_steps)} counts for "
                          f"{len(stages)} stages")
+    if per_stage_k is not None and len(per_stage_k) != len(stages):
+        raise SystemExit(f"--steps-per-dispatch lists {len(per_stage_k)} "
+                         f"values for {len(stages)} stages")
     from vidcap_tpu_torch.inference import resolve_device
     from vidcap_tpu_torch.train.loop import train
     from vidcap_tpu_torch.utils.logging import MetricsLogger
@@ -209,7 +222,9 @@ def cmd_train(args) -> int:
             total += (per_stage_steps[i] if per_stage_steps is not None
                       else cfg.train.num_steps)
             scfg = dataclasses.replace(cfg, train=dataclasses.replace(
-                cfg.train, stage=stage, num_steps=total))
+                cfg.train, stage=stage, num_steps=total,
+                steps_per_dispatch=(per_stage_k[i] if per_stage_k is not None
+                                    else cfg.train.steps_per_dispatch)))
             train(scfg, dataset=dataset, logger=logger,
                   resume=args.resume or i > 0, device=args.device,
                   val_dataset=val_dataset)
@@ -535,9 +550,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "sampling generator")
     t.add_argument("--device", default=None, help="cuda (default) or cpu")
     t.add_argument("--feature-bank", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="keep the whole feature tensor on the device and "
+                        "gather each step's rows there (feature mode)")
     t.add_argument("--steps-per-dispatch", default=None,
-                   help=argparse.SUPPRESS)
+                   help="with --feature-bank: K steps a dispatch (one CUDA "
+                        "graph on the card; checkpoints and validation at "
+                        "chunk boundaries). One K or a comma list matched "
+                        "to --stages (e.g. 8,4)")
     t.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
     t.set_defaults(fn=cmd_train)
 

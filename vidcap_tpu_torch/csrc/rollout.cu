@@ -101,7 +101,6 @@ struct Dims {
   int kd;          // depth of a streamed ring stage / W_out TMA box rows
   int box_rows;    // rows of a resident TMA box (divides H, <= 256)
   int resident, sample;
-  unsigned seed;
   float inv_temp;
 };
 
@@ -237,6 +236,9 @@ struct Params {
   // inputs (read-only for the whole launch)
   const bf16 *emb, *keys, *values, *wq, *wg, *w_out;
   const float *fmask, *h0, *c0, *u, *bg, *b_out;
+  // the sampling seed: the low word of a device int64, written before the
+  // launch (a captured launch reads each replay's own); unread when greedy
+  const unsigned* seed;
   // handed between blocks (written and read inside the launch)
   bf16* xh;    // [B, E+H]: bf16 [emb; ctx]
   bf16* h16;   // [B, H]: bf16(h')
@@ -315,6 +317,7 @@ struct Block {
   int col0, ncols;   // W_out columns [col0, col0 + ncols)
   int q0, nq;        // Wq columns [q0, q0 + nq)
   int j0;            // hidden columns j0..j0+3, or -1
+  unsigned seed;     // the sampling seed (0 when greedy)
   unsigned ring_n;   // streamed ring stages consumed so far
   uint64_t* bar;     // [0] weights loaded, [1..] ring stages full
 
@@ -448,7 +451,7 @@ __device__ void pick_epilogue(const Block& k, const float (&acc)[kMaxNt][4],
         const float v = bf16r(bf16r(acc[i][2 * hh + e]) + bf16r(bout[col - k.col0]));
         const float cl = col < d.vocab ? v * d.inv_temp : kNeg;
         const float nz =
-            kSample ? gumbel(cl, d.row0 + row, col, d.seed, step) : cl;
+            kSample ? gumbel(cl, d.row0 + row, col, k.seed, step) : cl;
         x[i][e] = cl;
         mt = fmaxf(mt, cl);
         if (before(nz, col, pk[hh].bv, pk[hh].bi)) {
@@ -891,6 +894,7 @@ rollout_kernel(const __grid_constant__ Params p,
   k.q0 = blockIdx.x * d.qc;
   k.nq = max(0, min(d.qc, d.A - k.q0));
   k.j0 = (int)blockIdx.x < d.H / kHid ? (int)blockIdx.x * kHid : -1;
+  k.seed = d.sample ? *p.seed : 0u;
   k.ring_n = 0;
   k.bar = reinterpret_cast<uint64_t*>(k.base + p.s.bar);
   const int row = blockIdx.x;   // attention of row `row`, merge of row - B
@@ -937,8 +941,10 @@ extern "C" int vidcap_rollout_limits(int* smem_optin, int* sms) {
 // [B, H], q [B, A] bf16; pm/ps/pn/pc [B, grid] f32, pi [B, grid] i32;
 // pick [2, B] u64.
 // Outputs [B, max_len]: tokens i32, logp f32, mask f32. row0 is the first
-// row's index in the hash of the Gumbel noise. nc, qc: the W_out and Wq
-// columns a block holds (multiples of 8, nc * grid >= Vp, qc * grid >= A).
+// row's index in the hash of the Gumbel noise; seed points at the sampling
+// seed on the device (its low 32 bits; may be null when sample is 0). nc,
+// qc: the W_out and Wq columns a block holds (multiples of 8, nc * grid >=
+// Vp, qc * grid >= A).
 // Needs E, H, A multiples of 32 and at most 512 (H, A), Vp a multiple of 8,
 // H <= 4 * grid and 2 * B <= grid <= 256. Returns the
 // cudaError_t of the launch (cudaErrorCooperativeLaunchTooLarge if the
@@ -952,8 +958,8 @@ extern "C" int vidcap_rollout(
     void* pi, void* pick, void* out_tok, void* out_logp, void* out_mask,
     int B, int T,
     int E, int H, int A, int Vp, int vocab, int max_len, int row0, int grid,
-    int nc, int qc, int resident, int sample, unsigned seed, float inv_temp,
-    void* stream) {
+    int nc, int qc, int resident, int sample, const void* seed,
+    float inv_temp, void* stream) {
   Params p;
   p.emb = static_cast<const bf16*>(emb);
   p.keys = static_cast<const bf16*>(keys);
@@ -979,12 +985,14 @@ extern "C" int vidcap_rollout(
   p.out_tok = static_cast<int*>(out_tok);
   p.out_logp = static_cast<float*>(out_logp);
   p.out_mask = static_cast<float*>(out_mask);
+  p.seed = static_cast<const unsigned*>(seed);
   Dims& d = p.d;
   d = Dims{B, T, E, H, A, Vp, vocab, max_len, row0, nc, qc,
-           H % 64 == 0 ? 64 : 32, 0, resident, sample, seed, inv_temp};
+           H % 64 == 0 ? 64 : 32, 0, resident, sample, inv_temp};
   d.box_rows = H % 256 == 0 ? 256 : H % 128 == 0 ? 128 : H % 64 == 0 ? 64 : 32;
   p.s = smem_layout(d);
-  if (B < 1 || B > kRows || grid < 2 * B || grid > kMaxGrid)
+  if (B < 1 || B > kRows || grid < 2 * B || grid > kMaxGrid ||
+      (sample && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   int err = (int)cudaGetDevice(&dev);

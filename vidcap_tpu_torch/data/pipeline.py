@@ -2,12 +2,15 @@
 ``vidcap_tpu/data/pipeline.py``: every epoch's permutation is a pure function
 of (seed, epoch) with the same numpy generator, so the two packages draw the
 same batches from the same seed, and resuming from (epoch, position) replays
-the exact remaining stream. Background prefetch is not ported (ROADMAP
-Queue 1 item 12)."""
+the exact remaining stream. ``PrefetchBatcher`` draws ahead on a background
+thread (``train.prefetch_depth``) and keeps the position of what its
+consumer has taken, so a checkpoint of it resumes exactly."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+import queue
+import threading
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -21,6 +24,13 @@ class IteratorState:
     seed: int
     epoch: int
     position: int
+
+    def to_dict(self) -> Dict[str, int]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d) -> "IteratorState":
+        return cls(int(d["seed"]), int(d["epoch"]), int(d["position"]))
 
 
 class DeterministicBatcher:
@@ -58,3 +68,59 @@ class DeterministicBatcher:
         return Batch(features=ds.features[vidx], tokens=ds.tokens[sel],
                      mask=ds.mask[sel], attributes=ds.attributes[vidx],
                      video_idx=vidx)
+
+
+class PrefetchBatcher:
+    """A batcher drawn ``depth`` batches ahead on a background thread.
+
+    The producer ships each batch with the batcher's state after drawing
+    it, so ``.state`` is the position after the last batch the consumer
+    took, however far the producer has run ahead: a checkpoint of it
+    replays exactly the batches the train loop has not seen. An error of
+    the batcher reaches the consumer at the batch where it happened."""
+
+    def __init__(self, batcher: DeterministicBatcher, depth: int = 2):
+        self.batcher = batcher
+        self._state = batcher.state          # the consumer's resume point
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _fill(self) -> None:
+        while not self._stop.is_set():
+            try:
+                item = (next(self.batcher), self.batcher.state, None)
+            except Exception as e:   # handed to the consumer, raised there
+                self._put((None, None, e))
+                return
+            if not self._put(item):
+                return
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self
+
+    def __next__(self) -> Batch:
+        batch, state_after, err = self._q.get()
+        if err is not None:
+            raise err
+        self._state = state_after
+        return batch
+
+    @property
+    def state(self) -> IteratorState:
+        """The resume point after everything the consumer has taken."""
+        return self._state
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()

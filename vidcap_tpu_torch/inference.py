@@ -61,6 +61,7 @@ class Captioner:
         # K3's W_out mode of the last greedy/sample decode: True resident in
         # shared memory, False streamed from L2 (ops/rollout.py)
         self.rollout_resident: Optional[bool] = None
+        self._feature_bank: Optional[torch.Tensor] = None
         self.decode_calls = 0   # decode_batch calls run so far
         self.decode_steps = 0   # decode steps run so far, any method (early
         #   exit ends some beam decodes; a greedy/sample rollout runs max_len)
@@ -110,9 +111,15 @@ class Captioner:
                    ) -> "Captioner":
         """A captioner on a train state's model and device, sharing its
         parameters: the kernels' cast weights are made on the first decode,
-        so build a new one after the parameters change."""
+        so call :meth:`reload_weights` (or build a new one) after the
+        parameters change."""
         return cls(cfg, state.model, dataset,
                    next(state.model.parameters()).device)
+
+    def reload_weights(self) -> None:
+        """Drop the kernels' cast weights: the next decode casts the
+        parameters as they are then."""
+        self._beam_weights = self._rollout_weights = None
 
     def _sample_seed(self, seed: Optional[int]) -> int:
         """The caller's seed; else one derived from ``self.seed`` and a
@@ -131,9 +138,11 @@ class Captioner:
                      seed: Optional[int] = None,
                      frame_mask: Optional[np.ndarray] = None,
                      nbest: int = 1) -> np.ndarray:
-        """feats f32[B, T, D] → token ids i32[B, L]; with nbest > 1 (beam
-        only) the nbest best hypotheses per video, i32[B, nbest, L], best
-        first. ``temperature`` and ``seed`` apply to method="sample"."""
+        """feats f32[B, T, D] (numpy, or a tensor on the captioner's
+        device) → token ids i32[B, L]; with nbest > 1 (beam only) the nbest
+        best hypotheses per video, i32[B, nbest, L], best first.
+        ``temperature`` and ``seed`` apply to method="sample"; the seed goes
+        to the card as a device int64, where K3 reads it."""
         if method not in ("greedy", "sample", "beam"):
             raise ValueError(f"unknown decode method {method!r}")
         if nbest > 1 and method != "beam":
@@ -141,7 +150,9 @@ class Captioner:
                              "(greedy/sample decode one hypothesis)")
         if frame_mask is None:
             frame_mask = np.ones(feats.shape[:2], np.float32)
-        f = torch.as_tensor(np.asarray(feats, np.float32), device=self.device)
+        f = (feats.to(self.device, torch.float32) if torch.is_tensor(feats)
+             else torch.as_tensor(np.asarray(feats, np.float32),
+                                  device=self.device))
         m = torch.as_tensor(np.asarray(frame_mask, np.float32),
                             device=self.device)
         if method == "beam":
@@ -151,8 +162,10 @@ class Captioner:
         sample = method == "sample"
         self.rollout_resident = resident_mode(self._rollout_weights,
                                               f.shape[1], self.device)
+        seed_t = (torch.tensor(self._sample_seed(seed), dtype=torch.int64,
+                               device=self.device) if sample else 0)
         r = model_rollout(self.model, f, m, self.max_len, sample=sample,
-                          seed=self._sample_seed(seed) if sample else 0,
+                          seed=seed_t,
                           temperature=temperature if sample else 1.0,
                           weights=self._rollout_weights,
                           resident_wout=self.rollout_resident)
@@ -211,13 +224,28 @@ class Captioner:
 
     def caption_dataset(self, method: str = "beam", beam_width: int = 5,
                         temperature: float = 1.0, batch_size: int = 32,
-                        nbest: int = 1) -> Dict[str, List[str]]:
+                        nbest: int = 1, device_bank: bool = False
+                        ) -> Dict[str, List[str]]:
         """Decode every video in the dataset → {video_id: [caption, ...]}
-        (the nbest hypotheses best-first, or just the winner)."""
+        (the nbest hypotheses best-first, or just the winner).
+
+        device_bank: put the whole feature tensor on the device once (kept
+        for later calls) and gather each batch's rows there by video index,
+        as training's ``device_feature_bank`` does; the same rows, so the
+        same captions."""
         results: Dict[str, List[str]] = {}
         vocab = self.dataset.vocab
+        bank = None
+        if device_bank and self.dataset.features.ndim == 3:
+            if self._feature_bank is None:
+                self._feature_bank = torch.as_tensor(
+                    np.asarray(self.dataset.features, np.float32),
+                    device=self.device)
+            bank = self._feature_bank
         for batch in self.dataset.video_batches(batch_size):
-            toks = self.decode_batch(batch.features, method=method,
+            feats = batch.features if bank is None else bank.index_select(
+                0, torch.as_tensor(batch.video_idx, device=self.device))
+            toks = self.decode_batch(feats, method=method,
                                      beam_width=beam_width,
                                      temperature=temperature, nbest=nbest)
             for row, vidx in zip(toks, batch.video_idx):

@@ -13,7 +13,10 @@ Nothing here runs at import: the CPU-only test environment has no ``nvcc``.
 
 The launch counts are process-wide on purpose: a run reads them to show that
 its decode went through the kernels. Each wrapper adds one where it launches
-its kernel and nowhere else.
+its kernel and nowhere else. Under CUDA-graph capture a wrapper runs once
+and the graph launches its kernels at every replay: :func:`counted` takes
+the capture's counts back out, and the replayer adds them with
+:func:`add_counts` at each replay (train/steps.py).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -39,6 +42,22 @@ _fns: Dict[str, ctypes._CFuncPtr] = {}
 def reset_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def counted(fn: Callable[[], object]) -> Tuple[object, Dict[str, int]]:
+    """Run ``fn`` and return (its result, the launches its wrappers
+    counted), those launches taken back out of :data:`launch_counts`."""
+    before = dict(launch_counts)
+    try:
+        out = fn()
+        return out, {k: launch_counts[k] - before[k] for k in before}
+    finally:
+        launch_counts.update(before)
+
+
+def add_counts(delta: Dict[str, int]) -> None:
+    for name, n in delta.items():
+        launch_counts[name] += n
 
 
 def _nvcc() -> str:

@@ -15,9 +15,11 @@ BOS first, each of the max_len steps:
     0 once finished;  mask = 1 − finished;  finished |= token == EOS
 
 Ties go to the smallest column. There is no early exit: all max_len steps
-run. :func:`rollout` launches the kernel for CUDA tensors and runs
-:func:`rollout_plain` for CPU tensors; it never falls back from one to the
-other. On the card the kernel keeps W_out in shared memory for the whole
+run. The sampling seed is an int or an int64 tensor; the kernel reads it
+from device memory at launch, so a captured launch samples with the seed
+written into its buffer before each replay. :func:`rollout` launches the
+kernel for CUDA tensors and runs :func:`rollout_plain` for CPU tensors; it
+never falls back from one to the other. On the card the kernel keeps W_out in shared memory for the whole
 rollout (``resident_wout=True``) or streams it from L2 each step
 (``False``), as ``pallas_rollout`` does; :func:`resident_mode` is the
 choice ``model_rollout`` and ``Captioner`` make.
@@ -308,8 +310,22 @@ def select_sliced_plain(clean, sample: bool, seed, step: int,
     return bi, bc - (m + torch.log(torch.clamp(s, min=1e-30)))
 
 
+def device_seed(seed, device) -> torch.Tensor:
+    """``seed`` as the int64 scalar on ``device`` that the kernel reads (an
+    int is uploaded; a tensor is taken as it is, so a captured caller keeps
+    its own buffer)."""
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int64 or seed.numel() != 1 \
+                or seed.device != torch.device(device):
+            raise ValueError(f"rollout: the seed must be one int64 on "
+                             f"{device}, got {seed.dtype} {tuple(seed.shape)}"
+                             f" on {seed.device}")
+        return seed
+    return torch.tensor(int(seed), dtype=torch.int64, device=device)
+
+
 def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
-            max_len: int, sample: bool = False, seed: int = 0,
+            max_len: int, sample: bool = False, seed=0,
             temperature: float = 1.0, resident_wout: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """keys bf16[B, T, A], values bf16[B, T, H], frame_mask f32[B, T],
@@ -317,7 +333,9 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
     i32[B, L], logp f32[B, L], mask f32[B, L]).
 
     On the card: one launch of the persistent kernel per 32 rows (one for
-    B ≤ 32), one count each. ``resident_wout`` mirrors
+    B ≤ 32), one count each. ``seed`` (sampled only): an int, or an int64
+    tensor of one element on the card (:func:`device_seed`), read by the
+    kernel when it runs. ``resident_wout`` mirrors
     ``pallas_rollout(resident_wout=...)``: True keeps W_out in shared
     memory for the whole rollout and raises ValueError if it does not fit
     (:func:`rollout_fits_resident`); False streams it from L2 each step.
@@ -362,7 +380,8 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
         (w.wq, "wq", bf16, (H, A)), (w.u, "u", f32, (A,)),
         (w.wg, "wg", bf16, (E + 2 * H, 4 * H)), (w.bg, "bg", f32, (4 * H,)),
         (w.w_out, "w_out", bf16, (H, Vp)), (w.b_out, "b_out", f32, (Vp,))))
-    fn = _build.entry("rollout", 24, 14, (ctypes.c_uint32, ctypes.c_float))
+    seed_t = device_seed(seed, dev) if sample else None
+    fn = _build.entry("rollout", 24, 14, (ctypes.c_void_p, ctypes.c_float))
     n = min(B, ROWS)
     # scratch handed between the blocks: bf16 [emb; ctx], bf16(h'), q, per
     # (row, block) the pick partials (max, exp-sum, best noisy, its clean
@@ -383,8 +402,8 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
                  w.b_out.data_ptr(), xh, h16, q, pm, ps, pn, pc, pi, pick,
                  at(out_tok), at(out_logp), at(out_mask), r1 - r0, T, E, H, A,
                  Vp, w.vocab_size, max_len, r0, sms, nc, qc,
-                 int(resident_wout), int(sample), int(seed) & _U32, inv_t,
-                 stream)
+                 int(resident_wout), int(sample),
+                 None if seed_t is None else seed_t.data_ptr(), inv_t, stream)
         if err == 82:   # cudaErrorCooperativeLaunchTooLarge
             raise RuntimeError(
                 f"rollout: the card cannot hold all {sms} blocks of the "
@@ -398,7 +417,7 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
 
 @torch.no_grad()
 def model_rollout(model, feats, frame_mask, max_len: int,
-                  sample: bool = False, seed: int = 0,
+                  sample: bool = False, seed=0,
                   temperature: float = 1.0,
                   weights: Optional[RolloutWeights] = None,
                   resident_wout: Optional[bool] = None):

@@ -54,7 +54,7 @@ class CheckpointManager:
         opt = state.opt_state
         payload = {
             "params": _cpu(dict(state.model.named_parameters())),
-            "opt_state": {"count": opt["count"], "mu": _cpu(opt["mu"]),
+            "opt_state": {"count": int(opt["count"]), "mu": _cpu(opt["mu"]),
                           "nu": _cpu(opt["nu"])},
             "step": state.step,
             "generator": state.generator.get_state(),
@@ -149,7 +149,9 @@ class CheckpointManager:
     def restore(self, state: TrainState, step: Optional[int] = None,
                 with_iter: bool = False):
         """Restore into ``state`` (built with the same config), in place:
-        parameters, optimizer state, step and generator. Returns the
+        parameters, optimizer state, step and generator; every tensor is
+        written into the state's own, so nothing that holds their
+        addresses (a captured step) goes stale. Returns the
         state, or (state, IteratorState | None) with ``with_iter``."""
         payload = self._load(step)
         self._verify_params_tree(state.params, payload.get("params"))
@@ -158,11 +160,12 @@ class CheckpointManager:
             raise ValueError("checkpoint optimizer state does not match this "
                              "stage's optimizer")
         self._restore_common(state, payload)
-        params = state.params
-        state.opt_state = {
-            "count": int(opt["count"]),
-            "mu": {k: v.to(params[k].device) for k, v in opt["mu"].items()},
-            "nu": {k: v.to(params[k].device) for k, v in opt["nu"].items()}}
+        mine = state.opt_state
+        with torch.no_grad():
+            mine["count"].fill_(int(opt["count"]))
+            for m in ("mu", "nu"):
+                for k, v in opt[m].items():
+                    mine[m][k].copy_(v)
         if not with_iter:
             return state
         return state, self._iter_state(payload["iter_state"])
@@ -171,13 +174,13 @@ class CheckpointManager:
                             step: Optional[int] = None,
                             with_iter: bool = False):
         """Cross-stage restore: parameters, step and generator from the
-        checkpoint, the optimizer state re-initialised fresh from
-        ``state.tx``. The parameter tree is checked against the model's, so
+        checkpoint, the optimizer state reset to its initial values in
+        place. The parameter tree is checked against the model's, so
         a mismatched checkpoint fails here."""
         payload = self._load(step)
         self._verify_params_tree(state.params, payload.get("params"))
         self._restore_common(state, payload)
-        state.opt_state = state.tx.init(state.params)
+        state.tx.reset(state.opt_state)
         if not with_iter:
             return state
         return state, self._iter_state(payload["iter_state"])

@@ -4,9 +4,16 @@ cross-stage one (xe → scst: parameters restored, optimizer fresh), the
 deterministic batch stream, logging, the checkpoint cadence, and periodic
 validation that keeps the best-CIDEr state under ``{checkpoint_dir}/best``.
 
-Runs on the card unless the caller asks for the CPU. Not ported, each
-raising ``NotImplementedError`` with its ROADMAP item: the mesh, the device
-feature bank and multi-step dispatch, and prefetch.
+The dispatch is the JAX loop's: with ``train.device_feature_bank`` the
+features stay on the device and a batch carries tokens, mask and indices;
+with ``train.steps_per_dispatch`` = K (bank mode) one call advances K steps,
+with a log row per step and checkpoints and validation at the chunk
+boundaries that cross their cadence; ``train.prefetch_depth`` draws batches
+ahead on a thread; one worker stages the next dispatch's batches (pinned
+host buffers, a copy on a side stream) while the card runs the current one.
+On the card every step is a CUDA graph (train/steps.py). Runs on the card
+unless the caller asks for the CPU. Not ported: the mesh (ROADMAP Queue 1
+item 12), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import json
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,7 +29,8 @@ import torch
 
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.data.loader import Batch, CaptionDataset
-from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
+from vidcap_tpu_torch.data.pipeline import (DeterministicBatcher,
+                                            PrefetchBatcher)
 from vidcap_tpu_torch.inference import Captioner, resolve_device
 from vidcap_tpu_torch.metrics.evaluate import evaluate_captions
 from vidcap_tpu_torch.models.model import create_model, init_params
@@ -29,7 +38,9 @@ from vidcap_tpu_torch.ops._build import launch_counts
 from vidcap_tpu_torch.train.checkpoint import CheckpointManager
 from vidcap_tpu_torch.train.scst import make_scst_step_body
 from vidcap_tpu_torch.train.state import TrainState, create_train_state
-from vidcap_tpu_torch.train.steps import make_xe_step_body
+from vidcap_tpu_torch.train.steps import (make_banked_multistep,
+                                          make_banked_step, make_step,
+                                          make_xe_step_body)
 from vidcap_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -40,20 +51,47 @@ def batch_to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
                       "video_idx")}
 
 
-def _refuse_unported(cfg: Config, mesh) -> None:
-    t = cfg.train
+def batch_to_device_dict(batch: Batch, bank_mode: bool = False
+                         ) -> Dict[str, np.ndarray]:
+    """Batch → the dict a dispatched step consumes. In feature-bank mode
+    features and attributes stay home: the step gathers them on the device
+    by ``video_idx``."""
+    d = {"tokens": batch.tokens, "mask": batch.mask,
+         "video_idx": batch.video_idx}
+    if not bank_mode:
+        d["features"] = batch.features
+        d["attributes"] = batch.attributes
+    return d
+
+
+def _refuse_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "multi-device training (the mesh) is not ported to "
             "vidcap_tpu_torch yet (ROADMAP Queue 1 item 12)")
-    if t.device_feature_bank or t.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "train.device_feature_bank and train.steps_per_dispatch > 1 are "
-            "not ported to vidcap_tpu_torch yet (ROADMAP Queue 1 item 12)")
-    if t.prefetch_depth > 0:
-        raise NotImplementedError(
-            "train.prefetch_depth > 0 (background prefetch) is not ported to "
-            "vidcap_tpu_torch yet (ROADMAP Queue 1 item 12)")
+
+
+def _stage(it, n: int, bank_mode: bool, dev: torch.device, stream):
+    """Draw the next dispatch's n batches (stacked along a leading axis when
+    n > 1) and start their upload: on the card from pinned host buffers,
+    non-blocking on ``stream``. Returns (the tensors, the event the step
+    waits on or None, the iterator's state after these batches)."""
+    ds = [batch_to_device_dict(next(it), bank_mode) for _ in range(n)]
+    it_state = it.state
+    d = ds[0] if n == 1 else {k: np.stack([b[k] for b in ds]) for k in ds[0]}
+    if dev.type != "cuda":
+        return {k: torch.as_tensor(v) for k, v in d.items()}, None, it_state
+    with torch.cuda.stream(stream):
+        out = {k: torch.as_tensor(v).pin_memory().to(dev, non_blocking=True)
+               for k, v in d.items()}
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    return out, ev, it_state
+
+
+def _crossed(cadence: int, a: int, b: int) -> bool:
+    """Whether steps a+1..b reach a multiple of ``cadence`` (> 0)."""
+    return cadence > 0 and b // cadence > a // cadence
 
 
 def _subset_dataset(dataset: CaptionDataset, max_videos: int
@@ -76,7 +114,8 @@ def run_validation(cfg: Config, captioner: Captioner,
     {'CIDEr': ..., 'Bleu_4': ..., ...}."""
     results = captioner.caption_dataset(
         method=cfg.train.eval_method, batch_size=cfg.train.batch_size,
-        beam_width=cfg.decode.beam_width)
+        beam_width=cfg.decode.beam_width,
+        device_bank=cfg.train.device_feature_bank)
     refs = {v: val_dataset.video_captions[v] for v in results
             if val_dataset.video_captions.get(v)}  # empty list = no refs
     return evaluate_captions(refs, {v: results[v] for v in refs})
@@ -108,14 +147,14 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
     ``{checkpoint_dir}/best``."""
     t = cfg.train
     num_steps = num_steps or t.num_steps
-    _refuse_unported(cfg, mesh)
+    _refuse_unported(mesh)
     dev = resolve_device(device)
     dataset = dataset or CaptionDataset.synthetic(cfg.data)
     logger = logger or MetricsLogger()
 
     model = init_params(create_model(cfg, vocab_size=dataset.vocab.size),
                         seed=t.seed).to(dev)
-    state = create_train_state(cfg, model)
+    state = create_train_state(cfg, model, num_steps=num_steps)
     ckpt = CheckpointManager(t.checkpoint_dir)
     iter_state = None
     if resume and ckpt.latest_step() is not None:
@@ -135,11 +174,32 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
             state, iter_state = ckpt.restore(state, with_iter=True)
 
     if t.stage == "xe":
-        step_fn = make_xe_step_body(cfg)
+        body = make_xe_step_body(cfg)
     elif t.stage == "scst":
-        step_fn = make_scst_step_body(cfg, dataset)
+        body = make_scst_step_body(cfg, dataset)
     else:
         raise ValueError(f"unknown stage {t.stage!r}")
+    # feature-mode inputs only (pixel datasets are too large to bank)
+    bank_mode = t.device_feature_bank and dataset.features.ndim == 3
+    if t.device_feature_bank and not bank_mode:
+        print("[vidcap] device_feature_bank ignored (custom step or "
+              "pixel-mode inputs)", file=sys.stderr)
+    k_dispatch = max(1, t.steps_per_dispatch) if bank_mode else 1
+    if t.steps_per_dispatch > 1 and k_dispatch == 1:
+        print("[vidcap] steps_per_dispatch ignored — multi-step dispatch "
+              "requires the device feature bank (--feature-bank, "
+              "feature-mode inputs) and a single device", file=sys.stderr)
+    chunk_fn = None
+    if bank_mode:
+        banks = None
+        if k_dispatch > 1:
+            chunk_fn, banks = make_banked_multistep(body, dataset, k_dispatch,
+                                                    device=dev)
+        # the (< K)-step tail takes single steps on the same banks
+        step_fn, _ = make_banked_step(body, dataset, banks=banks,
+                                      device=dev)
+    else:
+        step_fn = make_step(body, dev)
 
     eval_every = t.eval_every
     eval_on_train = val_dataset is None
@@ -153,18 +213,20 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
               f"{val.num_videos}-video TRAIN subset; 'best' checkpoint "
               f"selection reflects training fit, not held-out quality",
               file=sys.stderr)
-    best_ckpt = None
+    best_ckpt = captioner = None
     best_cider = -1.0
 
     def maybe_eval(step_no: int) -> None:
-        nonlocal best_ckpt, best_cider
+        nonlocal best_ckpt, best_cider, captioner
         t0 = time.perf_counter()
-        # a new captioner each time: its kernels' cast weights must be
-        # those of the parameters as they are now
+        # one captioner (its feature bank is kept), whose kernels' cast
+        # weights are those of the parameters as they are now
+        if captioner is None:
+            captioner = Captioner.from_state(cfg, val, state)
+        captioner.reload_weights()
         state.model.eval()
         try:
-            scores = run_validation(cfg, Captioner.from_state(cfg, val,
-                                                              state), val)
+            scores = run_validation(cfg, captioner, val)
         finally:
             state.model.train()
         record = {f"eval_{k}": v for k, v in scores.items()}
@@ -183,27 +245,62 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
     launches0 = dict(launch_counts)
     it = DeterministicBatcher(dataset, t.batch_size, state=iter_state,
                               seed=t.seed)
+    if t.prefetch_depth > 0:
+        it = PrefetchBatcher(it, depth=t.prefetch_depth)
+    # the dispatches: chunks of K steps, then single steps for the tail
+    units = [k_dispatch] * ((num_steps - start) // k_dispatch) if \
+        chunk_fn is not None else []
+    units += [1] * (num_steps - start - sum(units))
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    # one worker: batch order and the iterator's state stay sequential
+    pool = ThreadPoolExecutor(max_workers=1)
+    stage = lambda n: pool.submit(_stage, it, n, bank_mode, dev, side)
+    staged = stage(units[0]) if units else None
     t_last, s_last = time.time(), start
-    for i in range(start, num_steps):
-        batch = batch_to_device(next(it), dev)
-        state, metrics = step_fn(state, batch)
-        if (t.log_every > 0 and (i + 1) % t.log_every == 0) \
-                or i + 1 == num_steps:
-            now = time.time()
-            metrics["steps_per_sec"] = (i + 1 - s_last) / max(now - t_last,
-                                                              1e-9)
-            t_last, s_last = now, i + 1
-            logger.log(i + 1, metrics)
-        if (t.checkpoint_every > 0 and (i + 1) % t.checkpoint_every == 0) \
-                or i + 1 == num_steps:
-            ckpt.save(state, iter_state=it.state, stage=t.stage)
-        if eval_every > 0 and (i + 1) % eval_every == 0:
-            maybe_eval(i + 1)
+    try:
+        for u, n in enumerate(units):
+            batch, ev, it_state = staged.result()
+            if ev is not None:
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_event(ev)
+                for v in batch.values():
+                    v.record_stream(cur)
+            t0 = time.time()
+            state, metrics = (chunk_fn if n > 1 else step_fn)(state, batch)
+            # the next batches ride to the card while it runs this dispatch
+            staged = stage(units[u + 1]) if u + 1 < len(units) else None
+            a, b = state.step - n, state.step
+            if n > 1:
+                # one host read a chunk; a row per step at the chunk's rate
+                host = {k: v.tolist() for k, v in metrics.items()}
+                sps = n / max(time.time() - t0, 1e-9)
+                for j in range(n):
+                    g = a + j + 1
+                    if (t.log_every > 0 and g % t.log_every == 0) \
+                            or g == num_steps:
+                        logger.log(g, {**{k: v[j] for k, v in host.items()},
+                                       "steps_per_sec": sps})
+                t_last, s_last = time.time(), b
+            elif (t.log_every > 0 and b % t.log_every == 0) \
+                    or b == num_steps:
+                now = time.time()
+                metrics = {**metrics, "steps_per_sec": (b - s_last)
+                           / max(now - t_last, 1e-9)}
+                t_last, s_last = now, b
+                logger.log(b, metrics)
+            if _crossed(t.checkpoint_every, a, b) or b == num_steps:
+                ckpt.save(state, iter_state=it_state, stage=t.stage)
+            if _crossed(eval_every, a, b):
+                maybe_eval(b)
+    finally:
+        pool.shutdown(wait=True)
+        if isinstance(it, PrefetchBatcher):
+            it.close()
 
     mode = ""
-    if getattr(step_fn, "rollout_resident", None) is not None \
+    if getattr(body, "rollout_resident", None) is not None \
             and dev.type == "cuda":
-        mode = "; rollout W_out " + ("resident" if step_fn.rollout_resident
+        mode = "; rollout W_out " + ("resident" if body.rollout_resident
                                      else "streamed")
     launches = {k: v - launches0[k] for k, v in launch_counts.items()}
     print(f"[vidcap] {t.stage}: {max(num_steps - start, 0)} steps on {dev}"

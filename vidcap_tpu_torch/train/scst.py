@@ -17,7 +17,11 @@ tokens, so it equals backpropagation through the sampling loop.
 The step is two parts: :meth:`ScstStep.rollouts` (the two K3 rollouts,
 forward only) and :meth:`ScstStep.update`, the differentiable rest, which
 takes the two rollouts as inputs; tests feed both packages the same
-rollouts.
+rollouts. The sampling seed is drawn on the host from the state's generator
+and reaches K3 as a device int64, so that a captured step (train/steps.py)
+samples each replay with its own seed. ``train.grad_accum`` splits the step
+into microbatches, each with its rollouts and its seed, as the JAX
+package's ``accum_grads``.
 """
 from __future__ import annotations
 
@@ -36,20 +40,26 @@ from vidcap_tpu_torch.objectives.xe import masked_xe_loss, shift_right
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
                                           resident_mode)
 from vidcap_tpu_torch.train.state import TrainState
-from vidcap_tpu_torch.train.steps import (Batch, Metrics, apply_loss,
-                                          refuse_unported)
+from vidcap_tpu_torch.train.steps import (Batch, Grads, Metrics,
+                                          add_grads, apply_grads, apply_loss,
+                                          draw_seeds, grads_of,
+                                          micro_batches)
 
 
 class ScstStep:
-    """``step(state, batch, seed=None) → (state, metrics)``. ``seed`` is
-    K3's sampling seed; None draws it from ``state.generator``."""
+    """``step(state, batch, seed=None) → (state, metrics)``. The step's K3
+    sampling seeds (one a microbatch, ``train.grad_accum``) come from
+    ``seed``, else from ``batch["seed"]`` (int64[grad_accum]: the captured
+    step's device buffer), else from ``state.generator``.
+    :meth:`body` is the step itself, which reads nothing on the host."""
 
     def __init__(self, cfg: Config, tables: RewardTables):
-        refuse_unported(cfg)
         self.cfg = cfg
         self.tables = tables
         t = cfg.train
         self.bleu_mix = t.bleu_mix if t.scst_reward == "cider_bleu" else 0.0
+        self.accum = max(1, t.grad_accum)
+        self.seeds_per_step = self.accum   # the dispatch draws them
         # K3's W_out mode in the last step's rollouts (ops/rollout.py)
         self.rollout_resident: Optional[bool] = None
 
@@ -59,14 +69,18 @@ class ScstStep:
         return self.tables
 
     def rollouts(self, state: TrainState, batch: Batch,
-                 seed: Optional[int] = None) -> Tuple[Rollout, Rollout]:
+                 seed=None) -> Tuple[Rollout, Rollout]:
         """(sampled at ``decode.temperature``, greedy): forward only, on the
-        features without gradient; the weights cast once for both."""
+        features without gradient; the weights cast once for both.
+        ``seed``: an int or an int64 scalar tensor; None takes the batch's
+        first, else draws one from ``state.generator``."""
         if seed is None:
-            seed = int(torch.randint(0, 2**31 - 1, (1,),
-                                     generator=state.generator))
+            seed = (batch["seed"][0] if "seed" in batch
+                    else draw_seeds(state, 1)[0])
         model, d = state.model, self.cfg.decode
         feats = model.encode_features(batch["features"]).detach()
+        if torch.is_tensor(seed):
+            seed = seed.to(feats.device)
         w = RolloutWeights.from_model(model)
         self.rollout_resident = resident_mode(w, feats.shape[1], feats.device)
         sample = model_rollout(model, feats, None, d.max_len, sample=True,
@@ -85,13 +99,14 @@ class ScstStep:
                 scst_reward(tables, vidx, greedy.tokens, greedy.mask,
                             self.bleu_mix))
 
-    def loss(self, model, batch: Batch, sample: Rollout, greedy: Rollout,
-             rewards: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-             ) -> Tuple[torch.Tensor, Metrics]:
-        """The differentiable part: the re-score of the sampled tokens
-        (temperature-scaled log-probs of the emitted tokens, masked), the
-        PG loss against the greedy baseline, ``scst_xe_mix`` · the XE anchor
-        on the ground-truth captions, ``attribute_loss_weight`` · BCE."""
+    def pieces(self, model, batch: Batch, sample: Rollout, greedy: Rollout,
+               rewards: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """The differentiable part in pieces: (PG loss, XE anchor, its
+        token count, BCE, the PG metrics); the XE anchor and its count are
+        None without ``scst_xe_mix``, the BCE None without
+        ``attribute_loss_weight``. The PG loss is from the re-score of the
+        sampled tokens (temperature-scaled log-probs of the emitted tokens,
+        masked) against the greedy baseline."""
         t = self.cfg.train
         feats = model.encode_features(batch["features"])
         logits = model.xe_logits(feats, None, shift_right(sample.tokens))
@@ -102,17 +117,31 @@ class ScstStep:
                            mask=sample.mask)
         r_s, r_g = rewards if rewards is not None else self.rewards(
             batch, sample, greedy)
-        loss, metrics = scst_loss(rescored, r_s, r_g)
+        pg, metrics = scst_loss(rescored, r_s, r_g)
+        xe = ntok = bce = None
         if t.scst_xe_mix > 0:
             # the XE anchor keeps the policy tied to the data distribution
             # while the PG term optimizes CIDEr
             gt = model.xe_logits(feats, None, shift_right(batch["tokens"]))
-            xe, _ = masked_xe_loss(gt, batch["tokens"], batch["mask"])
-            loss = loss + t.scst_xe_mix * xe
-            metrics["xe_anchor"] = xe
+            xe, ntok = masked_xe_loss(gt, batch["tokens"], batch["mask"])
         if t.attribute_loss_weight > 0:
             bce = attribute_bce_loss(model.attribute_logits(feats),
                                      batch["attributes"])
+        return pg, xe, ntok, bce, metrics
+
+    def loss(self, model, batch: Batch, sample: Rollout, greedy: Rollout,
+             rewards: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, Metrics]:
+        """The differentiable part: the PG loss, ``scst_xe_mix`` · the XE
+        anchor on the ground-truth captions, ``attribute_loss_weight`` ·
+        BCE."""
+        t = self.cfg.train
+        loss, xe, _, bce, metrics = self.pieces(model, batch, sample, greedy,
+                                                rewards)
+        if xe is not None:
+            loss = loss + t.scst_xe_mix * xe
+            metrics["xe_anchor"] = xe
+        if bce is not None:
             loss = loss + t.attribute_loss_weight * bce
             metrics["attr_loss"] = bce
         metrics["loss"] = loss
@@ -123,10 +152,59 @@ class ScstStep:
         return apply_loss(state, *self.loss(state.model, batch, sample,
                                             greedy))
 
+    def accum_grads(self, state: TrainState, batch: Batch
+                    ) -> Tuple[Grads, Metrics]:
+        """``train.grad_accum`` = K microbatches (JAX ``accum_grads``), each
+        with its own rollouts at its own seed: the PG term by 1/K, each
+        normalized by its own sampled-token count (K SCST steps sharing one
+        update); the XE anchor by token count over the batch's, exact; the
+        BCE by 1/K, exact; the PG metrics averaged over the microbatches."""
+        t, K = self.cfg.train, self.accum
+        n_total = torch.clamp(batch["mask"].sum(), min=1.0)
+        grads, loss, xe_num, bce_sum, m_sum = None, 0.0, 0.0, 0.0, None
+        for m, mb in enumerate(micro_batches(batch, K)):
+            sample, greedy = self.rollouts(state, mb, batch["seed"][m])
+            pg, xe, ntok, bce, metrics = self.pieces(state.model, mb,
+                                                     sample, greedy)
+            c = pg / K
+            if xe is not None:
+                c = c + t.scst_xe_mix * xe * ntok / n_total
+                xe_num = xe_num + (xe * ntok).detach()
+            if bce is not None:
+                c = c + t.attribute_loss_weight * bce / K
+                bce_sum = bce_sum + bce.detach()
+            grads = add_grads(grads, grads_of(state, c))
+            loss = loss + c.detach()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            m_sum = metrics if m_sum is None else {
+                k: m_sum[k] + v for k, v in metrics.items()}
+        # row means over equal microbatches average exactly;
+        # advantage_std is a mean of the microbatches' (logging only)
+        metrics = {k: v / K for k, v in m_sum.items()}
+        if t.scst_xe_mix > 0:
+            metrics["xe_anchor"] = xe_num / n_total
+        if t.attribute_loss_weight > 0:
+            metrics["attr_loss"] = bce_sum / K
+        metrics["loss"] = loss
+        return grads, metrics
+
+    def body(self, state: TrainState, batch: Batch
+             ) -> Tuple[TrainState, Metrics]:
+        """One step on a batch that brings its seeds (``batch["seed"]``,
+        int64[grad_accum])."""
+        if self.accum == 1:
+            return self.update(state, batch,
+                               *self.rollouts(state, batch, batch["seed"][0]))
+        return apply_grads(state, *self.accum_grads(state, batch))
+
     def __call__(self, state: TrainState, batch: Batch,
-                 seed: Optional[int] = None) -> Tuple[TrainState, Metrics]:
-        sample, greedy = self.rollouts(state, batch, seed)
-        return self.update(state, batch, sample, greedy)
+                 seed=None) -> Tuple[TrainState, Metrics]:
+        if seed is not None:
+            batch = {**batch, "seed": torch.as_tensor(
+                seed, dtype=torch.int64).reshape(-1)}
+        elif "seed" not in batch:
+            batch = {**batch, "seed": draw_seeds(state, self.accum)}
+        return self.body(state, batch)
 
 
 def make_scst_step_body(cfg: Config, dataset=None,

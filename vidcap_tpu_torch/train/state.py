@@ -12,6 +12,12 @@
 * AdamW adds ``weight_decay · param`` to that update (decoupled decay), then
   both scale by ``-lr(count)`` with the count before the increment.
 
+The update reads nothing on the host, so that a CUDA graph can replay it:
+the count is a device int64, the learning rate and both bias corrections
+come from tables of every count the stage can reach (built on the host once,
+in the f32 arithmetic above, and gathered by the device count), and the
+moments and parameters are written in place.
+
 Randomness is explicit: one CPU ``torch.Generator`` in the state, saved and
 restored with the checkpoint (train/checkpoint.py).
 """
@@ -86,17 +92,39 @@ def optax_global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """The Optax chain of the module docstring. State: ``{"count": int,
-    "mu": {name: f32}, "nu": {name: f32}}``."""
+    """The Optax chain of the module docstring for up to ``num_steps``
+    updates. State: ``{"count": i64 scalar, "mu": {name: f32}, "nu": {name:
+    f32}, "table": f32[3, num_steps + 1]}`` on the parameters' device; row
+    c of the table is (lr(c), 1 - b1^(c+1), 1 - b2^(c+1))."""
 
     schedule: Schedule
     grad_clip_norm: float
     weight_decay: float = 0.0
+    num_steps: int = 0
+
+    def table(self, device) -> torch.Tensor:
+        rows = []
+        for c in range(self.num_steps + 1):
+            n = _f32(c + 1)   # the count after the increment
+            rows.append((self.schedule(c), _f32(1) - _f32(B1) ** n,
+                         _f32(1) - _f32(B2) ** n))
+        return torch.tensor(np.asarray(rows, np.float32).T, device=device)
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict:
-        return {"count": 0,
+        device = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int64, device=device),
                 "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "table": self.table(device)}
+
+    @staticmethod
+    @torch.no_grad()
+    def reset(opt_state: Dict) -> None:
+        """Back to the state of :meth:`init`, in place."""
+        opt_state["count"].zero_()
+        for m in ("mu", "nu"):
+            for t in opt_state[m].values():
+                t.zero_()
 
     @torch.no_grad()
     def clip(self, grads: Dict[str, torch.Tensor]
@@ -111,24 +139,25 @@ class Optimizer:
                grads: Dict[str, torch.Tensor], opt_state: Dict) -> None:
         """One step, in place: the parameters and ``opt_state``."""
         grads = self.clip(grads)
-        lr = self.schedule(opt_state["count"])
-        count = opt_state["count"] + 1
-        # f32 scalars, as Optax computes them
-        bc1 = float(_f32(1) - _f32(B1) ** _f32(count))
-        bc2 = float(_f32(1) - _f32(B2) ** _f32(count))
+        row = opt_state["table"].index_select(1, opt_state["count"].view(1))
+        lr, bc1, bc2 = row[0, 0], row[1, 0], row[2, 0]
         for k, p in params.items():
             g = grads[k]
-            mu = (1 - B1) * g + B1 * opt_state["mu"][k]
-            nu = (1 - B2) * (g * g) + B2 * opt_state["nu"][k]
-            opt_state["mu"][k], opt_state["nu"][k] = mu, nu
+            mu, nu = opt_state["mu"][k], opt_state["nu"][k]
+            mu.copy_((1 - B1) * g + B1 * mu)
+            nu.copy_((1 - B2) * (g * g) + B2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
             if self.weight_decay > 0:
                 u = u + self.weight_decay * p
             p.copy_(p + u * (-lr))
-        opt_state["count"] = count
+        opt_state["count"].add_(1)
 
 
-def make_optimizer(cfg: Config) -> Optimizer:
+def make_optimizer(cfg: Config, num_steps: Optional[int] = None
+                   ) -> Optimizer:
+    """The stage's optimizer, its tables long enough for ``num_steps``
+    updates (default ``cfg.train.num_steps``; the schedule's own horizon
+    stays ``cfg.train``'s)."""
     t = cfg.train
     if t.stage == "scst":
         # policy-gradient fine-tuning needs a much smaller rate than XE; the
@@ -149,7 +178,8 @@ def make_optimizer(cfg: Config) -> Optimizer:
             f"stage {t.stage!r} through the CNN backbone (and its "
             "backbone_lr_scale group) is not ported to vidcap_tpu_torch yet "
             "(ROADMAP Queue 1 item 11)")
-    return Optimizer(make_lr_schedule(t), t.grad_clip_norm, t.weight_decay)
+    return Optimizer(make_lr_schedule(t), t.grad_clip_norm, t.weight_decay,
+                     max(num_steps or 0, t.num_steps))
 
 
 @dataclasses.dataclass
@@ -170,14 +200,21 @@ class TrainState:
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]
                         ) -> "TrainState":
+        if self.step >= self.tx.num_steps:
+            # the count is at most the step; a later row does not exist
+            raise ValueError(f"step {self.step}: the optimizer's tables end "
+                             f"at {self.tx.num_steps} updates")
         self.tx.update(self.params, grads, self.opt_state)
         self.step += 1
         return self
 
 
 def create_train_state(cfg: Config, model: torch.nn.Module,
-                       seed: Optional[int] = None) -> TrainState:
-    tx = make_optimizer(cfg)
+                       seed: Optional[int] = None,
+                       num_steps: Optional[int] = None) -> TrainState:
+    """``num_steps``: the step the stage runs to, where it is past
+    ``cfg.train.num_steps``."""
+    tx = make_optimizer(cfg, num_steps)
     gen = torch.Generator().manual_seed(seed if seed is not None
                                         else cfg.train.seed)
     return TrainState(step=0, model=model,
