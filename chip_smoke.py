@@ -17,7 +17,10 @@ with validation through K1 and K2 and a best checkpoint → ``caption
 --checkpoint-dir best/ --inputs`` → ``eval``); serving (``serve`` over stdin
 and HTTP, beam through K1/K2 and greedy through K3) and export (``export``,
 ``caption``/``serve --from-export``); the trainer's dispatch (every step a
-CUDA graph, the feature bank, K steps a dispatch). Phases:
+CUDA graph, the feature bank, K steps a dispatch); end to end from pixels
+(the IRv2 backbone at full width inside the ``e2e_scst_multitask`` and
+``e2e_irv2`` steps, whose SCST rollouts run on K3, the CLI on frame files,
+the video encoder). Phases:
 
   1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
   2 K1 beam_core vs plain             seeded and raised-<eos> weights; W_out
@@ -47,6 +50,14 @@ CUDA graph, the feature bank, K steps a dispatch). Phases:
                                       width, 6,513-video bank: captured ==
                                       eager, step times, the CLI end state
                                       and a resume across K
+                                   15 end to end from pixels: preprocess
+                                      and the full-width backbone vs the
+                                      CPU, the composed step at B=8
+                                      (captured == eager, one encode and
+                                      2 K3 launches a step, times, memory),
+                                      two e2e steps, the CLI train /
+                                      resume / caption on frame files,
+                                      encode_video
   then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
@@ -83,7 +94,8 @@ from vidcap_tpu_torch.objectives.xe import shift_right
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
-                                          rollout, rollout_plain, step_plain)
+                                          resident_mode, rollout,
+                                          rollout_plain, step_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
 from vidcap_tpu_torch.models.decoding import Rollout
@@ -824,7 +836,8 @@ def loss_pieces(step, state, batch, sample, greedy, rows):
     pick = lambda r: Rollout(r.tokens[rows], r.logp[rows], r.mask[rows])
     s, gr = pick(sample), pick(greedy)
     rewards = step.rewards(sub, s, gr)
-    loss, m = step.loss(state.model, sub, s, gr, rewards)
+    loss, m = step.loss(state.model, sub, s, gr, rewards,
+                        feats=state.model.encode_features(sub["features"]))
     params = state.params
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
@@ -924,8 +937,9 @@ def phase_scst(row_floor: float):
         ev[1].record()
         rewards = step.rewards(b, s, gr)
         ev[2].record()
-        state, mi = apply_loss(state, *step.loss(state.model, b, s, gr,
-                                                 rewards))
+        state, mi = apply_loss(state, *step.loss(
+            state.model, b, s, gr, rewards,
+            feats=state.model.encode_features(b["features"])))
         ev[3].record()
         torch.cuda.synchronize()
         if i:
@@ -1087,7 +1101,7 @@ def offline_annotations(g):
     return {"videos": videos, "sentences": sentences}
 
 
-def run_port(args, cwd: str, what: str):
+def run_port(args, cwd: str, what: str, phase: int = 11):
     """``python -m vidcap_tpu_torch <args>`` in ``cwd``: (completed process,
     wall seconds); fails the phase on a nonzero exit."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -1097,7 +1111,8 @@ def run_port(args, cwd: str, what: str):
                        cwd=cwd, env=env, capture_output=True, text=True,
                        timeout=600)
     if r.returncode != 0:
-        fail(f"phase 11 {what} exited {r.returncode}: {r.stderr[-3000:]}")
+        fail(f"phase {phase} {what} exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
     return r, time.perf_counter() - t0
 
 
@@ -2087,6 +2102,404 @@ def phase_dispatch():
     return out
 
 
+# Phase 15: end to end from pixels at full width: IRv2 at width 1.0, depth
+# (10, 20, 10), S=299, T=26 frames, D=1536; e2e_scst_multitask's B=8
+# (208 frames a step), vocab 12,000 (Vp=12,032), bf16.
+S_PIX, PIX_B, PIX_VIDEOS = 299, 8, 64
+PIX_STEPS = 2        # steps a run in (c): eager twice, then captured
+PREP_TOL = 1e-5      # (a): the resize's f32 sums on the card vs the CPU
+BB_F32_TOL = 1e-4    # (b): f32 (TF32 off), card vs CPU, relative L2
+# (b): bf16 on the card vs f32 on the CPU, relative L2. The port's bf16 path
+# on the CPU (the same rounding points, f32 sums) reads 0.0051 against its
+# f32 path at full width on 149² frames with the seeded weights, 0.0043
+# with pixel_front_end's batch-norm draws; cuDNN rounds at the same points
+# and sums in another order, so 4x that.
+BB_BF16_TOL = 0.02
+
+
+def pixel_corpus(cfg, n: int, g) -> CaptionDataset:
+    """n videos of uniform pixels in [-1, 1] (T × 299 × 299 × 3 f32), 5
+    captions each of 5-29 words from a 3,000-word pool of the 12,000-word
+    vocab."""
+    vocab = vocab_of(VOCAB_G)
+    pool = g.integers(4, VOCAB_G, 3000)
+    ids = [f"video{i}" for i in range(n)]
+    caps = {v: [" ".join(vocab.id_to_word[int(t)] for t in g.choice(
+        pool, int(g.integers(5, 30)))) for _ in range(5)] for v in ids}
+    x = g.random((n, T, S_PIX, S_PIX, 3), dtype=np.float32)
+    x *= 2.0
+    x -= 1.0
+    return CaptionDataset(x, ids, caps, cfg.data, vocab=vocab)
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def pixel_front_end(g):
+    """(a) preprocess_frames on the card against the CPU; (b) the
+    full-width backbone on 4 frames: card f32 (TF32 off) and card bf16
+    against the port's CPU f32. Returns (the readings, the seeded f32
+    backbone's state dict)."""
+    from vidcap_tpu_torch.data.frames import preprocess_frames
+    from vidcap_tpu_torch.models.backbone import (InceptionResNetV2,
+                                                  init_backbone)
+    u8 = torch.as_tensor(g.integers(0, 256, (T, 240, 320, 3),
+                                    dtype=np.uint8))
+    cpu = preprocess_frames(u8, S_PIX)
+    card = preprocess_frames(u8.cuda(), S_PIX)
+    prep_err = float((card.cpu() - cpu).abs().max())
+    prep_ms = time_ms(lambda: preprocess_frames(u8.cuda(), S_PIX), 5, 3)
+    ref = InceptionResNetV2(compute_dtype=torch.float32)
+    init_backbone(ref, np.random.default_rng(15))
+    # init sets every batch-norm scale to 1 and offset to 0, under which a
+    # ConvBN that mixed them up would pass: draw them as converted weights
+    # have them, in parameter order from a numpy seed
+    gbn = np.random.default_rng(16)
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            if name.endswith("bn_scale"):
+                p.copy_(torch.as_tensor(gbn.uniform(0.5, 1.5, p.shape)))
+            elif name.endswith("bn_offset"):
+                p.copy_(torch.as_tensor(gbn.normal(0.0, 0.1, p.shape)))
+    x = cpu[:4]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = ref(x)
+    cpu_s = time.perf_counter() - t0
+    sd = ref.state_dict()
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        net = InceptionResNetV2(compute_dtype=dtype).cuda()
+        net.load_state_dict(sd)
+        with torch.no_grad():
+            out[name] = rel_l2(net(x.cuda()), want)
+        del net
+    res = dict(preprocess_max_abs_err=prep_err,
+               preprocess_ms_26_frames=prep_ms,
+               backbone_rel_l2_card_f32_vs_cpu_f32=out["f32"],
+               backbone_rel_l2_card_bf16_vs_cpu_f32=out["bf16"],
+               cpu_f32_seconds_4_frames=cpu_s,
+               feature_rms=float(want.pow(2).mean().sqrt()))
+    if prep_err > PREP_TOL or out["f32"] > BB_F32_TOL \
+            or out["bf16"] > BB_BF16_TOL:
+        fail("phase 15 (a)/(b): " + json.dumps(res))
+    return res, sd
+
+
+def pixel_setup(cfg, init, tables, stage: str):
+    """A state on the card from ``init`` (the full model's state dict) and
+    the stage's step body."""
+    c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                           stage=stage))
+    model = create_model(c, VOCAB_G).cuda()
+    model.load_state_dict(init)
+    state = create_train_state(c, model)
+    body = (make_xe_step_body(c) if stage in ("xe", "e2e")
+            else make_scst_step_body(c, tables=tables))
+    return state, body
+
+
+def pixel_steps(cfg, init, tables, batches, seeds, captured: bool,
+                hook_calls: list):
+    """PIX_STEPS composed steps from ``init``: (per-step metrics and the
+    state after, flattened; the state; the step function)."""
+    state, body = pixel_setup(cfg, init, tables, "scst")
+    state.model.backbone.register_forward_hook(
+        lambda *a: hook_calls.append(1))
+    fn = make_step(body, "cuda") if captured else body
+    rec = {}
+    for j, b in enumerate(batches):
+        d = dict(b, seed=seeds[j])
+        if not captured:
+            d = {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
+        state, m = fn(state, d)
+        rec.update({f"step {j + 1} {k}": v.clone() for k, v in m.items()})
+    torch.cuda.synchronize()
+    return {**rec, **state_of(state)}, state, fn
+
+
+def pixel_rollouts(cfg, init, tables, batch, seed: int):
+    """(c) K3 at the composed step's own shapes, against its plain version:
+    the step's encode of one B=8 pixel batch (``encode_features`` of the
+    step's state, as the step body takes it), the decoder state from it
+    (keys/values bf16[8, 26, 512]), then the greedy rollout and the sampled
+    one at the preset's temperature, in the step's W_out mode: each run
+    twice (identical) and replayed through the plain step along the
+    kernel's tokens (check_rollout at K3_LOGIT_TOL / temperature), and the
+    share of rows identical to the plain rollout read. These launches
+    compare the kernel with its plain version and are not counted."""
+    state, _ = pixel_setup(cfg, init, tables, "scst")
+    model, d = state.model, cfg.decode
+    with torch.no_grad():
+        feats = model.encode_features(torch.as_tensor(batch["features"],
+                                                      device="cuda"))
+        st = model.init_state(feats)
+    w = RolloutWeights.from_model(model)
+    resident = resident_mode(w, feats.shape[1], feats.device)
+    args = (st.keys, st.values, st.frame_mask, st.h[0].contiguous(),
+            st.c[0].contiguous())
+    problems = []
+    out = dict(keys=[list(st.keys.shape), str(st.keys.dtype)],
+               values=[list(st.values.shape), str(st.values.dtype)],
+               resident_wout=resident, seed=seed)
+    for name, sample, temp in (("greedy", False, 1.0),
+                               ("sample", True, d.temperature)):
+        run = (d.max_len, sample, seed, temp)
+        tk, lk, mk = rollout(w, *args, *run, resident_wout=resident)
+        tk2, lk2, _ = rollout(w, *args, *run, resident_wout=resident)
+        torch.cuda.synchronize()
+        if not (torch.equal(tk, tk2) and torch.equal(lk, lk2)):
+            problems.append(f"{name}: two runs differ")
+        pick, margin, logp_ref = replay_plain(w, *args, tk, sample, seed,
+                                              temp)
+        p, err, clear = check_rollout(tk, lk, mk, pick, margin, logp_ref,
+                                      K3_LOGIT_TOL / temp)
+        problems += [f"{name}: {x}" for x in p]
+        tp, _, _ = rollout_plain(w, *args, *run)
+        out[name] = dict(temperature=temp, max_abs_logp_err=err,
+                         tolerance=K3_LOGIT_TOL / temp,
+                         clear_step_share=clear,
+                         rows_identical_to_plain=(tk == tp).all(1).float()
+                         .mean().item(),
+                         rows_ended=(tk == EOS).any(1).float().mean().item())
+    del state, feats, st, args, w
+    return problems, out
+
+
+def phase_pixels(bb_sd):
+    """(c) the composed e2e_scst_multitask step at full width, B=8: K3 on
+    the step's own keys/values against its plain version (pixel_rollouts);
+    eager twice and captured from one init and seeds (captured == eager where the
+    two eager runs are equal, else within 2x their max |diff|), one backbone
+    forward a step (a hook on the backbone module, outside the blocks remat
+    recomputes), 2 K3 launches a captured step, finite rewards and pieces;
+    ms a step eager and captured, busy share, peak memory, frames/s, the
+    top kernels. (d) two e2e_irv2 steps (stage e2e, captured): ms a step,
+    the backbone group's rate 0.1x the rest."""
+    cfg = get_preset("e2e_scst_multitask")
+    g = np.random.default_rng(151)
+    t0 = time.perf_counter()
+    ds = pixel_corpus(cfg, PIX_VIDEOS, g)
+    corpus_s = time.perf_counter() - t0
+    tables = tables_from_dataset(ds).to("cuda")
+    model = init_params(create_model(cfg, VOCAB_G), cfg.train.seed)
+    model.backbone.load_state_dict(bb_sd)
+    init = model.cuda().state_dict()
+    del model
+    it = DeterministicBatcher(ds, PIX_B, seed=0)
+    batches = [batch_to_device_dict(next(it)) for _ in range(PIX_STEPS)]
+    seeds = torch.randint(0, 2**31 - 1, (PIX_STEPS, 1),
+                          generator=torch.Generator().manual_seed(15))
+    problems, k3_b8 = pixel_rollouts(cfg, init, tables, batches[0],
+                                     int(seeds[0, 0]))
+    hooks = {}
+    runs = []
+    for name in ("eager 1", "eager 2"):
+        calls = []
+        runs.append(pixel_steps(cfg, init, tables, batches, seeds, False,
+                                calls)[0])
+        hooks[name] = len(calls)
+    floor = parting(*runs)
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    rec, state, fn = pixel_steps(cfg, init, tables, batches, seeds, True,
+                                 calls)
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    hooks["captured (warm-up + capture; replays run no Python)"] = len(calls)
+    capt = parting(runs[0], rec)
+    metrics = {k: rec[f"step {j + 1} {k}"].item() for j in range(PIX_STEPS)
+               for k in ("reward_sample", "reward_greedy", "pg_loss",
+                         "xe_anchor", "attr_loss", "loss")}
+    if capt[0] > 2 * floor[0]:
+        problems.append(f"captured vs eager {capt} (eager vs eager {floor})")
+    if hooks["eager 1"] != PIX_STEPS or hooks["eager 2"] != PIX_STEPS or \
+            len(calls) != 2:
+        problems.append(f"backbone forwards {hooks}")
+    if launches["rollout"] != 2 * PIX_STEPS:
+        problems.append(f"K3 launches {launches} for {PIX_STEPS} steps")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        problems.append(f"metrics {metrics}")
+    # the times: the captured dispatch (fresh batches), then the eager body
+    it2 = DeterministicBatcher(ds, PIX_B, seed=1)
+    nxt = lambda: batch_to_device_dict(next(it2))
+
+    def walls(call, n):
+        out = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t1) * 1e3)
+        return out
+    cap_call = lambda: fn(state, {**nxt(), "seed": draw_seeds(state, 1)})
+    cap_walls = walls(cap_call, 4)
+    cap_busy, cap_kernels, cap_k3, _, cap_top = profiled(cap_call, 1)
+    estate, ebody = pixel_setup(cfg, init, tables, "scst")
+    eag_call = lambda: ebody(estate, {
+        **{k: torch.as_tensor(v, device="cuda") for k, v in nxt().items()},
+        "seed": draw_seeds(estate, 1)})
+    eag_walls = walls(eag_call, 3)
+    eag_busy, eag_kernels, _, _, eag_top = profiled(eag_call, 1)
+    del estate, ebody, state, fn
+    cap_ms, eag_ms = float(np.median(cap_walls)), float(np.median(eag_walls))
+    out = dict(corpus_s=corpus_s, k3_at_step_shapes=k3_b8,
+               captured_vs_eager=capt[0],
+               eager_vs_eager=floor[0], captured_parts_at=capt[1],
+               backbone_forwards=hooks, launches=launches,
+               peak_memory_bytes=peak, metrics=metrics,
+               captured_ms_a_step=cap_ms, captured_walls_ms=cap_walls,
+               captured_busy_ms=cap_busy, captured_busy_share=cap_busy
+               / cap_ms, captured_device_kernels=cap_kernels,
+               captured_k3_ms=cap_k3, captured_top_device_ms=cap_top,
+               eager_ms_a_step=eag_ms, eager_walls_ms=eag_walls,
+               eager_busy_ms=eag_busy, eager_busy_share=eag_busy / eag_ms,
+               eager_device_kernels=eag_kernels, eager_top_device_ms=eag_top,
+               frames_per_s_captured=PIX_B * T * 1e3 / cap_ms)
+    # (d): e2e_irv2, stage e2e (the XE body through the backbone)
+    ecfg = get_preset("e2e_irv2")
+    emodel = init_params(create_model(ecfg, VOCAB_G), ecfg.train.seed)
+    emodel.backbone.load_state_dict(bb_sd)
+    estate, ebody = pixel_setup(ecfg, emodel.cuda().state_dict(), None, "e2e")
+    del emodel
+    table = estate.opt_state["table"]
+    lr_ratio = float(table[3, 0] / table[0, 0])
+    efn = make_step(ebody, "cuda")
+    e2e_walls = walls(lambda: efn(estate, nxt()), 3)
+    out["e2e"] = dict(ms_a_step=float(np.median(e2e_walls[1:])),
+                      walls_ms=e2e_walls,
+                      backbone_lr_over_rest=lr_ratio,
+                      lr_rest=float(table[0, 0]))
+    del estate, ebody, efn
+    if abs(lr_ratio - 0.1) > 1e-6:
+        problems.append(f"backbone rate {lr_ratio} of the rest's")
+    if problems:
+        fail("phase 15 (c)/(d): " + "; ".join(problems) + " | "
+             + json.dumps(out))
+    return ds, out
+
+
+def pixel_cli(ds, tmp: str):
+    """(e) the CLI on the corpus written as uint8 msrvtt frame files:
+    ``train --preset e2e_scst_multitask --stages xe,scst --steps 2,2``,
+    ``--resume --steps 2,3`` (one more SCST step), then ``caption
+    --method greedy`` of a 16-video test split."""
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    u8 = np.clip(np.round((ds.features + 1.0) * 127.5), 0, 255).astype(
+        np.uint8)
+    np.save(os.path.join(data, "msrvtt_train_frames.npy"), u8)
+    np.save(os.path.join(data, "msrvtt_test_frames.npy"), u8[:16])
+    for split, ids in (("train", ds.video_ids), ("test", ds.video_ids[:16])):
+        with open(os.path.join(data, f"msrvtt_{split}_ids.json"), "w") as f:
+            json.dump(ids, f)
+    with open(os.path.join(data, "msrvtt_captions.json"), "w") as f:
+        json.dump(ds.video_captions, f)
+    ds.vocab.save(os.path.join(data, "msrvtt_vocab.json"))
+    del u8
+    common = ["--preset", "e2e_scst_multitask", "--set",
+              f"data.data_dir={data}"]
+    train = ["train", *common, "--stages", "xe,scst", "--eval-every", "0",
+             "--log-every", "1", "--log-file", "log.jsonl"]
+    out = {}
+    r, out["train_wall_s"] = run_port(train + ["--steps", "2,2"], tmp,
+                                      "train", 15)
+    r2, out["resume_wall_s"] = run_port(train + ["--steps", "2,3",
+                                                 "--resume"], tmp,
+                                        "train --resume", 15)
+    r3, out["caption_wall_s"] = run_port(
+        ["caption", *common, "--method", "greedy", "--out", "caps.json"],
+        tmp, "caption", 15)
+    lines = [(st, int(n), mode or None, json.loads(lc))
+             for st, n, _, mode, lc in STAGE_LINE.findall(r.stderr)]
+    lines2 = [(st, int(n), mode or None, json.loads(lc))
+              for st, n, _, mode, lc in STAGE_LINE.findall(r2.stderr)]
+    with open(os.path.join(tmp, "log.jsonl")) as f:
+        rows = [json.loads(x) for x in f]
+    with open(os.path.join(tmp, "caps.json")) as f:
+        caps = json.load(f)
+    method, decodes, steps, cap_launches, _ = launch_line(r3.stderr,
+                                                          "phase 15 caption")
+    out.update(stage_lines=lines, resume_stage_lines=lines2,
+               rows=[{k: v for k, v in row.items() if k in (
+                   "step", "xe_loss", "pg_loss", "reward_sample", "loss",
+                   "steps_per_sec")} for row in rows],
+               captions=len(caps), caption_launches=cap_launches,
+               caption_decodes=decodes)
+    zero = {"beam_core": 0, "topk_project": 0}
+    problems = []
+    if [(a, b) for a, b, _, _ in lines] != [("xe", 2), ("scst", 2)] or \
+            lines[1][3] != {**zero, "rollout": 4}:
+        problems.append(f"stage lines {lines}")
+    if [(a, b) for a, b, _, _ in lines2] != [("xe", 0), ("scst", 1)] or \
+            lines2[1][3] != {**zero, "rollout": 2}:
+        problems.append(f"resume stage lines {lines2}")
+    if [row["step"] for row in rows] != [1, 2, 3, 4, 5]:
+        problems.append(f"log rows {[row['step'] for row in rows]}")
+    if len(caps) != 16 or sorted(caps) != sorted(ds.video_ids[:16]) or \
+            cap_launches != {**zero, "rollout": decodes} or decodes < 1:
+        problems.append(f"{len(caps)} captions, launches {cap_launches}")
+    if problems:
+        fail("phase 15 (e): " + "; ".join(problems) + " | "
+             + json.dumps(out))
+    return out
+
+
+def pixel_videos(bb_sd, g):
+    """(f) ``encode_video`` (the device half of ``extract`` and of the
+    served video path) on 8 uint8 videos of 26 × 240 × 320: videos/s, and
+    each video's rows against the card's f32 backbone ((b) holds that one
+    to the CPU's f32) within (b)'s bf16 bound."""
+    from vidcap_tpu_torch.data.frames import make_video_encoder
+    from vidcap_tpu_torch.models.backbone import InceptionResNetV2
+    cfg = get_preset("e2e_irv2")
+    nets = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        nets[name] = InceptionResNetV2(compute_dtype=dtype)
+        nets[name].load_state_dict(bb_sd)
+    enc = make_video_encoder(cfg, "cuda", nets["bf16"])
+    ref = make_video_encoder(cfg, "cuda", nets["f32"])
+    videos = [g.integers(0, 256, (T, 240, 320, 3), dtype=np.uint8)
+              for _ in range(8)]
+    enc(videos[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [enc(v) for v in videos]
+    wall = time.perf_counter() - t0
+    errs = [rel_l2(torch.as_tensor(r), torch.as_tensor(ref(v)))
+            for r, v in zip(rows, videos)]
+    out = dict(videos_per_s=len(videos) / wall, wall_s=wall,
+               rows_shape=list(rows[0].shape), rel_l2_bf16_vs_f32=errs,
+               bound=BB_BF16_TOL)
+    if max(errs) > BB_BF16_TOL or rows[0].shape != (T, D):
+        fail("phase 15 (f): " + json.dumps(out))
+    return out
+
+
+def phase_e2e_pixels():
+    """Phase 15: (a)-(b) the pixel front end, (c)-(d) the e2e train steps,
+    (e) the CLI, (f) the video encoder."""
+    t0 = time.perf_counter()
+    g = np.random.default_rng(150)
+    front, bb_sd = pixel_front_end(g)
+    t1 = time.perf_counter()
+    ds, steps = phase_pixels(bb_sd)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = pixel_cli(ds, tmp)
+    del ds
+    t3 = time.perf_counter()
+    videos = pixel_videos(bb_sd, g)
+    out = dict(front_end=front, steps=steps, cli=cli, videos=videos,
+               seconds=dict(ab=t1 - t0, cd=t2 - t1, e=t3 - t2,
+                            f=time.perf_counter() - t3,
+                            total=time.perf_counter() - t0))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -2164,6 +2577,16 @@ def main() -> int:
           f", {BANK_VIDEOS}-video bank, on {card}: " + json.dumps(
               {**dispatch, "tolerance": "captured == eager where two eager "
                "runs are equal, else 2x their max |diff|"}), flush=True)
+    pixels = phase_e2e_pixels()
+    print(f"phase 15 end to end from pixels, e2e_scst_multitask B={PIX_B} "
+          f"(IRv2 width 1.0, {PIX_B * T} frames of {S_PIX}^2 a step), "
+          f"Vp={VG}, on {card}: " + json.dumps(
+              {**pixels, "tolerance": {
+                  "preprocess_max_abs": PREP_TOL,
+                  "backbone_f32_rel_l2": BB_F32_TOL,
+                  "backbone_bf16_rel_l2": BB_BF16_TOL,
+                  "captured_vs_eager": "equal where two eager runs are, "
+                  "else 2x their max |diff|"}}), flush=True)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]
@@ -2185,7 +2608,12 @@ def main() -> int:
                       + sum(r["launches"]["rollout"] for r in served_k3)
                       + dispatch["launches_b_c"]["rollout"]
                       + sum(lc["rollout"] for *_, lc
-                            in dispatch["cli"]["stage_lines"]))
+                            in dispatch["cli"]["stage_lines"])
+                      + pixels["steps"]["launches"]["rollout"]
+                      + sum(lc["rollout"] for *_, lc
+                            in pixels["cli"]["stage_lines"]
+                            + pixels["cli"]["resume_stage_lines"])
+                      + pixels["cli"]["caption_launches"]["rollout"])
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]
                                        + offline["train_launches"][k["name"]]
                                        + offline["caption_launches"][k["name"]]

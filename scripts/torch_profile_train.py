@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Where one train step of the PyTorch port spends its time, XE and SCST.
+"""Where one train step of the PyTorch port spends its time, XE and SCST,
+and the end-to-end steps through the IRv2 backbone.
 
     python3 scripts/torch_profile_train.py [--stages xe,scst] [--steps 5]
         [--preset scst_cider] [--feature-bank] [--steps-per-dispatch K]
         [--eager-body]
+    python3 scripts/torch_profile_train.py --preset e2e_scst_multitask \
+        --stages scst --steps 3        # the composed step on pixels
+    python3 scripts/torch_profile_train.py --preset e2e_irv2 --stages e2e
 
 Runs on one NVIDIA GPU (no CPU fallback). Builds the Hopper kernels, makes
 the seeded model of the preset (``scst_cider``: E = H = A = 512, D = 1536,
 T = 26, vocab 12,000 padded to 12,032, B = 32, max_len 30, the attribute
 head at 0.2, ``scst_xe_mix`` 0.1; ``msrvtt_attn_beam5``: vocab 16,000,
-B = 64, no attribute head) and a synthetic corpus over the preset's vocab
-(64 videos of N(0,1) features, 5 captions each of 5-29 words from a
-300-word pool). For each stage it dispatches the step as the train loop
+B = 64, no attribute head; the e2e presets: IRv2 at full width, B = 8,
+26 frames of 299 × 299 pixels) and a synthetic corpus over the preset's
+vocab (64 videos of N(0,1) features, or with the backbone 16 videos of
+uniform pixels in [-1, 1]; 5 captions each of 5-29 words from a 300-word
+pool). For each stage it dispatches the step as the train loop
 does (train/steps.py: one CUDA graph a dispatch, captured at the first;
 ``--feature-bank`` gathers the features from the device bank,
 ``--steps-per-dispatch K`` with it runs K steps a dispatch), or with
@@ -24,7 +30,9 @@ steps/s, the device-busy time of the profiled dispatch and its ratio to the
 median time (the busy share; the profiler slows the host, so the profiled
 dispatch's own wall time is printed apart), the device kernels and the
 host's top-level profiler events, K3's device time and share (SCST), the
-launch counts, and the card (``nvidia-smi`` name and power limit).
+device time by kernel family (convolution, elementwise, K3, GEMM, other),
+the peak device memory of the timed steps, the launch counts, and the card
+(``nvidia-smi`` name and power limit).
 """
 from __future__ import annotations
 
@@ -64,13 +72,46 @@ def corpus(cfg) -> CaptionDataset:
     vocab = cfg.data.vocab_size
     words = SPECIALS + [f"w{i}" for i in range(vocab - len(SPECIALS))]
     pool = g.integers(4, vocab, 300)
-    ids = [f"video{i}" for i in range(64)]
+    n = 16 if cfg.model.use_backbone else 64
+    ids = [f"video{i}" for i in range(n)]
     caps = {v: [" ".join(words[int(t)] for t in g.choice(
         pool, int(g.integers(5, 30)))) for _ in range(5)] for v in ids}
-    feats = g.normal(size=(64, cfg.data.num_frames, cfg.data.feature_dim))
-    return CaptionDataset(feats.astype(np.float32), ids, caps, cfg.data,
+    if cfg.model.use_backbone:
+        S = cfg.data.frame_size
+        feats = g.random((n, cfg.data.num_frames, S, S, 3),
+                         dtype=np.float32) * 2 - 1
+    else:
+        feats = g.normal(size=(n, cfg.data.num_frames,
+                               cfg.data.feature_dim)).astype(np.float32)
+    return CaptionDataset(feats, ids, caps, cfg.data,
                           vocab=Vocab({w: i for i, w in enumerate(words)},
                                       words))
+
+
+# kernel-name fragments of each family (cuDNN's convolution kernels,
+# cuBLAS's and CUTLASS's GEMMs, the host-device copies, PyTorch's
+# elementwise, reduction, concatenation and pooling kernels)
+FAMILIES = (("k3", ("rollout_kernel",)),
+            ("conv", ("conv", "cudnn", "implicit_gemm", "fprop", "dgrad",
+                      "wgrad")),
+            ("gemm", ("gemm", "cublas", "cutlass")),
+            ("copy", ("Memcpy", "Memset")),
+            ("elementwise", ("elementwise", "reduce_kernel",
+                             "CatArrayBatchedCopy", "copy_", "max_pool",
+                             "avg_pool", "index")))
+
+
+def by_family(by_kernel) -> dict:
+    """Device ms a step by kernel family (the first family whose fragment
+    the name holds), the rest as "other"."""
+    out = {name: 0.0 for name, _ in FAMILIES}
+    out["other"] = 0.0
+    for key, (ms, _) in by_kernel.items():
+        low = key.lower()
+        fam = next((name for name, frags in FAMILIES
+                    if any(f.lower() in low for f in frags)), "other")
+        out[fam] += ms
+    return out
 
 
 def run_stage(stage: str, args, ds, base) -> dict:
@@ -81,7 +122,7 @@ def run_stage(stage: str, args, ds, base) -> dict:
     state = create_train_state(cfg, model)
     it = DeterministicBatcher(ds, cfg.train.batch_size, seed=0)
     body = (make_scst_step_body(cfg, ds) if stage == "scst"
-            else make_xe_step_body(cfg))
+            else make_xe_step_body(cfg))     # xe, e2e
     bank, k = args.feature_bank, args.steps_per_dispatch
     k = k if bank and not args.eager_body else 1
     if args.eager_body:
@@ -101,6 +142,7 @@ def run_stage(stage: str, args, ds, base) -> dict:
             return fn(state, ds_[0] if k == 1 else {
                 key: np.stack([d[key] for d in ds_]) for key in ds_[0]})
 
+    torch.cuda.reset_peak_memory_stats()    # the graph's pool counts too
     one()                                   # warm-up and capture
     torch.cuda.synchronize()
     _build.reset_counts()
@@ -111,6 +153,7 @@ def run_stage(stage: str, args, ds, base) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / k)
     launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -141,7 +184,8 @@ def run_stage(stage: str, args, ds, base) -> dict:
            # event (operators, autograd functions, runtime calls), a step
            "host_ops": sum(1 for e in prof.events() if e.cpu_parent is None
                            and e.device_type == DeviceType.CPU) / k,
-           "launches": launches,
+           "launches": launches, "peak_memory_bytes": peak,
+           "device_ms_by_family": by_family(by_kernel),
            "top_device_ms": dict(sorted(by_kernel.items(),
                                         key=lambda kv: -kv[1][0])[:10])}
     if stage == "scst":

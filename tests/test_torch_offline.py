@@ -285,16 +285,40 @@ def test_caption_inputs_errors_are_jax_s(tmp_path, make, message):
     assert str(port.value) == str(ref.value)
 
 
-def test_caption_inputs_video_and_nbest_refused(tmp_path, capsys):
-    """A video file names ROADMAP item 11; --nbest needs beam."""
-    (tmp_path / "clip.mp4").write_bytes(b"\0")
-    cfg = get_preset("synthetic_tiny")
+def test_caption_inputs_video_and_nbest_refused(tmp_path, monkeypatch):
+    """A video file in ``--inputs`` goes through cv2 and the IRv2 backbone:
+    a corrupt clip fails with the JAX loader's own error, and a real clip
+    (with cv2) captions, at the tiny backbone's width; --nbest needs
+    beam."""
+    from vidcap_tpu.serving import _FeatureLoader as JaxLoader
+    from vidcap_tpu_torch.models import backbone as bb
+    orig = bb.InceptionResNetV2
+    monkeypatch.setattr(bb, "InceptionResNetV2", lambda **kw: orig(
+        width_mult=0.0625, depth=(1, 1, 1), **kw))
+    clip = tmp_path / "clip.mp4"
+    clip.write_bytes(b"\0")
+    over = ["data.feature_dim=96", "data.frame_size=75"]
+    cfg = apply_overrides(get_preset("synthetic_tiny"), over)
     save_weights(create_model(cfg, CaptionDataset.synthetic(
         cfg.data).vocab.size), str(tmp_path / "w.npz"))
-    rc = cli_main(["caption", "--preset", "synthetic_tiny", "--device",
-                   "cpu", "--weights", str(tmp_path / "w.npz"), "--inputs",
-                   str(tmp_path / "clip.mp4")])
-    assert rc == 2 and "Queue 1 item 11" in capsys.readouterr().err
+    args = ["caption", "--preset", "synthetic_tiny", "--device", "cpu",
+            "--weights", str(tmp_path / "w.npz"), "--set", over[0], "--set",
+            over[1], "--inputs"]
+    with pytest.raises(RuntimeError) as want:
+        JaxLoader(cfg)(str(clip))
+    with pytest.raises(RuntimeError) as got:
+        cli_main(args + [str(clip)])
+    assert str(got.value) == str(want.value)
+    cv2 = pytest.importorskip("cv2")
+    real = str(tmp_path / "real.avi")
+    w = cv2.VideoWriter(real, cv2.VideoWriter_fourcc(*"MJPG"), 10, (64, 48))
+    for i in range(6):
+        w.write(np.full((48, 64, 3), 40 * i, np.uint8))
+    w.release()
+    out = str(tmp_path / "caps.json")
+    assert cli_main(args + [real, "--out", out]) == 0
+    caps = json.loads(open(out).read())
+    assert list(caps) == ["real"] and isinstance(caps["real"][0], str)
     with pytest.raises(SystemExit, match="requires --method beam"):
         cli_main(["caption", "--preset", "synthetic_tiny", "--method",
                   "greedy", "--nbest", "2", "--inputs", str(tmp_path)])
@@ -610,8 +634,6 @@ def test_cli_offline_path_through_subprocesses(tmp_path):
 
 @pytest.mark.parametrize("argv,says", [
     (["info"], "ROADMAP Queue 1 item 14"),
-    (["extract"], "ROADMAP Queue 1 item 11"),
-    (["convert"], "ROADMAP Queue 1 item 11"),
     (["serve", "--sharded"], "ROADMAP Queue 1 item 12"),
     (["caption", "--from-export", "JAX_ARTIFACT"],
      "artifact of the JAX package")])

@@ -652,9 +652,10 @@ def test_http_path_mode_disabled_by_default(cfg, cap):
 
 
 def test_http_video_path_answers_500_naming_the_item(tmp_path, cfg, cap):
-    """A video in path mode: the loader refuses it (the backbone is ROADMAP
-    Queue 1 item 11) and the reference's handler order answers a JSON 500,
-    never a caption; the stdin loop skips the same path."""
+    """A video in path mode that cv2 cannot decode: the loader raises the
+    reference's RuntimeError and the reference's handler order answers a
+    JSON 500 with it, never a caption; the stdin loop skips the same
+    path."""
     (tmp_path / "clip.mp4").write_bytes(b"\0")
     server, svc = make_http_server(cfg, cap, port=0, batch_size=2,
                                    method="greedy", max_wait_ms=10.0,
@@ -664,8 +665,9 @@ def test_http_video_path_answers_500_naming_the_item(tmp_path, cfg, cap):
     try:
         status, body = post_path(port, "clip.mp4")
         assert status == 500 and "caption" not in body
-        assert "NotImplementedError" in body["error"]
-        assert "ROADMAP Queue 1 item 11" in body["error"]
+        assert body["error"].startswith("RuntimeError: ")
+        assert ("no frames decoded" in body["error"]
+                or "requires OpenCV" in body["error"])
         assert svc.stats()["served"] == 0
     finally:
         server.shutdown()

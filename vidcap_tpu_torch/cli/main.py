@@ -25,6 +25,9 @@
       [--checkpoint-dir DIR | --weights W.npz] [--batch 32 | --batch 0]
       [--method greedy|beam] [--beam K] [--platforms cuda,cpu]
       [--device cpu]
+  python -m vidcap_tpu_torch extract --preset e2e_irv2 --videos DIR
+      [--split train] [--format npy|h5|tfrecord] [--device cpu]
+  python -m vidcap_tpu_torch convert --tf-checkpoint CKPT --out W.npz
 
 ``prepare`` turns MSVD/MSR-VTT annotation files into the layout that
 ``CaptionDataset.from_files`` reads. ``train`` runs the preset's stage, or
@@ -40,10 +43,17 @@ sample``. Both read the newest checkpoint of ``--checkpoint-dir`` (default
 the preset's ``train.checkpoint_dir``) or a ``--weights`` file; ``caption
 --from-export DIR`` decodes with an ``export`` artifact instead (export.py).
 ``eval`` scores a captions json on the host. ``serve`` captions the feature
-paths of stdin, or of HTTP requests with ``--http`` (serving.py), and
-``export`` writes an artifact of weights, vocab and meta. Train, decode and
-serve run on the card unless ``--device cpu`` is given. The other commands
-of the JAX CLI are not ported yet and say which ROADMAP item they wait for.
+or video paths of stdin, or of HTTP requests with ``--http`` (serving.py),
+and ``export`` writes an artifact of weights, vocab and meta. ``extract``
+runs every video of a directory through cv2 and the IRv2 backbone and writes
+the split's feature file; ``convert`` turns a TF-slim IRv2 checkpoint into
+the backbone ``.npz`` that ``load_backbone_params`` reads
+(``$VIDCAP_IRV2_WEIGHTS``). The end-to-end presets (``model.use_backbone``:
+``e2e_irv2``, ``e2e_scst_multitask``) train and decode on frame pixels
+(``{dataset}_{split}_frames.*``, else the synthetic pixel fixture), and
+``caption --inputs`` takes video files. Train, decode, serve and extract run
+on the card unless ``--device cpu`` is given. The other commands of the JAX
+CLI are not ported yet and say which ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -61,8 +71,6 @@ from vidcap_tpu_torch.ops._build import launch_counts
 _NOT_PORTED = {
     "--sharded": "Queue 1 item 12 (multi-GPU)",
     "info": "Queue 1 item 14 (the preflight census)",
-    "extract": "Queue 1 item 11 (feature extraction from video)",
-    "convert": "Queue 1 item 11 (TF-slim IRv2 weights)",
 }
 
 
@@ -75,12 +83,17 @@ def _not_ported(what: str):
 
 def _load_dataset(cfg: Config, split: str):
     from vidcap_tpu_torch.data.loader import CaptionDataset
+    # the e2e presets (use_backbone) train on raw frames, so their synthetic
+    # fixture holds pixels [N, T, S, S, 3], not feature vectors
+    pixels = cfg.model.use_backbone
     if cfg.data.dataset == "synthetic":
-        return CaptionDataset.synthetic(cfg.data)
+        return CaptionDataset.synthetic(cfg.data, pixels=pixels)
+    load = (CaptionDataset.from_frame_files if pixels
+            else CaptionDataset.from_files)
     splits = [split] + (["val"] if split == "test" else [])
     for i, s in enumerate(splits):
         try:
-            ds = CaptionDataset.from_files(cfg.data, split=s)
+            ds = load(cfg.data, split=s)
             if i > 0:
                 print(f"[vidcap] no {split!r} split on disk — using {s!r}",
                       file=sys.stderr)
@@ -89,7 +102,7 @@ def _load_dataset(cfg: Config, split: str):
             err = e
     print(f"[vidcap] dataset assets not found ({err}); "
           f"falling back to the synthetic fixture", file=sys.stderr)
-    return CaptionDataset.synthetic(cfg.data)
+    return CaptionDataset.synthetic(cfg.data, pixels=pixels)
 
 
 def _captioner(args, cfg: Config, dataset):
@@ -209,8 +222,10 @@ def cmd_train(args) -> int:
     val_dataset = None
     if cfg.data.dataset != "synthetic":
         from vidcap_tpu_torch.data.loader import CaptionDataset
+        load = (CaptionDataset.from_frame_files if cfg.model.use_backbone
+                else CaptionDataset.from_files)
         try:
-            val_dataset = CaptionDataset.from_files(cfg.data, split="val")
+            val_dataset = load(cfg.data, split="val")
         except FileNotFoundError:
             pass   # periodic eval falls back to a train subset
     logger = MetricsLogger(path=args.log_file)
@@ -267,9 +282,10 @@ def _input_paths(items, from_export: bool = False) -> list:
 
 
 def _caption_inputs(args, cfg: Config, method: str, nbest: int) -> None:
-    """``caption --inputs FILE|DIR ...``: the given feature files in batches
-    of min(files, train.batch_size), zero-padded, with frame masks; with
-    ``--from-export`` in batches of the artifact's size (a polymorphic one:
+    """``caption --inputs FILE|DIR ...``: the given feature files (and
+    video files, through cv2 and the IRv2 backbone: serving.py's loader)
+    in batches of min(files, train.batch_size), zero-padded, with frame
+    masks; with ``--from-export`` in batches of the artifact's size (a polymorphic one:
     as without). Keys are basenames, or the full path where two files share
     one."""
     from collections import Counter
@@ -295,7 +311,7 @@ def _caption_inputs(args, cfg: Config, method: str, nbest: int) -> None:
             beam_width=args.beam or cfg.decode.beam_width,
             temperature=args.temperature, frame_mask=mask, nbest=nbest)
     vocab = cap.dataset.vocab
-    loader = _FeatureLoader(cfg)
+    loader = _FeatureLoader(cfg, cap.device)
     results = {}
     for i in range(0, len(paths), B):
         chunk = paths[i:i + B]
@@ -450,6 +466,24 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_extract(args) -> int:
+    from vidcap_tpu_torch.data.frames import extract_features_for_dir
+    cfg = apply_overrides(get_preset(args.preset), args.set)
+    extract_features_for_dir(cfg, args.videos, args.split, fmt=args.format,
+                             device=args.device)
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """The backbone's parameters do not depend on the preset, so it takes
+    ``--preset``/``--set`` only as every command does."""
+    from vidcap_tpu_torch.convert import convert_irv2_checkpoint_to_npz
+    out = convert_irv2_checkpoint_to_npz(args.tf_checkpoint, args.out)
+    print(f"[vidcap] wrote converted backbone weights → {out}",
+          file=sys.stderr)
+    return 0
+
+
 def cmd_prepare(args) -> int:
     from vidcap_tpu_torch.data.prepare import prepare
     cfg = apply_overrides(get_preset(args.preset), args.set)
@@ -496,8 +530,9 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--nbest", type=int, default=1,
                    help="write the N best hypotheses per video (best first)")
     c.add_argument("--inputs", nargs="+", default=None, metavar="FILE|DIR",
-                   help="caption these [T, D] feature .npy files (or "
-                        "directories of them) instead of a split")
+                   help="caption these [T, D] feature .npy files or "
+                        "video files (or directories of them) instead of a "
+                        "split")
     c.add_argument("--from-export", default=None, metavar="DIR",
                    help="decode with an `export` artifact instead of a "
                         "checkpoint (with --inputs: .npy files only)")
@@ -606,16 +641,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default 4×batch)")
     sv.set_defaults(fn=cmd_serve)
 
-    for name in ("info", "extract", "convert"):
-        s = sub.add_parser(name, help=f"not ported yet ({_NOT_PORTED[name]})",
-                           add_help=False)
-        s.set_defaults(fn=lambda args, name=name: _not_ported(name))
+    x = sub.add_parser("extract", help="precompute CNN features for a "
+                                       "video directory")
+    preset(x)
+    x.add_argument("--videos", required=True)
+    x.add_argument("--split", default="train")
+    x.add_argument("--format", choices=["npy", "h5", "tfrecord"],
+                   default="npy", help="feature container format")
+    x.add_argument("--device", default=None, help="cuda (default) or cpu")
+    x.set_defaults(fn=cmd_extract)
+
+    cv = sub.add_parser("convert",
+                        help="TF-slim IRv2 checkpoint → backbone .npz "
+                             "(load via VIDCAP_IRV2_WEIGHTS)")
+    preset(cv)
+    cv.add_argument("--tf-checkpoint", required=True,
+                    help=".ckpt prefix or .npz of slim-named variables")
+    cv.add_argument("--out", required=True, help="output .npz path")
+    cv.set_defaults(fn=cmd_convert)
+
+    s = sub.add_parser("info", help=f"not ported yet ({_NOT_PORTED['info']})",
+                       add_help=False)
+    s.set_defaults(fn=lambda args: _not_ported("info"))
     return p
 
 
 def main(argv=None) -> int:
     args, rest = build_parser().parse_known_args(argv)
-    if rest and args.cmd not in ("info", "extract", "convert"):
+    if rest and args.cmd != "info":
         build_parser().parse_args(argv)   # reports the unknown arguments
     from vidcap_tpu_torch.inference import NoDeviceError
     try:

@@ -1,9 +1,10 @@
 """Caption dataset and per-video batching for the PyTorch package.
 
 Aligned numpy arrays of precomputed per-frame CNN features and tokenized,
-padded captions, with the vocab and the multitask attribute targets. Batches
-are fixed-shape numpy structs; the caller moves them to its device. Raw-frame
-files (end-to-end mode) are not ported yet (ROADMAP Queue 1 item 11).
+padded captions, with the vocab and the multitask attribute targets; in
+end-to-end mode the "features" are raw sampled frames f32[N, T, S, S, 3] in
+[-1, 1] instead. Batches are fixed-shape numpy structs; the caller moves them
+to its device.
 """
 from __future__ import annotations
 
@@ -105,13 +106,17 @@ class CaptionDataset:
     # ------------------------------------------------------------------ factories
 
     @classmethod
-    def synthetic(cls, cfg: DataConfig, num_videos: int = 64, seed: int = 0
-                  ) -> "CaptionDataset":
+    def synthetic(cls, cfg: DataConfig, num_videos: int = 64, seed: int = 0,
+                  pixels: bool = False) -> "CaptionDataset":
+        """pixels=True: the e2e fixture, whose ``features`` are raw frames
+        f32[N, T, S, S, 3] (S = cfg.frame_size) instead of feature vectors."""
         corpus = make_synthetic_corpus(
             num_videos=num_videos,
             num_frames=cfg.num_frames,
             feature_dim=cfg.feature_dim,
             seed=seed,
+            pixels=pixels,
+            frame_size=cfg.frame_size,
         )
         return cls(corpus["features"], corpus["video_ids"], corpus["captions"], cfg)
 
@@ -140,6 +145,25 @@ class CaptionDataset:
         vocab_path = os.path.join(d, f"{name}_vocab.json")
         vocab = Vocab.load(vocab_path) if os.path.exists(vocab_path) else None
         return cls(feats, video_ids, captions, cfg, vocab=vocab)
+
+    @classmethod
+    def from_frame_files(cls, cfg: DataConfig, split: str = "train"
+                         ) -> "CaptionDataset":
+        """The e2e loader: raw sampled frames instead of features,
+        ``{data_dir}/{dataset}_{split}_frames.{npy|h5|tfrecord}``
+        u8/f32[N, T, S, S, 3], with the ids, captions and vocab files of
+        :meth:`from_files`. uint8 frames are rescaled to the backbone's
+        [-1, 1] input range."""
+        d, name = cfg.data_dir, cfg.dataset
+        frames, video_ids = _load_split_array(d, name, split, "_frames")
+        if frames.dtype == np.uint8:
+            frames = frames.astype(np.float32) / 127.5 - 1.0
+        with open(os.path.join(d, f"{name}_captions.json")) as f:
+            all_captions = json.load(f)
+        captions = {v: all_captions.get(v, []) for v in video_ids}
+        vocab_path = os.path.join(d, f"{name}_vocab.json")
+        vocab = Vocab.load(vocab_path) if os.path.exists(vocab_path) else None
+        return cls(frames, video_ids, captions, cfg, vocab=vocab)
 
     # ------------------------------------------------------------------ iteration
 

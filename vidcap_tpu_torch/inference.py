@@ -4,7 +4,9 @@ sampled or beam.
 Runs on the card unless the caller asks for the CPU (``device="cpu"``). With
 no card and no such request it raises; it never carries on on the CPU.
 Greedy and sampled decode run through K3 (``ops/rollout.py``), beam through
-K1 and K2.
+K1 and K2. With ``model.use_backbone`` a batch may be frame pixels
+f32[B, T, S, S, 3]: the decode encodes them through the IRv2 backbone first
+(``model.init_state``), then runs the same kernels.
 """
 from __future__ import annotations
 
@@ -139,8 +141,9 @@ class Captioner:
                      frame_mask: Optional[np.ndarray] = None,
                      nbest: int = 1) -> np.ndarray:
         """feats f32[B, T, D] (numpy, or a tensor on the captioner's
-        device) → token ids i32[B, L]; with nbest > 1 (beam only) the nbest
-        best hypotheses per video, i32[B, nbest, L], best first.
+        device), or pixels f32[B, T, S, S, 3] with ``model.use_backbone``
+        (encoded first) → token ids i32[B, L]; with nbest > 1 (beam only)
+        the nbest best hypotheses per video, i32[B, nbest, L], best first.
         ``temperature`` and ``seed`` apply to method="sample"; the seed goes
         to the card as a device int64, where K3 reads it."""
         if method not in ("greedy", "sample", "beam"):

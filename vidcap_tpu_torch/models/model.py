@@ -1,7 +1,12 @@
-"""Top-level model in feature mode: caption decoder + multitask attribute head,
-one parameter tree named as the Flax tree of ``vidcap_tpu/models/model.py``
-(``decoder/...``, ``attr_head/...``; see convert.py). The end-to-end pixel
-backbone is not ported yet (ROADMAP Queue 1 item 11)."""
+"""Top-level model: (the optional IRv2 backbone) → caption decoder +
+multitask attribute head, one parameter tree named as the Flax tree of
+``vidcap_tpu/models/model.py`` (``backbone/...``, ``decoder/...``,
+``attr_head/...``; see convert.py).
+
+In feature mode the inputs are precomputed per-frame features f32[B, T, D].
+With ``model.use_backbone`` (the end-to-end presets) they may be frame pixels
+f32[B, T, S, S, 3], which ``encode_features`` runs through the backbone
+(models/backbone.py); features that are already encoded pass unchanged."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +16,7 @@ import torch
 from torch import nn
 
 from vidcap_tpu_torch.config import Config
+from vidcap_tpu_torch.models import backbone as backbone_mod
 from vidcap_tpu_torch.models.decoder import (CaptionDecoder, DecoderState,
                                              Dense, dtype_of)
 from vidcap_tpu_torch.models.heads import AttributeHead
@@ -24,12 +30,13 @@ def padded_vocab_size(cfg: Config, vocab_size: int) -> int:
 class VidCapModel(nn.Module):
     def __init__(self, cfg: Config, vocab_size: int):
         super().__init__()
-        if cfg.model.use_backbone:
-            raise NotImplementedError(
-                "the end-to-end IRv2 backbone is not ported to "
-                "vidcap_tpu_torch yet (ROADMAP Queue 1 item 11)")
         self.cfg = cfg
         self.vocab_size = vocab_size
+        if cfg.model.use_backbone:
+            # looked up at call time, so that tests can shrink the backbone
+            self.backbone = backbone_mod.InceptionResNetV2(
+                compute_dtype=dtype_of(cfg.model.compute_dtype),
+                remat_every=cfg.model.backbone_remat_every)
         self.decoder = CaptionDecoder(
             cfg.model, vocab_size=vocab_size,
             padded_vocab=padded_vocab_size(cfg, vocab_size),
@@ -39,12 +46,18 @@ class VidCapModel(nn.Module):
                                        dtype_of(cfg.model.compute_dtype))
 
     def encode_features(self, inputs: torch.Tensor) -> torch.Tensor:
-        """Features [B, T, D] → themselves: feature mode has no backbone."""
+        """Pixels [B, T, H, W, 3] → the backbone's features f32[B, T, D]
+        (with ``use_backbone``); features [B, T, D] → themselves."""
+        if self.cfg.model.use_backbone and inputs.ndim == 5:
+            B, T = inputs.shape[:2]
+            feats = self.backbone(inputs.reshape((B * T,) + inputs.shape[2:]))
+            return feats.reshape(B, T, -1)
         return inputs
 
-    def init_state(self, feats: torch.Tensor,
+    def init_state(self, inputs: torch.Tensor,
                    frame_mask: Optional[torch.Tensor] = None) -> DecoderState:
-        return self.decoder.init_state(feats, frame_mask)
+        return self.decoder.init_state(self.encode_features(inputs),
+                                       frame_mask)
 
     def step(self, state: DecoderState, token: torch.Tensor):
         return self.decoder.step(state, token)
@@ -78,7 +91,7 @@ def create_model(cfg: Config, vocab_size: int) -> VidCapModel:
     return VidCapModel(cfg, vocab_size)
 
 
-def _truncated_normal(rng: np.random.Generator, shape, std: float
+def truncated_normal(rng: np.random.Generator, shape, std: float
                       ) -> np.ndarray:
     """Normal truncated to ±2 (resampled), rescaled so the result has
     standard deviation ``std`` — Flax's ``truncated_normal`` convention."""
@@ -96,11 +109,14 @@ def init_params(model: VidCapModel, seed: int = 0) -> VidCapModel:
     initializer kinds: Dense kernels lecun-normal (truncated, std
     1/sqrt(fan_in)) and zero biases, the embedding normal with std
     1/sqrt(features), LSTM kernels glorot-uniform with zero bias, and the
-    attention vector ``u`` normal(0.05). The draws differ from JAX's."""
+    attention vector ``u`` normal(0.05); the backbone's as
+    ``backbone.init_backbone``. The draws differ from JAX's."""
     rng = np.random.default_rng(seed)
+    if model.cfg.model.use_backbone:
+        backbone_mod.init_backbone(model.backbone, rng)
     for mod in model.modules():
         if isinstance(mod, Dense):
-            mod.kernel.copy_(torch.from_numpy(_truncated_normal(
+            mod.kernel.copy_(torch.from_numpy(truncated_normal(
                 rng, tuple(mod.kernel.shape),
                 1.0 / np.sqrt(mod.kernel.shape[0]))))
             if mod.bias is not None:

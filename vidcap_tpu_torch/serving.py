@@ -35,10 +35,16 @@ launch on ``torch.cuda.current_stream``, also per thread. ctypes releases
 the GIL during a kernel launch and so does a device sync, so the loading
 thread's ``np.load`` runs while the decode waits on the card.
 
-Raw video files need the frame decoder and the IRv2 backbone, not ported
-yet (ROADMAP Queue 1 item 11): the loader raises ``NotImplementedError``
-on them. The stdin loop skips such a line with its message, as any
-unreadable path; the HTTP path mode answers a JSON 500 and no caption.
+A raw video path (``.mp4``, ``.avi``, ``.mkv``, ``.webm``, ``.mov``) is
+decoded on the host through cv2, then preprocessed and encoded on the
+captioner's device by a full-width IRv2 backbone built once, from
+``load_backbone_params`` (ImageNet weights where the file exists, else a
+seeded init with a warning), as the reference's loader does
+(``data/frames.py::make_video_encoder``). Without cv2, or for a file cv2
+cannot decode, the loader raises the reference's ``RuntimeError``: the
+stdin loop skips the line with its message, as any unreadable path; the
+HTTP path mode answers a JSON 500 and no caption. The encode runs on the
+thread that loads the input.
 """
 from __future__ import annotations
 
@@ -53,8 +59,7 @@ from typing import IO, List, Optional
 import numpy as np
 
 from vidcap_tpu_torch.config import Config
-
-_VIDEO_EXTS = (".mp4", ".avi", ".mkv", ".webm", ".mov")
+from vidcap_tpu_torch.data.frames import VIDEO_EXTS as _VIDEO_EXTS
 
 _EOF = object()
 
@@ -69,18 +74,28 @@ class ServerOverloaded(RuntimeError):
 
 
 class _FeatureLoader:
-    """path → f32[T', D] features from a ``.npy`` file of [T', D]; shared by
-    ``caption --inputs``, the stdin loop and the HTTP path mode."""
+    """path → f32[T', D] features from a ``.npy`` file of [T', D] or a video
+    file (cv2, then the IRv2 backbone on ``device``, built on first use and
+    kept); shared by ``caption --inputs``, the stdin loop and the HTTP path
+    mode, so all three take the same inputs. ``device`` None means the
+    card."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
+        self.device = device
+        self._encode_video = None
+        self._lock = threading.Lock()
 
     def __call__(self, path: str) -> np.ndarray:
         if path.lower().endswith(_VIDEO_EXTS):
-            raise NotImplementedError(
-                f"{path}: captioning raw video needs the frame decoder and "
-                "the end-to-end IRv2 backbone, not ported to vidcap_tpu_torch "
-                "yet (ROADMAP Queue 1 item 11); pass per-frame .npy features")
+            from vidcap_tpu_torch.data.frames import (decode_video_frames,
+                                                      make_video_encoder)
+            frames = decode_video_frames(path, self.cfg.data.num_frames)
+            with self._lock:   # HTTP handler threads share one backbone
+                if self._encode_video is None:
+                    self._encode_video = make_video_encoder(self.cfg,
+                                                            self.device)
+            return self._encode_video(frames)
         feats = np.load(path)
         if feats.ndim != 2:
             raise ValueError(f"{path}: expected [T, D] features, "
@@ -120,7 +135,8 @@ class CaptionServer:
         self.beam_width = beam_width
         self.max_wait_ms = max_wait_ms
         self.pipeline_depth = pipeline_depth
-        self._loader = _FeatureLoader(cfg)
+        self._loader = _FeatureLoader(cfg, getattr(captioner, "device",
+                                                    None))
         self._latencies_ms = collections.deque(maxlen=_LATENCY_WINDOW)
 
     # ------------------------------------------------------------ input loading
@@ -306,7 +322,8 @@ class BatchingCaptioner:
         self._rejected = 0
         self._closed = False
         self._lock = threading.Lock()
-        self._loader = _FeatureLoader(cfg)
+        self._loader = _FeatureLoader(cfg, getattr(captioner, "device",
+                                                    None))
         self._thread = threading.Thread(target=self._batcher, daemon=True)
         self._thread.start()
 
@@ -531,8 +548,8 @@ def make_http_server(cfg: Config, captioner, port: int = 0,
             except (ValueError, KeyError, OSError) as e:
                 self._json(400, {"error": str(e)})
             except Exception as e:   # noqa: BLE001 — a decode failure (or a
-                # video path, NotImplementedError) must reach the client as a
-                # 5xx, not a dropped connection and a dead handler thread
+                # video cv2 cannot read, RuntimeError) must reach the client
+                # as a 5xx, not a dropped connection and a dead handler thread
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
 
         def log_message(self, fmt, *args):   # quiet: stderr stays for stats

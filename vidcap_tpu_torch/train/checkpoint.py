@@ -5,7 +5,7 @@ step, ``{directory}/ckpt_<step>.pt``.
 
 A save writes a temporary file and renames it over the target, so a crash
 leaves the previous checkpoint whole; the newest ``max_to_keep`` are kept. A
-``stage.json`` sidecar records the stage ("xe", "scst") that wrote each
+``stage.json`` sidecar records the stage ("xe", "e2e", "scst") that wrote each
 kept step, so that a resume sees a stage change and re-initialises the
 optimizer instead of carrying the previous objective's moments.
 """

@@ -1,6 +1,7 @@
 """One training stage on one device, as ``vidcap_tpu/train/loop.py``'s
 ``train()``: the model from the seeded init, an exact mid-stage resume or a
-cross-stage one (xe → scst: parameters restored, optimizer fresh), the
+cross-stage one (xe → scst or xe → e2e: parameters restored, the stage's
+optimizer fresh, with its backbone group where it trains through the CNN), the
 deterministic batch stream, logging, the checkpoint cadence, and periodic
 validation that keeps the best-CIDEr state under ``{checkpoint_dir}/best``.
 
@@ -135,7 +136,7 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
           logger: Optional[MetricsLogger] = None, resume: bool = False,
           device: Optional[str] = None, mesh=None,
           val_dataset: Optional[CaptionDataset] = None) -> TrainState:
-    """Run one stage (``cfg.train.stage``: "xe" or "scst") up to step
+    """Run one stage (``cfg.train.stage``: "xe", "e2e" or "scst") up to step
     ``num_steps`` (default ``cfg.train.num_steps``; counts are cumulative
     over stages); returns the final TrainState. Ends with one stderr line:
     the stage, the steps run, the device, K3's W_out mode (SCST) and the
@@ -173,7 +174,8 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
         else:
             state, iter_state = ckpt.restore(state, with_iter=True)
 
-    if t.stage == "xe":
+    if t.stage in ("xe", "e2e"):
+        # e2e is the XE body through the backbone's shared encode
         body = make_xe_step_body(cfg)
     elif t.stage == "scst":
         body = make_scst_step_body(cfg, dataset)

@@ -14,11 +14,16 @@ those flags say. The gradient comes from one differentiable teacher-forced
 re-score of the sampled tokens, the same recurrence on the same fixed
 tokens, so it equals backpropagation through the sampling loop.
 
-The step is two parts: :meth:`ScstStep.rollouts` (the two K3 rollouts,
-forward only) and :meth:`ScstStep.update`, the differentiable rest, which
-takes the two rollouts as inputs; tests feed both packages the same
-rollouts. The sampling seed is drawn on the host from the state's generator
-and reaches K3 as a device int64, so that a captured step (train/steps.py)
+The step encodes its inputs once (``model.encode_features``: the IRv2
+backbone on pixels with ``model.use_backbone``, the identity on features),
+as the reference does: the two K3 rollouts take the detached view, and the
+PG re-score, the XE anchor and the attribute head share the one
+differentiable encode, so that each of their gradients reaches the
+backbone through it. The step is two parts: :meth:`ScstStep.rollouts` (the
+two K3 rollouts, forward only) and :meth:`ScstStep.update`, the
+differentiable rest, which takes the two rollouts as inputs; tests feed
+both packages the same rollouts. The sampling seed is drawn on the host
+from the state's generator and reaches K3 as a device int64, so that a captured step (train/steps.py)
 samples each replay with its own seed. ``train.grad_accum`` splits the step
 into microbatches, each with its rollouts and its seed, as the JAX
 package's ``accum_grads``.
@@ -68,17 +73,21 @@ class ScstStep:
             self.tables = self.tables.to(device)
         return self.tables
 
-    def rollouts(self, state: TrainState, batch: Batch,
-                 seed=None) -> Tuple[Rollout, Rollout]:
+    def rollouts(self, state: TrainState, batch: Batch, seed=None,
+                 feats: Optional[torch.Tensor] = None
+                 ) -> Tuple[Rollout, Rollout]:
         """(sampled at ``decode.temperature``, greedy): forward only, on the
-        features without gradient; the weights cast once for both.
-        ``seed``: an int or an int64 scalar tensor; None takes the batch's
-        first, else draws one from ``state.generator``."""
+        features without gradient (``feats``, the step's encode, else the
+        batch's encoded here); the weights cast once for both. ``seed``: an
+        int or an int64 scalar tensor; None takes the batch's first, else
+        draws one from ``state.generator``."""
         if seed is None:
             seed = (batch["seed"][0] if "seed" in batch
                     else draw_seeds(state, 1)[0])
         model, d = state.model, self.cfg.decode
-        feats = model.encode_features(batch["features"]).detach()
+        if feats is None:
+            feats = model.encode_features(batch["features"])
+        feats = feats.detach()
         if torch.is_tensor(seed):
             seed = seed.to(feats.device)
         w = RolloutWeights.from_model(model)
@@ -100,15 +109,17 @@ class ScstStep:
                             self.bleu_mix))
 
     def pieces(self, model, batch: Batch, sample: Rollout, greedy: Rollout,
-               rewards: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+               rewards: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               *, feats: torch.Tensor):
         """The differentiable part in pieces: (PG loss, XE anchor, its
         token count, BCE, the PG metrics); the XE anchor and its count are
         None without ``scst_xe_mix``, the BCE None without
         ``attribute_loss_weight``. The PG loss is from the re-score of the
         sampled tokens (temperature-scaled log-probs of the emitted tokens,
-        masked) against the greedy baseline."""
+        masked) against the greedy baseline. ``feats``: the step's
+        differentiable encode (``model.encode_features``), which all three
+        terms read."""
         t = self.cfg.train
-        feats = model.encode_features(batch["features"])
         logits = model.xe_logits(feats, None, shift_right(sample.tokens))
         logp_all = torch.log_softmax(
             logits / max(self.cfg.decode.temperature, 1e-6), dim=-1)
@@ -130,14 +141,14 @@ class ScstStep:
         return pg, xe, ntok, bce, metrics
 
     def loss(self, model, batch: Batch, sample: Rollout, greedy: Rollout,
-             rewards: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-             ) -> Tuple[torch.Tensor, Metrics]:
+             rewards: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             *, feats: torch.Tensor) -> Tuple[torch.Tensor, Metrics]:
         """The differentiable part: the PG loss, ``scst_xe_mix`` · the XE
         anchor on the ground-truth captions, ``attribute_loss_weight`` ·
         BCE."""
         t = self.cfg.train
         loss, xe, _, bce, metrics = self.pieces(model, batch, sample, greedy,
-                                                rewards)
+                                                rewards, feats=feats)
         if xe is not None:
             loss = loss + t.scst_xe_mix * xe
             metrics["xe_anchor"] = xe
@@ -148,9 +159,14 @@ class ScstStep:
         return loss, metrics
 
     def update(self, state: TrainState, batch: Batch, sample: Rollout,
-               greedy: Rollout) -> Tuple[TrainState, Metrics]:
+               greedy: Rollout, feats: Optional[torch.Tensor] = None
+               ) -> Tuple[TrainState, Metrics]:
+        """The loss and the update; ``feats``: the step's encode, else the
+        batch's encoded here."""
+        if feats is None:
+            feats = state.model.encode_features(batch["features"])
         return apply_loss(state, *self.loss(state.model, batch, sample,
-                                            greedy))
+                                            greedy, feats=feats))
 
     def accum_grads(self, state: TrainState, batch: Batch
                     ) -> Tuple[Grads, Metrics]:
@@ -163,9 +179,13 @@ class ScstStep:
         n_total = torch.clamp(batch["mask"].sum(), min=1.0)
         grads, loss, xe_num, bce_sum, m_sum = None, 0.0, 0.0, 0.0, None
         for m, mb in enumerate(micro_batches(batch, K)):
-            sample, greedy = self.rollouts(state, mb, batch["seed"][m])
+            # one encode a microbatch: the rollouts' view and the loss's
+            feats = state.model.encode_features(mb["features"])
+            sample, greedy = self.rollouts(state, mb, batch["seed"][m],
+                                           feats=feats)
             pg, xe, ntok, bce, metrics = self.pieces(state.model, mb,
-                                                     sample, greedy)
+                                                     sample, greedy,
+                                                     feats=feats)
             c = pg / K
             if xe is not None:
                 c = c + t.scst_xe_mix * xe * ntok / n_total
@@ -193,8 +213,9 @@ class ScstStep:
         """One step on a batch that brings its seeds (``batch["seed"]``,
         int64[grad_accum])."""
         if self.accum == 1:
-            return self.update(state, batch,
-                               *self.rollouts(state, batch, batch["seed"][0]))
+            feats = state.model.encode_features(batch["features"])
+            return self.update(state, batch, *self.rollouts(
+                state, batch, batch["seed"][0], feats=feats), feats=feats)
         return apply_grads(state, *self.accum_grads(state, batch))
 
     def __call__(self, state: TrainState, batch: Batch,

@@ -10,7 +10,12 @@
   ``1 - b^count`` after the count is incremented, and the update
   ``μ̂ / (sqrt(ν̂) + eps)`` (eps outside the square root);
 * AdamW adds ``weight_decay · param`` to that update (decoupled decay), then
-  both scale by ``-lr(count)`` with the count before the increment.
+  both scale by ``-lr(count)`` with the count before the increment;
+* a stage that trains through the CNN backbone (``e2e``, or ``scst`` with
+  ``model.use_backbone``) with ``backbone_lr_scale`` ≠ 1 gives the
+  backbone's parameters the learning rate ``lr(count) · scale``, computed as
+  Optax computes the reference's ``multi_transform`` group: the clip stays
+  global, each group's Adam state is elementwise, so only the rate differs.
 
 The update reads nothing on the host, so that a CUDA graph can replay it:
 the count is a device int64, the learning rate and both bias corrections
@@ -80,6 +85,17 @@ def make_lr_schedule(t) -> Schedule:
     return schedule
 
 
+def scaled_schedule(t, scale: float) -> Schedule:
+    """The backbone group's rate, ``schedule · scale``, in the reference's
+    arithmetic: a constant schedule (no warmup) is a Python float there, so
+    the product is taken in f64 and rounded once; a callable one returns f32
+    and the scale is cast to f32 before the product."""
+    base = make_lr_schedule(t)
+    if t.lr_schedule == "constant" and t.warmup_steps <= 0:
+        return lambda count: float(_f32(t.learning_rate * scale))
+    return lambda count: float(_f32(base(count)) * _f32(scale))
+
+
 B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adam's defaults
 
 
@@ -94,20 +110,24 @@ def optax_global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 class Optimizer:
     """The Optax chain of the module docstring for up to ``num_steps``
     updates. State: ``{"count": i64 scalar, "mu": {name: f32}, "nu": {name:
-    f32}, "table": f32[3, num_steps + 1]}`` on the parameters' device; row
-    c of the table is (lr(c), 1 - b1^(c+1), 1 - b2^(c+1))."""
+    f32}, "table": f32[4, num_steps + 1]}`` on the parameters' device; row
+    c of the table is (lr(c), 1 - b1^(c+1), 1 - b2^(c+1), the backbone
+    group's lr(c)). Without ``backbone_schedule`` every parameter takes
+    ``schedule``."""
 
     schedule: Schedule
     grad_clip_norm: float
     weight_decay: float = 0.0
     num_steps: int = 0
+    backbone_schedule: Optional[Schedule] = None
 
     def table(self, device) -> torch.Tensor:
+        bb = self.backbone_schedule or self.schedule
         rows = []
         for c in range(self.num_steps + 1):
             n = _f32(c + 1)   # the count after the increment
             rows.append((self.schedule(c), _f32(1) - _f32(B1) ** n,
-                         _f32(1) - _f32(B2) ** n))
+                         _f32(1) - _f32(B2) ** n, bb(c)))
         return torch.tensor(np.asarray(rows, np.float32).T, device=device)
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict:
@@ -140,8 +160,9 @@ class Optimizer:
         """One step, in place: the parameters and ``opt_state``."""
         grads = self.clip(grads)
         row = opt_state["table"].index_select(1, opt_state["count"].view(1))
-        lr, bc1, bc2 = row[0, 0], row[1, 0], row[2, 0]
+        lr_rest, bc1, bc2, lr_bb = row[0, 0], row[1, 0], row[2, 0], row[3, 0]
         for k, p in params.items():
+            lr = lr_bb if k.startswith("backbone.") else lr_rest
             g = grads[k]
             mu, nu = opt_state["mu"][k], opt_state["nu"][k]
             mu.copy_((1 - B1) * g + B1 * mu)
@@ -171,15 +192,15 @@ def make_optimizer(cfg: Config, num_steps: Optional[int] = None
                   f"learning_rate/20 = {lr:g} (set train.scst_learning_rate "
                   f"to override)", file=sys.stderr)
         t = dataclasses.replace(t, learning_rate=lr)
+    # any stage that fine-tunes through the CNN gets the scaled backbone
+    # rate: the plain e2e stage, and SCST with use_backbone (the composed
+    # e2e_scst_multitask)
     through_cnn = t.stage == "e2e" or (t.stage == "scst"
                                        and cfg.model.use_backbone)
-    if through_cnn:
-        raise NotImplementedError(
-            f"stage {t.stage!r} through the CNN backbone (and its "
-            "backbone_lr_scale group) is not ported to vidcap_tpu_torch yet "
-            "(ROADMAP Queue 1 item 11)")
+    bb = (scaled_schedule(t, t.backbone_lr_scale)
+          if through_cnn and t.backbone_lr_scale != 1.0 else None)
     return Optimizer(make_lr_schedule(t), t.grad_clip_norm, t.weight_decay,
-                     max(num_steps or 0, t.num_steps))
+                     max(num_steps or 0, t.num_steps), bb)
 
 
 @dataclasses.dataclass

@@ -4,7 +4,9 @@ and their dispatch.
 ``make_xe_step_body`` is the cross-entropy stage of
 ``vidcap_tpu/train/steps.py`` (XE plus ``attribute_loss_weight`` · BCE),
 with ``train.grad_accum`` microbatches weighted so that their summed
-gradient equals the full batch's (``accum_grads``). The gradients come from
+gradient equals the full batch's (``accum_grads``). It is also the ``e2e``
+stage: on pixel batches the inputs go through the IRv2 backbone once a
+(micro)batch, and the XE head and the attribute head share that encode. The gradients come from
 plain PyTorch autograd on the model's modules, as the JAX package takes them
 from XLA: it runs no backward kernel. A step body updates the state in place
 and returns it with its metrics (device scalars), and reads nothing on the
@@ -175,7 +177,10 @@ class Captured:
     on the card, cuBLAS's workspace) exists before the capture; the
     parameters, the moments and the count are then written back, so that
     the warm-up leaves no trace in the trajectory (the generator is not
-    read: the caller draws the seeds). Its kernel launches are not counted.
+    read: the caller draws the seeds). On pixel batches the warm-up is also
+    where cuDNN picks its convolution algorithms and the backbone's
+    recomputed blocks first run, so the capture records their steady
+    kernels. Its kernel launches are not counted.
     The capture's own launches are taken back out of the counts and added
     at each replay. Nothing falls back to the eager step: a capture or a
     replay that fails raises."""
