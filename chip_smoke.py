@@ -20,7 +20,9 @@ and HTTP, beam through K1/K2 and greedy through K3) and export (``export``,
 CUDA graph, the feature bank, K steps a dispatch); end to end from pixels
 (the IRv2 backbone at full width inside the ``e2e_scst_multitask`` and
 ``e2e_irv2`` steps, whose SCST rollouts run on K3, the CLI on frame files,
-the video encoder). Phases:
+the video encoder); the rest of the decode surface (K2's int8 variant, the
+int8 and finished-pool beams through K1 with K2-int8 or K2 at K+1, the
+decoders no kernel covers through their modules, ``info``). Phases:
 
   1 card, versions, kernel build    6 K3 rollout vs plain (greedy, sampled,
   2 K1 beam_core vs plain             seeded and raised-<eos> weights; W_out
@@ -58,6 +60,15 @@ the video encoder). Phases:
                                       two e2e steps, the CLI train /
                                       resume / caption on frame files,
                                       encode_video
+                                   16 the rest of the decode surface:
+                                      K2-int8 vs plain at N=920, the int8
+                                      and pool beams at B=184 (launches,
+                                      rows vs the CPU, captions/s), the
+                                      decoders no kernel covers (2 layers,
+                                      no attention, f32) at B=32, a
+                                      two-layer SCST step captured ==
+                                      eager, the CLI (info, int8 and pool
+                                      captions, an int8 export)
   then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
@@ -67,6 +78,7 @@ it exits 2 and prints no result. Imports torch and numpy, never JAX.
 from __future__ import annotations
 
 import atexit
+import copy
 import dataclasses
 import json
 import os
@@ -77,6 +89,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -87,12 +100,20 @@ from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD, SPECIALS, Vocab
 from vidcap_tpu_torch.inference import Captioner
 from vidcap_tpu_torch.models.decoder import NEG, DecoderState
-from vidcap_tpu_torch.models.decoding import (beam_decode, fused_beam_step,
+from vidcap_tpu_torch.models.decoding import (VocabProjection, beam_decode,
+                                              beam_decode_pool,
+                                              fused_beam_step,
+                                              module_beam_step,
+                                              projection_kernel,
                                               tile_recurrent)
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.objectives.xe import shift_right
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
+from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
+                                            int8_logits_plain,
+                                            int8_topk_project_plain,
+                                            quantize_rows, topk_project_int8)
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
                                           resident_mode, rollout,
                                           rollout_plain, step_plain)
@@ -104,6 +125,7 @@ from vidcap_tpu_torch.train.loop import batch_to_device, batch_to_device_dict
 from vidcap_tpu_torch.train.scst import make_scst_step_body
 from vidcap_tpu_torch.train.state import (create_train_state,
                                           optax_global_norm)
+from vidcap_tpu_torch.utils.meminfo import param_census
 from vidcap_tpu_torch.train.steps import (_build_banks, apply_loss,
                                           draw_seeds, make_banked_multistep,
                                           make_banked_step, make_step,
@@ -184,21 +206,45 @@ def bound(nbytes: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def counts(**launched) -> dict:
+    """Every kernel's launch count: ``launched``'s, 0 for the others."""
+    return {k: launched.get(k, 0) for k in _build.KERNELS}
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at |x| (8 significant bits)."""
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
 
 
-def plain_beam_step(w, k):
-    """``fused_beam_step`` with the plain versions, for the comparison."""
+def plain_beam_step(w, k, n=None):
+    """``fused_beam_step`` with the plain versions (K1's, then K2's or
+    K2-int8's with ``n`` candidates a row, default ``k``), for the
+    comparison."""
+    n = n or k
+
     def step(st, tok):
         h, c = beam_core_plain(w.embedding[tok], st.h[0], st.c[0], st.keys,
                                st.values, st.frame_mask, w.wq, w.u, w.wg,
                                w.bg, k)
-        logp, idx = topk_project_plain(h, w.w_out, w.b_out, k, w.vocab_size)
+        p = w.proj
+        logp, idx = (int8_topk_project_plain(h, p.int8, n) if p.int8
+                     else topk_project_plain(h, p.w_out, p.b_out, n,
+                                             p.vocab_size))
         return (DecoderState(h[None], c[None], st.keys, st.values,
                              st.frame_mask), logp, idx)
     return step
+
+
+def moved(x, device):
+    """``x`` with every tensor in it (a dataclass's fields, nested ones too)
+    on ``device``."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: moved(getattr(x, f.name),
+                                                       device)
+                                         for f in dataclasses.fields(x)})
+    return x
 
 
 def phase_k1():
@@ -332,7 +378,7 @@ def phase_end_to_end():
     steps = cap.decode_steps
     if not 4 <= steps <= 4 * cfg.decode.max_len:
         fail(f"main path ran {steps} beam steps for 4 decodes")
-    if launches != {"beam_core": steps, "topk_project": steps, "rollout": 0}:
+    if launches != counts(beam_core=steps, topk_project=steps):
         fail(f"beam path: launches {launches} for {steps} steps")
     if toks.shape != (B, cfg.decode.max_len) or not (
             (toks >= 0) & (toks < VP)).all():
@@ -360,7 +406,7 @@ def phase_end_to_end():
                 decode_steps=steps, launches=launches,
                 captions_per_s_early_exit_read=B / float(np.median(dts_sync)),
                 captions_per_s_no_early_exit=B / float(np.median(dts_free)),
-                **paths)
+                **paths), cap, trials
 
 
 def compare_paths(cap, trials):
@@ -379,11 +425,8 @@ def compare_paths(cap, trials):
     failure prints them all."""
     cfg = cap.cfg
     w = cap._beam_weights
-    w_cpu = dataclasses.replace(w, **{
-        f.name: getattr(w, f.name).cpu() for f in dataclasses.fields(w)
-        if isinstance(getattr(w, f.name), torch.Tensor)})
     kstep, pstep = fused_beam_step(w, K), plain_beam_step(w, K)
-    cstep = plain_beam_step(w_cpu, K)
+    cstep = plain_beam_step(moved(w, "cpu"), K)
     worst = {"h_c": 0.0, "logp": 0.0}
 
     def checked_step(st, tok):
@@ -391,7 +434,8 @@ def compare_paths(cap, trials):
         st_p, _, _ = pstep(st, tok)
         worst["h_c"] = max(worst["h_c"], (st_k.h - st_p.h).abs().max().item(),
                            (st_k.c - st_p.c).abs().max().item())
-        e, _ = check_topk(st_k.h[0], w.w_out, w.b_out, K, w.vocab_size,
+        e, _ = check_topk(st_k.h[0], w.proj.w_out, w.proj.b_out, K,
+                          w.proj.vocab_size,
                           got=(lk, ik))
         worst["logp"] = max(worst["logp"], e)
         return st_k, lk, ik
@@ -495,8 +539,8 @@ def phase_cli():
     with tempfile.TemporaryDirectory() as tmp:
         results, method, _, steps, launches, _ = run_cli(
             ["caption"], "msrvtt_attn_beam5", VP, tmp)
-    if method != "beam" or steps < 1 or launches != {
-            "beam_core": steps, "topk_project": steps, "rollout": 0}:
+    if method != "beam" or steps < 1 or launches != counts(
+            beam_core=steps, topk_project=steps):
         fail(f"CLI: {method} {steps} steps but launches {launches}")
     return dict(videos=len(results), steps=steps, launches=launches)
 
@@ -745,8 +789,7 @@ def phase_rollout_end_to_end():
             toks = cap.decode_batch(f, method=method)
             dts.append(time.perf_counter() - t0)
         launches, decodes = dict(_build.launch_counts), cap.decode_calls
-        if launches != {"beam_core": 0, "topk_project": 0,
-                        "rollout": decodes} or decodes != 3:
+        if launches != counts(rollout=decodes) or decodes != 3:
             fail(f"{method} path: launches {launches} for {decodes} decodes")
         if toks.shape != (BG, L) or not ((toks >= 0) & (toks < VOCAB_G)).all():
             fail(f"{method}: bad token array {toks.shape}")
@@ -775,9 +818,8 @@ def phase_cli_rollout():
             results, method, decodes, steps, launches, mode = run_cli(
                 cmd, preset, VOCAB_G, tmp, never=(PAD, BOS, EOS))
             if method != ("sample" if cmd[0] == "sample" else "greedy") or \
-                    decodes < 1 or steps != decodes * L or launches != {
-                        "beam_core": 0, "topk_project": 0,
-                        "rollout": decodes} or mode != "resident":
+                    decodes < 1 or steps != decodes * L or launches != \
+                    counts(rollout=decodes) or mode != "resident":
                 fail(f"CLI {cmd}: {method}, {decodes} decodes, {steps} steps,"
                      f" launches {launches}, W_out {mode}")
             out[" ".join(cmd)] = dict(preset=preset, videos=len(results),
@@ -874,7 +916,7 @@ def phase_scst(row_floor: float):
     sample, greedy = step.rollouts(state, batch, seed)
     torch.cuda.synchronize()
     one_step = dict(_build.launch_counts)
-    if one_step != {"beam_core": 0, "topk_project": 0, "rollout": 2}:
+    if one_step != counts(rollout=2):
         problems.append(f"one SCST step's rollouts launched {one_step}")
     if step.rollout_resident is not True:
         problems.append("the SCST step did not keep W_out resident")
@@ -949,8 +991,7 @@ def phase_scst(row_floor: float):
         if not all(torch.isfinite(v) for v in mi.values()):
             problems.append(f"step {i}: non-finite metrics")
     launches = dict(_build.launch_counts)
-    if launches != {"beam_core": 0, "topk_project": 0,
-                    "rollout": 2 * (1 + SCST_STEPS)}:
+    if launches != counts(rollout=2 * (1 + SCST_STEPS)):
         problems.append(f"{1 + SCST_STEPS} SCST steps launched {launches}")
     med = {k: float(np.median(v)) for k, v in times.items()}
     out = dict(identical_rows=identical, identical_rows_floor=row_floor,
@@ -1010,7 +1051,7 @@ def phase_cli_train(ds):
                    for st, n, _, mode, lc in line.findall(r.stderr)]
             # (stage, steps, K3's W_out mode, launches) for each stage line
             ok = got == [(st, n, "resident" if st == "scst" and n else None,
-                          {"beam_core": 0, "topk_project": 0, "rollout": k3})
+                          counts(rollout=k3))
                          for st, n, k3 in want]
             if not ok:
                 fail(f"CLI train {steps} {resume}: stage lines {got}, want "
@@ -1209,9 +1250,8 @@ def phase_offline(row_floor: float):
             fail(f"phase 11 caption --inputs: {len(caps)} keys, line "
                  f"{line}: {r.stderr[-2000:]}")
         caption_launches = json.loads(line[-1][2])
-        if caption_launches != {"beam_core": int(line[-1][1]),
-                                "topk_project": int(line[-1][1]),
-                                "rollout": 0}:
+        if caption_launches != counts(beam_core=int(line[-1][1]),
+                                      topk_project=int(line[-1][1])):
             fail(f"phase 11 caption --inputs launches {caption_launches}")
 
         # the same padded batch in process: through K1/K2, and plain
@@ -1497,9 +1537,8 @@ def check_served(method, decodes, steps, launches, want_method, what):
     decode of up to 32 rows: ``decodes`` here), none on the other's."""
     if method != want_method:
         fail(f"{what}: method {method}, want {want_method}")
-    want = ({"beam_core": steps, "topk_project": steps, "rollout": 0}
-            if method == "beam" else
-            {"beam_core": 0, "topk_project": 0, "rollout": decodes})
+    want = (counts(beam_core=steps, topk_project=steps)
+            if method == "beam" else counts(rollout=decodes))
     if launches != want:
         fail(f"{what}: launches {launches} for {decodes} decodes, {steps} "
              f"steps; want {want}")
@@ -2017,10 +2056,8 @@ def dispatch_cli(ds, tmp: str):
     best = [f for f in os.listdir(os.path.join(tmp, "checkpoints", "best"))
             if f.startswith("ckpt_")]
     per_eval = -(-200 // BG)   # validation: the first 200 videos, B=32
-    want_lines = [("xe", 24, None, {"beam_core": 0, "topk_project": 0,
-                                    "rollout": per_eval * len(evals)}),
-                  ("scst", 8, "resident", {"beam_core": 0, "topk_project": 0,
-                                           "rollout": 2 * 8})]
+    want_lines = [("xe", 24, None, counts(rollout=per_eval * len(evals))),
+                  ("scst", 8, "resident", counts(rollout=2 * 8))]
     a, b = (torch.load(os.path.join(tmp, d, "ckpt_24.pt"), weights_only=True)
             for d in ("checkpoints", "ck2"))
     flat = lambda c: {**c["params"], **{f"{m} {k}": v for m in ("mu", "nu")
@@ -2429,7 +2466,8 @@ def pixel_cli(ds, tmp: str):
                    "steps_per_sec")} for row in rows],
                captions=len(caps), caption_launches=cap_launches,
                caption_decodes=decodes)
-    zero = {"beam_core": 0, "topk_project": 0}
+    zero = counts()
+    del zero["rollout"]
     problems = []
     if [(a, b) for a, b, _, _ in lines] != [("xe", 2), ("scst", 2)] or \
             lines[1][3] != {**zero, "rollout": 4}:
@@ -2500,6 +2538,624 @@ def phase_e2e_pixels():
     return out
 
 
+# Phase 16: the rest of the decode surface. K2-int8 at msrvtt_attn_beam5's
+# width (N = 920, H = 512, Vp = 16,000); the int8 and finished-pool beams
+# through Captioner at B=184 beside the bf16 beam; the decoders no kernel
+# covers at msvd_greedy's width (B=32, Vp=12,032); a two-layer SCST step at
+# scst_cider's; the CLI: info, the int8 and pool captions, an int8 export.
+PEAK_INT8 = 1979e12   # H100 SXM dense int8 tensor ops/s (NVIDIA data sheet)
+OTHER_DECODERS = (("two_layers", {"num_lstm_layers": 2}),
+                  ("no_attention", {"use_attention": False}),
+                  ("float32", {"compute_dtype": "float32"}))
+
+
+def replaced(cfg, section: str, **kw):
+    """``cfg`` with the fields ``kw`` of ``section`` replaced."""
+    return dataclasses.replace(cfg, **{section: dataclasses.replace(
+        getattr(cfg, section), **kw)})
+
+
+def check_k2_int8(h, proj, k):
+    """K2-int8 on ``h`` against its plain version: the quantized rows and
+    scales bit for bit; the columns equal wherever the plain K-th and
+    (K+1)-th logits are more than one bf16 ulp apart; the values within one
+    bf16 ulp of the row's largest |logit| + 1e-4 (the f32 lse); a second
+    run identical. Returns (max |err|, share of rows with every column
+    equal, rows with a clear gap)."""
+    vk, ik, h8, hs = topk_project_int8(h, proj, k, return_quantized=True)
+    h8, hs = h8.clone(), hs.clone()   # the scratch of this launch
+    again = topk_project_int8(h, proj, k)
+    vp, ip = int8_topk_project_plain(h, proj, k)
+    h8p, hsp = quantize_rows(h)
+    logits = int8_logits_plain(h, proj)
+    torch.cuda.synchronize()
+    if not (torch.equal(h8, h8p) and torch.equal(hs, hsp)):
+        fail(f"K2-int8 (k={k}): the quantized rows differ from the plain "
+             f"version's on {(h8 != h8p).any(1).sum().item()} rows, the "
+             f"scales on {(hs != hsp).sum().item()}")
+    if not (torch.equal(again[0], vk) and torch.equal(again[1], ik)):
+        fail(f"K2-int8 (k={k}): two runs differ")
+    real = logits[:, :proj.bq.shape[0]].masked_fill(proj.bq[None] < -1e29, 0)
+    tol = bf16_ulp(real.abs().amax(1)) + 1e-4
+    err = (vk - vp).abs()
+    if not torch.isfinite(vk).all() or (err > tol[:, None]).any():
+        fail(f"K2-int8 (k={k}) vs plain: max |err| {err.max().item()} "
+             "beyond one bf16 ulp of the logit + 1e-4")
+    top = logits.sort(dim=1, descending=True).values
+    gap = top[:, k - 1] - top[:, k]
+    clear = gap > bf16_ulp(top[:, k - 1])
+    same = (ik == ip).all(1)
+    if not same[clear].all():
+        fail(f"K2-int8 (k={k}): columns differ on "
+             f"{(~same[clear]).sum().item()} rows with a clear gap")
+    return (err.max().item(), same.float().mean().item(),
+            int(clear.sum().item()))
+
+
+def phase_k2_int8():
+    """(a) K2-int8 at N = B·K = 920, K = 5 (the int8 beam) and 6 (the pool),
+    against int8_topk_project_plain; its time, bound and torch._int_mm's
+    time for the product alone."""
+    g = np.random.default_rng(16)
+    n = B * K
+    cuda = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    h = cuda(np.tanh(g.normal(size=(n, H))))
+    dense = types.SimpleNamespace(kernel=cuda(g.normal(size=(H, VP))
+                                              / np.sqrt(H)),
+                                  bias=cuda(g.normal(size=VP) * 0.1))
+    proj = Int8Projection.from_dense(dense, VP)
+    errs, exact, clear = [], {}, {}
+    for k in (K, K + 1):
+        e, x, c = check_k2_int8(h, proj, k)
+        errs.append(e)
+        exact[f"k{k}"], clear[f"k{k}"] = x, c
+    h8 = quantize_rows(h)[0]
+    lib, lib_note = None, None
+    for w8 in (proj.w8t.t(), proj.w8t.t().contiguous()):
+        try:
+            lib = time_ms(lambda: torch._int_mm(h8, w8))
+            lib_note = ("column-major W8" if not w8.is_contiguous()
+                        else "row-major W8")
+            break
+        except RuntimeError as ex:
+            lib_note = f"torch._int_mm refused: {str(ex)[:200]}"
+    nbytes = n * H * 4 + VP * H + VP * 8 + n * K * 8
+    ops = 2 * n * H * VP
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_INT8
+    return dict(name="topk_project_int8", route="cuda",
+                source="vidcap_tpu_torch/csrc/topk_project.cu",
+                replaces="vidcap_tpu/ops/int8_proj.py:75",
+                max_abs_err=max(errs),
+                ms=time_ms(lambda: topk_project_int8(h, proj, K)),
+                plain_ms=time_ms(lambda: int8_topk_project_plain(h, proj, K),
+                                 iters=5),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib), dict(exact_rows=exact, clear_gap_rows=clear,
+                                      library=lib_note,
+                                      ms_k6=time_ms(lambda: topk_project_int8(
+                                          h, proj, K + 1)))
+
+
+def rows_vs_cpu(cap, trials, n_cand: int, pool: bool):
+    """The share of rows the kernel beam of ``cap`` (its cast weights)
+    keeps identical to the plain beam on the CPU from the same state, over
+    ``trials``; slot-blocking or pooled. Launches here are comparisons and
+    are taken back out of the counts."""
+    decode = beam_decode_pool if pool else beam_decode
+    w = cap._beam_weights
+    kstep = fused_beam_step(w, K, n_cand)
+    cstep = plain_beam_step(moved(w, "cpu"), K, n_cand)
+    cfg = cap.cfg
+    same = []
+
+    def run():
+        with torch.inference_mode():
+            for f in trials:
+                st = tile_recurrent(cap.model.init_state(
+                    torch.tensor(f, device="cuda")), K)
+                kw = dict(batch=f.shape[0], max_len=cfg.decode.max_len,
+                          beam_width=K,
+                          length_penalty=cfg.decode.length_penalty,
+                          early_exit=cfg.decode.early_exit)
+                tk = decode(kstep, st, **kw)[0]
+                tc = decode(cstep, moved(st, "cpu"), **kw)[0]
+                same.append((tk.cpu() == tc).all(1).float().mean().item())
+    _build.counted(run)
+    return same
+
+
+def decode_walls(caps, trials, **kw):
+    """{name: captions/s} of each captioner of ``caps`` on ``trials``, the
+    calls interleaved (a, b, b, a, ...) on each input; the medians."""
+    walls = {name: [] for name in caps}
+    order = list(caps) + list(caps)[::-1]
+    for f in trials:
+        for name in order:
+            t0 = time.perf_counter()
+            caps[name].decode_batch(f, **kw)
+            walls[name].append(time.perf_counter() - t0)
+    return {name: trials[0].shape[0] / float(np.median(w))
+            for name, w in walls.items()}
+
+
+def beam_main_path(cap, trials, nbest_too: bool = False):
+    """The counts at 0, a warm-up and a decode of each trial (and one at
+    nbest 5), the counts read: (launches, K2's launches by K, steps, the
+    first decode, the nbest tokens)."""
+    _build.reset_counts()
+    cap.decode_steps = 0
+    first = cap.decode_batch(trials[0], beam_width=K)
+    for f in trials:
+        cap.decode_batch(f, beam_width=K)
+    nb = cap.decode_batch(trials[0], beam_width=K, nbest=K) \
+        if nbest_too else None
+    torch.cuda.synchronize()
+    by_k = {k: n for (name, k), n in _build.launches_by_k.items()
+            if name == "topk_project"}
+    return dict(_build.launch_counts), by_k, cap.decode_steps, first, nb
+
+
+def eos_raised_model(cap, feats, k: int, share: float):
+    """A copy of the model whose b_out[<eos>] is raised so that <eos> ranks
+    within the top ``k`` at the first step on about ``share`` of the rows of
+    ``feats`` (a finished pool needs hypotheses that finish)."""
+    model = copy.deepcopy(cap.model)
+    with torch.inference_mode():
+        st = model.init_state(torch.tensor(feats, device="cuda"))
+        _, logits = model.decoder.step(st, torch.full(
+            (feats.shape[0],), BOS, dtype=torch.long, device="cuda"))
+        kth = logits.sort(1, descending=True).values[:, k - 1]
+        gap = torch.quantile(kth - logits[:, EOS], share).item()
+    with torch.no_grad():
+        model.decoder.out_proj.bias[EOS] += gap
+    return model, gap
+
+
+def phase_beam_variants(cap, trials, floor: float):
+    """(b) the int8 beam and (c) the pool through Captioner at B=184 on
+    phase 4's weights and inputs: the launches of each main path, the rows
+    against the plain CPU path (at or above ``floor``, phase 4's), and
+    captions/s beside the bf16 beam, interleaved."""
+    out, problems = {}, []
+    cfg = cap.cfg
+    cap8 = Captioner(replaced(cfg, "decode", int8_vocab_projection=True),
+                     cap.model, cap.dataset, cap.device)
+    launches, _, steps, first, _ = beam_main_path(cap8, trials)
+    if launches != counts(beam_core=steps, topk_project_int8=steps):
+        problems.append(f"int8 beam: launches {launches} for {steps} steps")
+    rows = rows_vs_cpu(cap8, trials, K, pool=False)
+    with torch.inference_mode():
+        st = tile_recurrent(cap.model.init_state(
+            torch.tensor(trials[0], device="cuda")), K)
+        fused = _build.counted(lambda: beam_decode(
+            fused_beam_step(cap8._beam_weights, K), st, batch=B,
+            max_len=cfg.decode.max_len, beam_width=K,
+            early_exit=True)[0])[0]
+    if not np.array_equal(fused.cpu().numpy(), first):
+        problems.append("the int8 Captioner decode differs from the fused "
+                        "int8 beam_decode")
+    flips = float((first != cap.decode_batch(trials[0], beam_width=K)).any(
+        1).mean())
+    out["int8"] = dict(launches=launches, steps=steps,
+                       identical_rows_vs_cpu_plain=rows,
+                       rows_flipped_vs_bf16=flips)
+    if float(np.mean(rows)) < floor:
+        problems.append(f"int8 beam: {rows} of the rows identical to the "
+                        f"plain CPU path, below {floor}")
+
+    eos_model, raise_by = eos_raised_model(cap, trials[0], K + 1, 0.3)
+    pools = {"lp0.6": replaced(cfg, "decode", length_penalty=0.6),
+             "finished_pool=on": replaced(cfg, "decode", finished_pool="on")}
+    walls_caps = {"bf16 beam": cap, "int8 beam": cap8}
+    for name, pcfg in pools.items():
+        pc = Captioner(pcfg, eos_model, cap.dataset, cap.device)
+        launches, by_k, steps, _, nb = beam_main_path(pc, trials, True)
+        finished = float((nb == EOS).any(2).any(1).mean())
+        if launches != counts(beam_core=steps, topk_project=steps) or \
+                by_k != {K + 1: steps}:
+            problems.append(f"pool {name}: launches {launches}, K2 by K "
+                            f"{by_k} for {steps} steps")
+        if nb.shape != (B, K, cfg.decode.max_len) or not 0 < finished:
+            problems.append(f"pool {name}: nbest {nb.shape}, {finished} of "
+                            "the videos with a finished hypothesis")
+        rows = rows_vs_cpu(pc, trials[:1], K + 1, pool=True)
+        if rows[0] < floor:
+            problems.append(f"pool {name}: {rows} of the rows identical to "
+                            f"the plain CPU path, below {floor}")
+        out[name] = dict(launches=launches, k2_launches_by_k=by_k,
+                         steps=steps, identical_rows_vs_cpu_plain=rows,
+                         videos_with_a_finished_hypothesis=finished,
+                         eos_bias_raised_by=raise_by)
+        walls_caps[f"pool {name}"] = pc
+    out["captions_per_s"] = decode_walls(walls_caps, trials, beam_width=K)
+    return out, problems
+
+
+def replay_greedy(cap, cpu, f, toks):
+    """The same decoder on the CPU fed the card's greedy tokens ``toks``:
+    at each live step, the CPU's pick against the card's where the CPU's
+    top-2 margin exceeds K3_LOGIT_TOL, and |card logit − CPU logit| from
+    the card's own step on the same tokens. Returns (picks that differ
+    where the margin is clear, clear steps, live steps, max |Δ logit|)."""
+    toks = torch.as_tensor(toks).long()
+    n = f.shape[0]
+    bad = clear = live_steps = 0
+    worst = 0.0
+    with torch.inference_mode():
+        sc = cap.model.init_state(torch.tensor(f, device="cuda"))
+        sp = cpu.model.init_state(torch.tensor(f))
+        prev = torch.full((n,), BOS, dtype=torch.long)
+        live = torch.ones(n, dtype=torch.bool)
+        for t in range(toks.shape[1]):
+            if not live.any():
+                break
+            sc, lc = cap.model.decoder.step(sc, prev.cuda())
+            sp, lp = cpu.model.decoder.step(sp, prev)
+            top2 = lp.topk(2, -1).values
+            sure = live & (top2[:, 0] - top2[:, 1] > K3_LOGIT_TOL)
+            bad += int(((lp.argmax(-1) != toks[:, t]) & sure).sum())
+            clear += int(sure.sum())
+            live_steps += int(live.sum())
+            worst = max(worst, (lc.cpu() - lp)[live].abs().max().item())
+            live = live & (toks[:, t] != EOS)
+            prev = toks[:, t]
+    return bad, clear, live_steps, worst
+
+
+def checked_module_beam(cap, cpu, f):
+    """The card's beam-5 of a module decoder, each step checked against the
+    same step on the CPU from the same state and tokens: h and c within
+    K1_TOL, the top-K log-probs within K3_LOGIT_TOL, and the top-K columns
+    equal where the CPU's K-th and (K+1)-th are further apart than that.
+    Returns (the tokens, steps where the columns differ on a clear row,
+    clear rows, rows, max |Δ h, c|, max |Δ logp|); its launches are taken
+    back out of the counts."""
+    kproj = cap._vocab_proj
+    pproj = VocabProjection.from_model(cpu.model, projection_kernel(cpu.cfg))
+    kstep = module_beam_step(cap.model, K, kproj)
+    pdec = cpu.model.decoder
+    tally = dict(bad=0, clear=0, rows=0, h_c=0.0, logp=0.0)
+
+    def step(st, tok):
+        st_k, lk, ik = kstep(st, tok)
+        st_p, h_p = pdec.step_beam_hidden(moved(st, "cpu"), tok.cpu(), K)
+        lp, ip = pproj.topk(h_p, K + 1)
+        tally["h_c"] = max(tally["h_c"],
+                           (st_k.h.cpu() - st_p.h).abs().max().item(),
+                           (st_k.c.cpu() - st_p.c).abs().max().item())
+        sure = lp[:, K - 1] - lp[:, K] > K3_LOGIT_TOL
+        same = (ik.cpu().sort(1).values == ip[:, :K].sort(1).values).all(1)
+        tally["bad"] += int((~same & sure).sum())
+        tally["clear"] += int(sure.sum())
+        tally["rows"] += sure.numel()
+        d = (lk.cpu() - lp[:, :K]).abs()[same]
+        tally["logp"] = max(tally["logp"], d.max().item() if d.numel()
+                            else 0.0)
+        return st_k, lk, ik
+
+    def run():
+        with torch.inference_mode():
+            st = tile_recurrent(cap.model.init_state(
+                torch.tensor(f, device="cuda")), K)
+            return beam_decode(step, st, batch=f.shape[0],
+                               max_len=cap.cfg.decode.max_len, beam_width=K,
+                               early_exit=cap.cfg.decode.early_exit)[0]
+    toks = _build.counted(run)[0]
+    return (toks.cpu().numpy(), tally["bad"], tally["clear"], tally["rows"],
+            tally["h_c"], tally["logp"])
+
+
+def phase_other_decoders(k3_floor: float):
+    """(d) the decoders no kernel covers at msvd_greedy's width, B=32,
+    seeded weights, N(0,1) features: greedy and beam-5 on the card, K1 and
+    K3 never launched, K2 once a beam step for bf16 weights and no kernel
+    for the f32 beam; each held to the same decoder on the CPU step by
+    step along the card's own tokens (greedy: the picks where the CPU's
+    top-2 margin is clear; beam: h/c, the top-K and its columns, as phase
+    4 holds K1/K2; random weights leave few beam rows whose K-th and
+    (K+1)-th candidates are further apart than the tolerance, so the
+    columns are compared on those and the values on every row whose
+    columns agree); ms a decode (medians of 3 inputs).
+
+    The rows identical to the CPU's own decode, over the 3 inputs, are
+    held to a floor. For f32 it is phase 6's (``k3_floor``). A bf16 decoder
+    on the card rounds to bf16 where the CPU does and sums its f32 products
+    in another order, a smaller change than leaving bf16 out; its witness
+    is that change: the share of rows the CPU's bf16 decode keeps
+    identical to the CPU's decode of the same weights in f32. Its floor is
+    that share less ROW_SLACK, or phase 6's where that is lower."""
+    out, problems = {}, []
+    g = np.random.default_rng(161)
+    trials = [g.normal(size=(BG, T, D)).astype(np.float32) for _ in range(3)]
+    ids = [f"video{i}" for i in range(BG)]
+    base = get_preset("msvd_greedy")
+    for name, over in OTHER_DECODERS:
+        cfg = replaced(base, "model", **over)
+        ds = CaptionDataset(trials[0], ids, {v: [] for v in ids}, cfg.data,
+                            vocab=vocab_of(VOCAB_G))
+        cap = Captioner.from_checkpoint(cfg, ds)
+        cpu = Captioner(cfg, copy.deepcopy(cap.model).cpu(), ds,
+                        torch.device("cpu"))
+        cpu32 = None
+        if cfg.model.compute_dtype == "bfloat16":
+            cfg32 = replaced(cfg, "model", compute_dtype="float32")
+            m32 = create_model(cfg32, vocab_size=ds.vocab.size)
+            m32.load_state_dict(cpu.model.state_dict())
+            cpu32 = Captioner(cfg32, m32.eval(), ds, torch.device("cpu"))
+        row = {}
+        for method in ("greedy", "beam"):
+            _build.reset_counts()
+            cap.decode_steps = 0
+            cap.decode_batch(trials[0], method=method, beam_width=K)
+            walls, outs = [], []
+            for f in trials:
+                t0 = time.perf_counter()
+                outs.append(cap.decode_batch(f, method=method, beam_width=K))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            launches, steps = dict(_build.launch_counts), cap.decode_steps
+            want = counts(topk_project=steps if method == "beam"
+                          and cfg.model.compute_dtype == "bfloat16" else 0)
+            if launches != want:
+                problems.append(f"{name} {method}: launches {launches}, "
+                                f"want {want}")
+            ref = [cpu.decode_batch(f, method=method, beam_width=K)
+                   for f in trials]
+            same = [float((o == r).all(1).mean()) for o, r in zip(outs, ref)]
+            agree = dict(identical_rows_vs_cpu=same)
+            floor = k3_floor
+            if cpu32 is not None:
+                f32 = [cpu32.decode_batch(f, method=method, beam_width=K)
+                       for f in trials]
+                agree.update(
+                    witness_cpu_bf16_vs_cpu_f32=[
+                        float((r == e).all(1).mean())
+                        for r, e in zip(ref, f32)],
+                    card_vs_cpu_f32=[float((o == e).all(1).mean())
+                                     for o, e in zip(outs, f32)])
+                floor = min(k3_floor, float(np.mean(
+                    agree["witness_cpu_bf16_vs_cpu_f32"])) - ROW_SLACK)
+            agree["floor"] = floor
+            if float(np.mean(same)) < floor:
+                problems.append(f"{name} {method}: rows identical to the "
+                                f"CPU's {same}, below {floor}: {agree}")
+            if method == "greedy":
+                checks = [replay_greedy(cap, cpu, f, o)
+                          for f, o in zip(trials, outs)]
+                bad, clear, live = (sum(c[i] for c in checks)
+                                    for i in range(3))
+                worst = max(c[3] for c in checks)
+                step_check = dict(picks_differing_where_clear=bad,
+                                  clear_steps=clear, live_steps=live,
+                                  max_abs_logit_diff=worst)
+                if bad or clear < 0.1 * live:
+                    problems.append(f"{name} greedy vs the CPU step by "
+                                    f"step: {step_check}")
+            else:
+                toks, bad, clear, rows, h_c, logp = checked_module_beam(
+                    cap, cpu, trials[0])
+                step_check = dict(columns_differing_where_clear=bad,
+                                  clear_rows=clear, rows=rows,
+                                  max_abs_h_c_diff=h_c,
+                                  max_abs_logp_diff=logp)
+                if not np.array_equal(toks, outs[0]):
+                    problems.append(f"{name}: the checked beam differs from "
+                                    "the Captioner's")
+                if bad or h_c > K1_TOL or logp > K3_LOGIT_TOL:
+                    problems.append(f"{name} beam vs the CPU step by step: "
+                                    f"{step_check}")
+            row[method] = dict(ms_a_decode=float(np.median(walls)),
+                               launches=launches, steps=steps, **agree,
+                               step_by_step=step_check)
+        out[name] = row
+    return out, problems
+
+
+def phase_scst_two_layers(ds):
+    """(e) a two-layer SCST step at scst_cider's width (B=32) on phase 9's
+    corpus: the captured step against the eager body from the same init and
+    seeds, DISPATCH_STEPS steps (bit for bit where two eager runs are, else
+    within twice their difference, phase 14's rule), no kernel launched;
+    ms a step, eager and captured."""
+    cfg = replaced(get_preset("scst_cider"), "model", num_lstm_layers=2)
+    init = init_params(create_model(cfg, VOCAB_G),
+                       cfg.train.seed).cuda().state_dict()
+    tables = tables_from_dataset(ds).to("cuda")
+    setup = lambda stage, accum: stage_setup(cfg, init, tables, stage, accum)
+    it = DeterministicBatcher(ds, BG, seed=0)
+    batches = [batch_to_device_dict(next(it)) for _ in range(DISPATCH_STEPS)]
+    seeds = torch.randint(0, 2**31 - 1, (DISPATCH_STEPS, 1),
+                          generator=torch.Generator().manual_seed(16))
+    _build.reset_counts()
+    runs = [run_eager(setup, "scst", 1, batches, seeds) for _ in range(2)]
+    floor = parting(*runs)
+    state, body = setup("scst", 1)
+    fn = make_step(body, "cuda")
+    rec = {}
+    for j, d in enumerate(chunks(batches, seeds, 1, False)):
+        state, m = fn(state, d)
+        rec.update({f"step {j + 1} {key}": v.clone() for key, v in m.items()})
+    torch.cuda.synchronize()
+    rec.update(state_of(state))
+    capt = parting(runs[0], rec)
+    walls = {}
+    for how in ("eager", "captured"):
+        state, body = setup("scst", 1)
+        step = body if how == "eager" else make_step(body, "cuda")
+        w = []
+        for i in range(6):
+            b = batches[i % DISPATCH_STEPS]
+            d = ({k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+                 if how == "eager" else dict(b))
+            d["seed"] = seeds[i % DISPATCH_STEPS]
+            t0 = time.perf_counter()
+            state, _ = step(state, d)
+            torch.cuda.synchronize()
+            if i:
+                w.append((time.perf_counter() - t0) * 1e3)
+        walls[how] = float(np.median(w))
+    launches = dict(_build.launch_counts)
+    out = dict(eager_vs_eager=floor[0], captured_vs_eager=capt[0],
+               captured_parts_at=capt[1], limit=2 * floor[0],
+               ms_a_step=walls, launches=launches,
+               loss=[rec[f"step {j + 1} loss"].item()
+                     for j in range(DISPATCH_STEPS)])
+    problems = []
+    if capt[0] > 2 * floor[0] or rec["count"].item() != DISPATCH_STEPS:
+        problems.append(f"two-layer SCST captured vs eager: {out}")
+    if launches != counts():
+        problems.append(f"two-layer SCST launched {launches}")
+    return out, problems
+
+
+def phase_cli_decode_surface(tmp: str):
+    """(f) the CLI, all at once: ``info --preset msrvtt_attn_beam5 --json``
+    (the card's name and memory, the census), ``caption --set
+    decode.int8_vocab_projection=true`` (K1 = K2-int8 = steps), ``caption
+    --set decode.length_penalty=0.6 --nbest 3`` (K1 = K2 = steps, three
+    captions a video) and ``export`` of an int8 beam artifact at B=32;
+    then ``caption --from-export`` of it, equal to the in-process int8
+    decode of the same split in batches of 32."""
+    preset = "msrvtt_attn_beam5"
+    cfg = get_preset(preset)
+    weights = os.path.join(tmp, "w16.npz")
+    save_weights(init_params(create_model(cfg, VP), cfg.train.seed), weights)
+    int8 = ["--set", "decode.int8_vocab_projection=true"]
+    src = ["--preset", preset, "--weights", weights]
+    pipes = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    art = os.path.join(tmp, "art_int8")
+
+    def finish(procs):
+        res = {}
+        for name, p in procs.items():
+            try:
+                o, e = p.communicate(timeout=600)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            if p.returncode != 0:
+                fail(f"phase 16 {name} exited {p.returncode}: {e[-3000:]}")
+            res[name] = (o, e)
+        return res
+
+    t0 = time.perf_counter()
+    res = finish({
+        "info": port_proc(["info", "--preset", preset, "--json"], tmp,
+                          **pipes),
+        "caption int8": port_proc(["caption", *src, *int8, "--out",
+                                   "int8.json"], tmp, **pipes),
+        "caption lp0.6 nbest3": port_proc(
+            ["caption", *src, "--set", "decode.length_penalty=0.6",
+             "--nbest", "3", "--out", "pool.json"], tmp, **pipes),
+        "export int8": port_proc(["export", *src, *int8, "--batch", "32",
+                                  "--out", art], tmp, **pipes)})
+    res.update(finish({"caption --from-export int8": port_proc(
+        ["caption", "--preset", preset, "--from-export", art, "--out",
+         "exported.json"], tmp, **pipes)}))
+    wall = time.perf_counter() - t0
+    problems, out = [], dict(cli_wall_s=wall)
+    info = json.loads(res["info"][0])
+    props = torch.cuda.get_device_properties(0)
+    b = info.get("backend", {})
+    if b.get("device_kind") != torch.cuda.get_device_name(0) or \
+            b.get("total_memory_bytes") != props.total_memory or \
+            info["params"] != param_census(cfg):
+        problems.append(f"info: backend {b}, params {info['params']}")
+    out["info"] = dict(backend=b, params=info["params"])
+    read = lambda f: json.load(open(os.path.join(tmp, f)))
+    for name, f, kernel, nbest in (
+            ("caption int8", "int8.json", "topk_project_int8", 1),
+            ("caption lp0.6 nbest3", "pool.json", "topk_project", 3),
+            ("caption --from-export int8", "exported.json",
+             "topk_project_int8", 1)):
+        method, decodes, steps, launches, _ = launch_line(res[name][1], name)
+        caps = read(f)
+        if method != "beam" or steps < 1 or launches != counts(
+                beam_core=steps, **{kernel: steps}) or not caps or not all(
+                len(c) == nbest for c in caps.values()):
+            problems.append(f"{name}: {method}, {steps} steps, launches "
+                            f"{launches}, {len(caps)} videos")
+        out[name] = dict(decodes=decodes, steps=steps, launches=launches,
+                         videos=len(caps))
+    cfg8 = replaced(cfg, "decode", int8_vocab_projection=True)
+    ds = CaptionDataset.synthetic(cfg8.data)
+    live = Captioner.from_checkpoint(cfg8, ds, weights=weights)
+    want = _build.counted(lambda: live.caption_dataset(
+        method="beam", beam_width=K, batch_size=SERVE_B))[0]
+    if read("exported.json") != want:
+        problems.append("caption --from-export of the int8 artifact differs "
+                        "from the in-process int8 decode")
+    out["exported_equals_live"] = read("exported.json") == want
+    return out, problems
+
+
+def phase_decode_surface(cap, trials, beam_floor, k3_floor, ds):
+    """Phase 16: (a)-(f); returns (the K2-int8 kernel line, the readings,
+    the launches of the main paths by kernel)."""
+    t0 = time.perf_counter()
+    k28, k28_out = phase_k2_int8()
+    out, problems = {"k2_int8": k28_out}, []
+    for key, fn in (("beams", lambda: phase_beam_variants(
+                        cap, trials, beam_floor)),
+                    ("other_decoders", lambda: phase_other_decoders(
+                        k3_floor)),
+                    ("scst_two_layers", lambda: phase_scst_two_layers(ds))):
+        t1 = time.perf_counter()
+        out[key], p = fn()
+        out[key + "_s"] = time.perf_counter() - t1
+        problems += p
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        out["cli"], p = phase_cli_decode_surface(tmp)
+        out["cli_s"] = time.perf_counter() - t1
+        problems += p
+    out["seconds"] = time.perf_counter() - t0
+    if problems:
+        fail("phase 16: " + "; ".join(problems) + " | "
+             + json.dumps({**out, "k2_int8_kernel": k28}, default=str))
+    launched = {k: 0 for k in _build.KERNELS}
+    for lc in ([out["beams"][n]["launches"] for n in
+                ("int8", "lp0.6", "finished_pool=on")]
+               + [r[m]["launches"] for r in out["other_decoders"].values()
+                  for m in ("greedy", "beam")]
+               + [out["cli"][n]["launches"] for n in (
+                   "caption int8", "caption lp0.6 nbest3",
+                   "caption --from-export int8")]):
+        for k, n in lc.items():
+            launched[k] += n
+    return k28, out, launched
+
+
+def phase16_line(card, cap, trials, e2e, k3_floor, ds):
+    """Runs phase 16 and prints its line: (the K2-int8 kernel line, the
+    main paths' launches by kernel)."""
+    beam_floor = min(e2e["identical_rows_plain_cpu_vs_card_by_trial"]) \
+        - ROW_SLACK
+    k28, out, launched = phase_decode_surface(cap, trials, beam_floor,
+                                              k3_floor, ds)
+    print(f"phase 16 the rest of the decode surface (K2-int8 N={B * K} "
+          f"H={H} Vp={VP}; int8 and pool beams B={B}; other decoders and "
+          f"two-layer SCST B={BG}; the CLI) on {card}: " + json.dumps(
+              {**out, "k2_int8_kernel": k28, "row_floors": {
+                  "beam": beam_floor, "k3": k3_floor}, "tolerance": {
+                  "k2_int8": "h8/hscale bit for bit; columns equal where "
+                  "the K-th and (K+1)-th logits are more than one bf16 ulp "
+                  "apart; values within one bf16 ulp of the row's largest "
+                  "|logit| + 1e-4; two runs identical",
+                  "other_decoders": "vs the CPU step by step along the "
+                  "card's tokens: greedy picks equal where the CPU's top-2 "
+                  f"margin > {K3_LOGIT_TOL}; beam h/c within {K1_TOL}, "
+                  f"top-K logp within {K3_LOGIT_TOL}, columns equal where "
+                  "the K-th and (K+1)-th are further apart; rows identical "
+                  "to the CPU's decode >= phase 6's floor (f32), else the "
+                  "share the CPU's bf16 decode keeps of its f32 decode "
+                  f"less {ROW_SLACK} where lower",
+                  "captured_vs_eager": "equal where two eager runs are, "
+                  "else 2x their max |diff|"}}), flush=True)
+    return k28, launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -2528,7 +3184,7 @@ def main() -> int:
          "tolerance": "one bf16 ulp of the row's largest |logit| + 1e-4",
          "exact_rows": exact_rows}), flush=True)
 
-    e2e = phase_end_to_end()
+    e2e, beam_cap, beam_trials = phase_end_to_end()
     print(f"phase 4 end to end msrvtt_attn_beam5 B={B} beam {K} on {card}: "
           + json.dumps(e2e), flush=True)
 
@@ -2587,6 +3243,8 @@ def main() -> int:
                   "backbone_bf16_rel_l2": BB_BF16_TOL,
                   "captured_vs_eager": "equal where two eager runs are, "
                   "else 2x their max |diff|"}}), flush=True)
+    k28, launched16 = phase16_line(card, beam_cap, beam_trials, e2e,
+                                   row_floor, ds)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]
@@ -2601,7 +3259,8 @@ def main() -> int:
     # phase 9's SCST steps, phase 10's validation, phase 12's greedy serve
     # and phase 13's serve --from-export (the servers' warmups included),
     # phase 14's captured steps (counted per replay) and its CLI's stage
-    # lines.
+    # lines; phase 16's int8 and pool beams, other decoders' beams and CLI
+    # captions for K1, K2 and K2-int8 (K3 none there).
     k3["launches"] = (sum(r["launches"]["rollout"] for r in roll.values())
                       + scst["launches"]["rollout"]
                       + cli_train["validation_rollout_launches"]
@@ -2614,12 +3273,16 @@ def main() -> int:
                             in pixels["cli"]["stage_lines"]
                             + pixels["cli"]["resume_stage_lines"])
                       + pixels["cli"]["caption_launches"]["rollout"])
+    k3["launches"] += launched16["rollout"]
+    k28["launches"] = launched16["topk_project_int8"]
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]
                                        + offline["train_launches"][k["name"]]
                                        + offline["caption_launches"][k["name"]]
                                        + sum(r["launches"][k["name"]]
-                                             for r in served_beam))
-                                  for k in (k1, k2)] + [k3]}), flush=True)
+                                             for r in served_beam)
+                                       + launched16[k["name"]])
+                                  for k in (k1, k2)] + [k28, k3]}),
+          flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
                                           rollout, rollout_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
-from vidcap_tpu_torch.models.decoding import Rollout
+from vidcap_tpu_torch.models.decoding import Rollout, tile_recurrent
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.objectives.xe import shift_right
 from vidcap_tpu_torch.train.loop import batch_to_device, batch_to_device_dict
@@ -257,7 +257,7 @@ def test_captioner_greedy_and_sample_go_through_the_rollout_kernel(dev):
     assert len(greedy) == len(sample) == 12
     assert cap.decode_calls == 4 and cap.decode_steps == 4 * cap.max_len
     assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
-                                    "rollout": 4}
+                                    "topk_project_int8": 0, "rollout": 4}
     feats = cap.dataset.features[:8]
     a, b, c = (cap.decode_batch(feats, method="sample", seed=s)
                for s in (7, 7, 8))
@@ -277,7 +277,7 @@ def test_captioner_beam_goes_through_both_kernels(dev):
     assert cap.decode_steps >= 2
     assert _build.launch_counts == {"beam_core": cap.decode_steps,
                                     "topk_project": cap.decode_steps,
-                                    "rollout": 0}
+                                    "topk_project_int8": 0, "rollout": 0}
 
 
 def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
@@ -299,7 +299,7 @@ def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
     sample, greedy = step.rollouts(state, batch, seed=5)
     torch.cuda.synchronize()
     assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
-                                    "rollout": 2}
+                                    "topk_project_int8": 0, "rollout": 2}
     with torch.no_grad():
         st = state.model.init_state(batch["features"])
         w = RolloutWeights.from_model(state.model)
@@ -325,15 +325,17 @@ def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
     assert any(not torch.equal(p, before[k]) for k, p in state.params.items())
 
 
-def _eager_twice_and_captured(dev, stage, k):
-    """Three runs of 4 steps of ``stage`` on synthetic_tiny from the seeded
-    init at B=32: the eager body twice, then the dispatched step (captured
-    on the card; banked K-step chunks when k > 1) on the same batches and
-    seeds. Returns the three runs' metrics and states, flattened."""
+def _eager_twice_and_captured(dev, stage, k, **model):
+    """Three runs of 4 steps of ``stage`` on synthetic_tiny (its ``model``
+    fields replaced by ``model``) from the seeded init at B=32: the eager
+    body twice, then the dispatched step (captured on the card; banked
+    K-step chunks when k > 1) on the same batches and seeds. Returns the
+    three runs' metrics and states, flattened."""
     cfg = get_preset("synthetic_tiny")
     ds = CaptionDataset.synthetic(cfg.data)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, stage=stage, batch_size=32))
+        cfg.train, stage=stage, batch_size=32), model=dataclasses.replace(
+            cfg.model, **model))
     it = DeterministicBatcher(ds, 32, seed=0)
     batches = [batch_to_device_dict(next(it)) for _ in range(4)]
     seeds = torch.randint(0, 2**31 - 1, (4, 1),
@@ -388,3 +390,116 @@ def test_captured_step_equals_eager(dev, stage, k):
     floor = _max_diff(eager, again)
     assert _max_diff(eager, captured) <= 2 * floor
     assert int(captured["count"]) == 4
+
+
+# ------------------------------------------------ K2's int8 variant, the pool
+
+def _int8_inputs(dev, N, H, Vp, vocab, seed):
+    from vidcap_tpu_torch.ops.int8_proj import Int8Projection
+    g = np.random.default_rng(seed)
+    W = torch.tensor(g.normal(size=(H, Vp)) / np.sqrt(H), dtype=torch.float32)
+    b = torch.tensor(g.normal(size=Vp) * 0.1, dtype=torch.float32)
+    dense = type("Dense", (), {"kernel": W, "bias": b})
+    proj = Int8Projection.from_dense(dense, vocab)
+    proj = Int8Projection(*(t.to(dev) for t in (proj.w8t, proj.wscale,
+                                                 proj.bq)))
+    h = torch.tensor(np.tanh(g.normal(size=(N, H))), dtype=torch.float32,
+                     device=dev)
+    return h, proj
+
+
+@pytest.mark.parametrize("N,H,Vp,vocab,K", [
+    (16, 64, 256, 200, 5),      # vocab_size < Vp: bq holds -1e30 past it
+    (24, 64, 264, 264, 8),      # a ragged last tile of 8 columns; K = 8
+    (70, 32, 512, 100, 6),      # two 64-row tiles, the last one ragged
+    (920, 512, 16000, 16000, 6),   # the pool at msrvtt_attn_beam5 width
+])
+def test_topk_project_int8_matches_plain(dev, N, H, Vp, vocab, K):
+    """The quantized rows and scales bit for bit; the logits are the plain
+    version's exactly (the same int32 sums and rounding chain), so the
+    columns are equal and the values within the f32 lse's error."""
+    from vidcap_tpu_torch.ops.int8_proj import (int8_topk_project_plain,
+                                                quantize_rows,
+                                                topk_project_int8)
+    h, proj = _int8_inputs(dev, N, H, Vp, vocab, seed=N + K)
+    n = _build.launch_counts["topk_project_int8"]
+    v_k, i_k, h8, hs = topk_project_int8(h, proj, K, return_quantized=True)
+    v_p, i_p = int8_topk_project_plain(h, proj, K)
+    h8_p, hs_p = quantize_rows(h)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["topk_project_int8"] == n + 1
+    assert torch.equal(h8, h8_p) and torch.equal(hs, hs_p)
+    assert torch.equal(i_k, i_p)
+    assert (v_k - v_p).abs().max().item() <= 1e-4
+    again = topk_project_int8(h, proj, K)
+    assert torch.equal(again[0], v_k) and torch.equal(again[1], i_k)
+
+
+def test_pool_beam_width_is_capped_by_k2(dev):
+    """The pool takes K+1 candidates a row and K2 at most 8: beam width 7
+    runs, K2 at K=8 on every step, and 8 raises a ValueError that names
+    the limit."""
+    cfg = dataclasses.replace(get_preset("synthetic_tiny"), decode=dataclasses
+                              .replace(get_preset("synthetic_tiny").decode,
+                                       finished_pool="on"))
+    cap = Captioner.from_checkpoint(cfg, CaptionDataset.synthetic(
+        cfg.data, num_videos=4))
+    feats = np.zeros((4, cfg.data.num_frames, cfg.data.feature_dim),
+                     np.float32)
+    _build.reset_counts()
+    cap.decode_steps = 0
+    assert cap.decode_batch(feats, beam_width=7).shape == (4, cap.max_len)
+    assert _build.launches_by_k == {("topk_project", 8): cap.decode_steps}
+    with pytest.raises(ValueError, match="at most 7"):
+        cap.decode_batch(feats, beam_width=8)
+
+
+@pytest.mark.parametrize("over,beam_kernel", [
+    ({"num_lstm_layers": 2}, "topk_project"),
+    ({"use_attention": False}, "topk_project"),
+    ({"compute_dtype": "float32"}, None)])
+def test_other_decoders_launch_no_recurrent_kernel(dev, over, beam_kernel):
+    """The decoders no kernel covers decode through their modules on the
+    card: K1 and K3 launch 0 times; the bf16 beam launches K2 once a step,
+    the f32 beam no kernel; the f32 beam's hidden state stays f32."""
+    base = get_preset("synthetic_tiny")
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model,
+                                                              **over))
+    cap = Captioner.from_checkpoint(cfg, CaptionDataset.synthetic(
+        cfg.data, num_videos=8))
+    feats = np.random.default_rng(0).normal(
+        size=(8, cfg.data.num_frames, cfg.data.feature_dim)).astype(
+            np.float32)
+    _build.reset_counts()
+    cap.decode_steps = 0
+    cap.decode_batch(feats, method="greedy")
+    cap.decode_batch(feats, method="sample", seed=1)
+    assert sum(_build.launch_counts.values()) == 0
+    cap.decode_steps = 0
+    cap.decode_batch(feats, method="beam", beam_width=3)
+    want = {k: 0 for k in _build.KERNELS}
+    if beam_kernel:
+        want[beam_kernel] = cap.decode_steps
+    assert _build.launch_counts == want
+    if cfg.model.compute_dtype == "float32":
+        st = cap.model.init_state(torch.tensor(feats, device=dev))
+        st, h = cap.model.decoder.step_beam_hidden(
+            tile_recurrent(st, 3), torch.full((24,), 1, device=dev), 3)
+        assert h.dtype == torch.float32
+        assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_two_layer_scst_captured_equals_eager(dev, k):
+    """A decoder no kernel covers in a captured SCST step: both rollouts
+    through its modules inside the graph (the seed read from the graph's
+    buffer, the counter hash's step a host scalar, so no copy to the
+    device during capture), equal to the eager body as
+    test_captured_step_equals_eager holds it; no kernel launched."""
+    _build.reset_counts()
+    eager, again, captured = _eager_twice_and_captured(
+        dev, "scst", k, num_lstm_layers=2)
+    floor = _max_diff(eager, again)
+    assert _max_diff(eager, captured) <= 2 * floor
+    assert int(captured["count"]) == 4
+    assert sum(_build.launch_counts.values()) == 0

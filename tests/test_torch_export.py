@@ -21,6 +21,7 @@ import torch
 
 from test_torch_serving import (F32, cap, cfg, jax_side, post_npy,  # noqa: F401
                                 port_captioner)
+from test_torch_slice import kernel_route  # noqa: F401
 from vidcap_tpu.cli.main import main as jax_main
 from vidcap_tpu.export import ExportedCaptioner as JaxExported
 from vidcap_tpu.export import export_decoder as jax_export_decoder
@@ -89,6 +90,19 @@ def test_export_round_trip_token_parity(cfg, cap, jax_side, jax_artifact,
         assert sorted(f.files) == sorted(flat)
         for k in flat:
             np.testing.assert_array_equal(f[k], np.asarray(flat[k]))
+
+
+@pytest.mark.parametrize("method", ["greedy", "beam"])
+def test_export_round_trip_token_parity_on_the_kernel_route(
+        cfg, jax_side, jax_artifact, tmp_path, kernel_route, method):
+    """The same tokens with the f32 decoder on the kernel decoder's steps,
+    live and from the artifact (K1/K2's and K3's plain versions here)."""
+    test_export_round_trip_token_parity(
+        cfg, port_captioner(cfg, jax_side[1]), jax_side, jax_artifact,
+        tmp_path, method)
+    # the live decode, the artifact's tokens and its captions
+    assert kernel_route["fused_beam_step" if method == "beam"
+                        else "model_rollout"] == 3
 
 
 @pytest.mark.parametrize("method", ["greedy", "beam"])

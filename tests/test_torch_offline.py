@@ -24,7 +24,8 @@ import sys
 import numpy as np
 import pytest
 
-from test_torch_slice import PYTHONPATH, run_jax_scripts
+from test_torch_slice import (PYTHONPATH, kernel_route,  # noqa: F401
+                              run_jax_scripts)
 from vidcap_tpu.cli.main import main as jax_main
 from vidcap_tpu.config import DataConfig as JaxDataConfig
 from vidcap_tpu.data import feature_io as jax_io
@@ -211,6 +212,17 @@ def test_validation_rows_and_best_step_equal_jax(jax_runs, tmp_path,
     again = run_validation(cfg, fresh, ds)
     assert again == {k: port[4][f"eval_{k}"] for k in SCORES}
     assert state.model.training
+
+
+@pytest.mark.parametrize("method", ["greedy", "beam"])
+def test_validation_rows_and_best_step_equal_jax_on_the_kernel_route(
+        jax_runs, tmp_path, kernel_route, method):
+    """The same rows and best step with the f32 decoder on the kernel
+    decoder's steps (K1/K2's and K3's plain versions here), whose weights
+    a Captioner casts once: validation must not decode stale casts."""
+    test_validation_rows_and_best_step_equal_jax(jax_runs, tmp_path, method)
+    assert kernel_route["fused_beam_step" if method == "beam"
+                        else "model_rollout"] > 0
 
 
 def test_validation_leaves_training_exact(tmp_path):
@@ -633,7 +645,6 @@ def test_cli_offline_path_through_subprocesses(tmp_path):
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["info"], "ROADMAP Queue 1 item 14"),
     (["serve", "--sharded"], "ROADMAP Queue 1 item 12"),
     (["caption", "--from-export", "JAX_ARTIFACT"],
      "artifact of the JAX package")])

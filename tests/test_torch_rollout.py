@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_slice import F32, PYTHONPATH, run_jax_scripts
+from test_torch_slice import (F32, PYTHONPATH, kernel_route,  # noqa: F401
+                              run_jax_scripts)
 from vidcap_tpu.config import PRESETS as JAX_PRESETS
 from vidcap_tpu.config import apply_overrides as jax_apply_overrides
 from vidcap_tpu.models.decoding import greedy_decode as jax_greedy_decode
@@ -133,6 +134,17 @@ def test_greedy_caption_json_identical_to_jax_float32(jax_rollouts):
     cap = _captioner(weights, over)
     assert cap.caption_dataset(method="greedy") == caps["xla_greedy"]
     assert cap.decode_calls == 2 and cap.decode_steps == 2 * cap.max_len
+
+
+def test_greedy_caption_json_identical_to_jax_float32_on_the_kernel_route(
+        jax_rollouts, kernel_route):
+    """The f32 decoder's greedy runs through its modules; the same JSON
+    through K3's wiring (``model_rollout``, K3's plain version here)."""
+    caps, weights, over, _ = jax_rollouts["float32"]
+    cap = _captioner(weights, over)
+    assert cap.caption_dataset(method="greedy") == caps["xla_greedy"]
+    assert kernel_route["model_rollout"] == 2
+    assert cap._rollout_weights is not None
 
 
 def test_cli_greedy_caption_equals_jax_float32(jax_rollouts, tmp_path):

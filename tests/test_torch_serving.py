@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_slice import PYTHONPATH
+from test_torch_slice import PYTHONPATH, kernel_route  # noqa: F401
 from vidcap_tpu.config import apply_overrides as jax_apply_overrides
 from vidcap_tpu.config import get_preset as jax_get_preset
 from vidcap_tpu.data.loader import CaptionDataset as JaxDataset
@@ -111,6 +111,18 @@ def test_serve_lines_identical_to_jax(tmp_path, cfg, jax_side, cap, method):
     assert got == want
     # the warmup decode and the two flushes
     assert cap.decode_calls == 3
+
+
+@pytest.mark.parametrize("method", ["greedy", "beam"])
+def test_serve_lines_identical_to_jax_on_the_kernel_route(
+        tmp_path, cfg, jax_side, kernel_route, method):
+    """The same lines with the f32 decoder on the kernel decoder's steps
+    (K1/K2's and K3's plain versions here)."""
+    test_serve_lines_identical_to_jax(tmp_path, cfg, jax_side,
+                                      port_captioner(cfg, jax_side[1]),
+                                      method)
+    assert kernel_route["fused_beam_step" if method == "beam"
+                        else "model_rollout"] == 3
 
 
 def test_serve_features_roundtrip(tmp_path, cfg, cap):
@@ -265,11 +277,14 @@ def test_serve_reader_error_raises_not_deadlocks(cfg, cap):
 
 @pytest.mark.parametrize("method,weights", [("greedy", "_rollout_weights"),
                                             ("beam", "_beam_weights")])
-def test_warmup_casts_weights_before_the_first_request(cfg, cap, method,
+def test_warmup_casts_weights_before_the_first_request(jax_side, method,
                                                        weights):
     """The warmup pays the weight cast (and on the card the kernels' build,
     ``_build.build_all``) with one decode of the flush shape; serving then
-    casts nothing."""
+    casts nothing. On the preset's bf16 decoder, the one whose decodes cast
+    weights for the kernels (an f32 decoder decodes through its modules)."""
+    cfg = apply_overrides(get_preset("synthetic_tiny"), [])
+    cap = port_captioner(cfg, jax_side[1])
     server = CaptionServer(cfg, cap, batch_size=4, method=method,
                            beam_width=3)
     assert getattr(cap, weights) is None

@@ -49,6 +49,47 @@ with open(out + "/caps.json", "w") as f:
 """
 
 
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """Route every decoder, f32 too, as the router routes the kernel
+    decoder: the Captioner's beam through ``fused_beam_step`` over
+    ``BeamWeights`` with the projection through K2's wrapper (K2-int8's
+    with the int8 flag), its greedy and sampled decodes and SCST's
+    rollouts through ``model_rollout`` over ``RolloutWeights``. On CPU
+    tensors the wrappers run their kernels' plain versions, so an f32
+    decode on this route is held exactly against the JAX package through
+    the kernel path's wiring (tiling, early exit, nbest, the weights cast
+    once). ``models/decoding.py::kernel_decoder`` keeps f32 off this route
+    everywhere else. Returns the calls of the route's two entry points; a
+    module step on this route fails the test."""
+    from vidcap_tpu_torch import inference
+    from vidcap_tpu_torch.train import scst
+    calls = {"fused_beam_step": 0, "model_rollout": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def refused(*a, **kw):
+        raise AssertionError("a module step ran on the kernel route")
+
+    for mod in (inference, scst):
+        monkeypatch.setattr(mod, "kernel_decoder", lambda model_cfg: True)
+        monkeypatch.setattr(mod, "model_rollout",
+                            spy("model_rollout", mod.model_rollout))
+    monkeypatch.setattr(inference, "projection_kernel", lambda cfg: (
+        "topk_project_int8" if cfg.decode.int8_vocab_projection
+        else "topk_project"))
+    monkeypatch.setattr(inference, "fused_beam_step",
+                        spy("fused_beam_step", inference.fused_beam_step))
+    monkeypatch.setattr(inference, "module_beam_step", refused)
+    monkeypatch.setattr(inference.Captioner, "_module_rollout", refused)
+    monkeypatch.setattr(scst.ScstStep, "_module_rollouts", refused)
+    return calls
+
+
 def run_jax_scripts(script, jobs):
     """Run ``script`` as ``python -c script <overrides json> <out dir>`` once
     per (overrides, out dir) job, all in parallel, with the JAX package on
@@ -85,6 +126,15 @@ def _port_captions(weights, over):
 def test_caption_json_identical_to_jax_float32(jax_runs):
     caps, weights, over = jax_runs["float32"]
     assert _port_captions(weights, over) == caps
+
+
+def test_caption_json_identical_to_jax_float32_on_the_kernel_route(
+        jax_runs, kernel_route):
+    """The f32 decoder decodes through its modules; the same JSON through
+    the kernel decoder's beam step (K1's and K2's plain versions here)."""
+    caps, weights, over = jax_runs["float32"]
+    assert _port_captions(weights, over) == caps
+    assert kernel_route["fused_beam_step"] == 2   # 64 videos, 2 batches
 
 
 def test_caption_json_matches_jax_bfloat16(jax_runs):

@@ -28,6 +28,8 @@
   python -m vidcap_tpu_torch extract --preset e2e_irv2 --videos DIR
       [--split train] [--format npy|h5|tfrecord] [--device cpu]
   python -m vidcap_tpu_torch convert --tf-checkpoint CKPT --out W.npz
+  python -m vidcap_tpu_torch info --preset msrvtt_attn_beam5 [--json]
+      [--no-devices] [--set ...]
 
 ``prepare`` turns MSVD/MSR-VTT annotation files into the layout that
 ``CaptionDataset.from_files`` reads. ``train`` runs the preset's stage, or
@@ -48,7 +50,9 @@ and ``export`` writes an artifact of weights, vocab and meta. ``extract``
 runs every video of a directory through cv2 and the IRv2 backbone and writes
 the split's feature file; ``convert`` turns a TF-slim IRv2 checkpoint into
 the backbone ``.npz`` that ``load_backbone_params`` reads
-(``$VIDCAP_IRV2_WEIGHTS``). The end-to-end presets (``model.use_backbone``:
+(``$VIDCAP_IRV2_WEIGHTS``); ``info`` prints a preset's preflight census
+(parameters per group, memory estimates, the kernels' build cache, the
+card). The end-to-end presets (``model.use_backbone``:
 ``e2e_irv2``, ``e2e_scst_multitask``) train and decode on frame pixels
 (``{dataset}_{split}_frames.*``, else the synthetic pixel fixture), and
 ``caption --inputs`` takes video files. Train, decode, serve and extract run
@@ -70,7 +74,6 @@ from vidcap_tpu_torch.ops._build import launch_counts
 # command or flag → the ROADMAP item that ports it
 _NOT_PORTED = {
     "--sharded": "Queue 1 item 12 (multi-GPU)",
-    "info": "Queue 1 item 14 (the preflight census)",
 }
 
 
@@ -484,6 +487,94 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def cmd_info(args) -> int:
+    """Preflight: the card, the preset's dims, the parameter census (the
+    model built on the meta device: nothing allocated), a rough train-step
+    memory estimate, the beam's logits buffer, the kernels' build cache.
+    The keys of the JAX package's ``info``, with torch and CUDA in place of
+    jax; ``backend`` also gives the card's memory."""
+    import torch
+
+    from vidcap_tpu_torch.utils.meminfo import (build_cache_stats,
+                                                decode_buffer_estimate,
+                                                param_census,
+                                                train_memory_estimate)
+    cfg = apply_overrides(get_preset(args.preset), args.set)
+    census = param_census(cfg)
+    mem = train_memory_estimate(cfg, census["_total"])
+    dec = decode_buffer_estimate(cfg)
+    cache = build_cache_stats()
+    info = {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "preset": args.preset,
+        "mode": "pixels→CNN (end-to-end)" if cfg.model.use_backbone
+                else "precomputed features",
+        "stage": cfg.train.stage,
+        "dims": {"T": cfg.data.num_frames, "D": cfg.data.feature_dim,
+                 "H": cfg.model.hidden_dim, "A": cfg.model.attn_dim,
+                 "E": cfg.model.embed_dim,
+                 "vocab": cfg.data.vocab_size,
+                 "padded_vocab": cfg.data.padded_vocab,
+                 "max_caption_len": cfg.data.max_caption_len},
+        "decode": {"method": cfg.decode.method,
+                   "beam_width": cfg.decode.beam_width,
+                   "max_len": cfg.decode.max_len},
+        "params": census,
+        "train_step_hbm_estimate_bytes": mem,
+        "beam_logits_buffer": dec,
+        "compile_cache": cache,
+    }
+    if not args.no_devices:
+        if torch.cuda.is_available():
+            props = torch.cuda.get_device_properties(0)
+            free, total = torch.cuda.mem_get_info(0)
+            info["backend"] = {"platform": "cuda", "device_kind": props.name,
+                               "n_devices": torch.cuda.device_count(),
+                               "total_memory_bytes": props.total_memory,
+                               "free_memory_bytes": free,
+                               "mem_get_info_total_bytes": total}
+        else:
+            info["backend"] = {"platform": "cpu",
+                               "device_kind": "no CUDA device visible",
+                               "n_devices": 0}
+    if args.json:
+        print(json.dumps(info, indent=1))
+        return 0
+    b = info.get("backend")
+    if b:
+        mem_s = (f", {b['total_memory_bytes'] / 1e9:.1f} GB "
+                 f"({b['free_memory_bytes'] / 1e9:.1f} free)"
+                 if "total_memory_bytes" in b else "")
+        print(f"[info] torch {info['torch']} CUDA {info['cuda']}  backend="
+              f"{b['platform']} {b['n_devices']}x {b['device_kind']}{mem_s}")
+    else:
+        print(f"[info] torch {info['torch']} CUDA {info['cuda']}  (devices "
+              "not queried)")
+    d = info["dims"]
+    print(f"[info] preset {args.preset}: {info['mode']}, stage={info['stage']}"
+          f", T={d['T']} D={d['D']} H={d['H']} vocab={d['vocab']} "
+          f"(padded {d['padded_vocab']})")
+    groups = ", ".join(f"{k} {v/1e6:.2f}M" for k, v in census.items()
+                       if k != "_total")
+    print(f"[info] params: {groups} — total {census['_total']/1e6:.2f}M "
+          f"({census['_total']*4/1e6:.0f} MB f32)")
+    micro = max(1, cfg.train.batch_size // max(1, cfg.train.grad_accum))
+    print(f"[info] train step (microbatch B={micro}): rough device memory "
+          f"{mem['total']/1e9:.2f} GB  (params+opt+grads "
+          f"{(mem['params']+mem['optimizer']+mem['grads'])/1e9:.2f}, "
+          f"activations {mem['activations']/1e9:.2f}, inputs "
+          f"{mem['inputs']/1e9:.2f}) — estimate, not an allocator count")
+    print(f"[info] decode method={info['decode']['method']}; a "
+          f"beam-{info['decode']['beam_width']} decode at B="
+          f"{cfg.train.batch_size} has per-step logits "
+          f"[{int(dec['beam_logits_rows'])}, {int(dec['padded_vocab'])}] = "
+          f"{dec['beam_logits_bytes']/1e6:.1f} MB (K2 keeps them on chip)")
+    print(f"[info] kernel build cache {cache['path']}: {cache['entries']} "
+          f"entries, {cache['bytes']/1e6:.0f} MB")
+    return 0
+
+
 def cmd_prepare(args) -> int:
     from vidcap_tpu_torch.data.prepare import prepare
     cfg = apply_overrides(get_preset(args.preset), args.set)
@@ -660,16 +751,19 @@ def build_parser() -> argparse.ArgumentParser:
     cv.add_argument("--out", required=True, help="output .npz path")
     cv.set_defaults(fn=cmd_convert)
 
-    s = sub.add_parser("info", help=f"not ported yet ({_NOT_PORTED['info']})",
-                       add_help=False)
-    s.set_defaults(fn=lambda args: _not_ported("info"))
+    inf = sub.add_parser("info", help="preset preflight census (params, "
+                                      "memory estimate, build cache, card)")
+    preset(inf)
+    inf.add_argument("--json", action="store_true",
+                     help="machine-readable output")
+    inf.add_argument("--no-devices", action="store_true",
+                     help="do not query the card")
+    inf.set_defaults(fn=cmd_info)
     return p
 
 
 def main(argv=None) -> int:
-    args, rest = build_parser().parse_known_args(argv)
-    if rest and args.cmd != "info":
-        build_parser().parse_args(argv)   # reports the unknown arguments
+    args = build_parser().parse_args(argv)
     from vidcap_tpu_torch.inference import NoDeviceError
     try:
         return args.fn(args)

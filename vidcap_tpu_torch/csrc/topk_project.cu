@@ -219,6 +219,13 @@ struct ChunkCarry {
           }
         }
     }
+    select(acc, col0);
+  }
+
+  // One tile's logits (acc, in the accumulator layout, columns past Vp at
+  // -inf) into the running max, exp-sum and top-K of the thread's two rows;
+  // `col0` is the lane's column of acc[0].
+  __device__ void select(float (&acc)[kAccRegs], int col0) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const float mt = lane_max(acc, hh);
@@ -260,6 +267,46 @@ struct ChunkCarry {
       }
     }
   }
+
+  // Merges the quad (the four lanes that share a row) and writes the
+  // partials of the thread's rows row_base + frag_row(hh) for `chunk`.
+  __device__ void flush(int row_base, int N, int chunk, int n_chunks,
+                        float* __restrict__ cm, float* __restrict__ cs,
+                        float* __restrict__ cv, int* __restrict__ ci) {
+    const bool writer = threadIdx.x % 4 == 0;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row_base + frag_row(hh);
+      const float mq = quad_max(m[hh]);
+      float sq = m[hh] > -INFINITY ? s[hh] * expf(m[hh] - mq) : 0.f;
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+      const size_t o = (size_t)row * n_chunks + chunk;
+      if (writer && row < N) {
+        cm[o] = mq;
+        cs[o] = sq;
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        float bv = tv[hh][0];
+        int bi = ti[hh][0];
+        best_over<2>(bv, bi);
+        if (ti[hh][0] == bi) {   // taken: the lane's list moves up
+#pragma unroll
+          for (int j = 0; j < kMaxK - 1; ++j) {
+            tv[hh][j] = tv[hh][j + 1];
+            ti[hh][j] = ti[hh][j + 1];
+          }
+          tv[hh][kMaxK - 1] = -INFINITY;
+          ti[hh][kMaxK - 1] = INT_MAX;
+        }
+        if (writer && row < N && k < K) {
+          cv[o * K + k] = bv;
+          ci[o * K + k] = bi;
+        }
+      }
+    }
+  }
 };
 
 __global__ void __launch_bounds__(kProjThreads, 1)
@@ -291,41 +338,7 @@ chunk_kernel(const __grid_constant__ CUtensorMap th,
   carry.init();
   proj_consume(ring, wg, tile0, tile1, H, carry);
 
-  // merge the quad (the four lanes that share a row) and write the partials
-  const bool writer = threadIdx.x % 4 == 0;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + wg * 64 + frag_row(hh);
-    const float mq = quad_max(carry.m[hh]);
-    float sq = carry.m[hh] > -INFINITY ? carry.s[hh] * expf(carry.m[hh] - mq)
-                                        : 0.f;
-    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
-    const size_t o = (size_t)row * n_chunks + chunk;
-    if (writer && row < N) {
-      cm[o] = mq;
-      cs[o] = sq;
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      float bv = carry.tv[hh][0];
-      int bi = carry.ti[hh][0];
-      best_over<2>(bv, bi);
-      if (carry.ti[hh][0] == bi) {   // taken: the lane's list moves up
-#pragma unroll
-        for (int j = 0; j < kMaxK - 1; ++j) {
-          carry.tv[hh][j] = carry.tv[hh][j + 1];
-          carry.ti[hh][j] = carry.ti[hh][j + 1];
-        }
-        carry.tv[hh][kMaxK - 1] = -INFINITY;
-        carry.ti[hh][kMaxK - 1] = INT_MAX;
-      }
-      if (writer && row < N && k < K) {
-        cv[o * K + k] = bv;
-        ci[o * K + k] = bi;
-      }
-    }
-  }
+  carry.flush(row0 + wg * 64, N, chunk, n_chunks, cm, cs, cv, ci);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -373,6 +386,188 @@ merge_kernel(const float* __restrict__ cm, const float* __restrict__ cs,
   }
 }
 
+// ---- K2's int8 variant -------------------------------------------------------
+//
+// The beam step's projection with decode.int8_vocab_projection: the JAX
+// package computes it in XLA (vidcap_tpu/ops/int8_proj.py:int8_logits, no
+// Pallas kernel), bf16(f32(h8 . W8) * (hscale * wscale) + bq), and K2's
+// top-K and lse follow here on those logits, as topk_project does on its
+// own. Three launches, as K2's:
+//  (a) quantize_kernel: a warp a row, hscale = max|h| / 127 and h8 =
+//      clip(rint(h / max(hscale, 1e-8)), -127, 127), with IEEE division
+//      (__fdiv_rn) and round-half-even (rintf), as jnp.round and torch.round;
+//      h8 and hscale are left in the scratch (the wrapper can return them).
+//  (b) chunk_s8_kernel: K2's grid of (row tile, vocab chunk) blocks with
+//      64-row tiles and four warps. The block's rows of h8 and, double
+//      buffered by cp.async, each 128-column tile of W8 stored transposed
+//      [Vp, H] (K-major, as mma.sync's B operand wants it) sit in shared
+//      memory, rows padded by 16 bytes so that every 32-bit fragment load
+//      is free of bank conflicts. A warp's 16 rows x 128 columns run on
+//      mma.sync m16n8k32 s8 x s8 -> s32, whose 16 n8 accumulators lie in
+//      the wgmma layout that ChunkCarry reads. The int32 sums are exact, so
+//      no promotion is needed. The epilogue is the reference's rounding
+//      chain with explicit _rn intrinsics, so that nvcc contracts nothing
+//      into an FMA, then ChunkCarry's running max, exp-sum and top-K.
+//  (c) merge_kernel, unchanged.
+// What bounds it: 15.1 G int8 operations at the bench shape (7.6 us at
+// 1,979 TOPS) against 8.2 MB of W8 (2.4 us). What holds this simple
+// version back: mma.sync, not wgmma, the W8 tiles re-read from L2 by each
+// of the 15 row tiles, and the epilogue after each tile's product.
+
+constexpr int kS8Rows = 64;    // a block's rows: four warps x 16
+constexpr int kS8Threads = 128;
+constexpr int kS8Pad = 16;     // bytes after each shared-memory row
+
+__global__ void __launch_bounds__(kThreads)
+quantize_kernel(const float* __restrict__ h, int8_t* __restrict__ h8,
+                float* __restrict__ hs, int N, int H) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + warp;
+  if (row >= N) return;
+  const float* r = h + (size_t)row * H;
+  float m = 0.f;
+  for (int j = lane; j < H; j += 32) m = fmaxf(m, fabsf(r[j]));
+  m = warp_max(m);
+  const float scale = __fdiv_rn(m, 127.f);
+  const float guard = fmaxf(scale, 1e-8f);
+  for (int j = lane; j < H; j += 32)
+    h8[(size_t)row * H + j] = static_cast<int8_t>(
+        fminf(fmaxf(rintf(__fdiv_rn(r[j], guard)), -127.f), 127.f));
+  if (lane == 0) hs[row] = scale;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a . b on one m16n8k32 tile: a 16 x 32 s8 (row), b 32 x 8 s8 (col)
+__device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+inline size_t s8_smem(int H) {
+  return (size_t)(kS8Rows + 2 * kProjCols) * (H + kS8Pad);
+}
+
+__global__ void __launch_bounds__(kS8Threads, 1)
+chunk_s8_kernel(const int8_t* __restrict__ h8, const int8_t* __restrict__ w8t,
+                const float* __restrict__ hs, const float* __restrict__ ws,
+                const float* __restrict__ bq, float* __restrict__ cm,
+                float* __restrict__ cs, float* __restrict__ cv,
+                int* __restrict__ ci, int N, int H, int Vp, int K,
+                int n_tiles, int tiles_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = H + kS8Pad, vec = H / 16;
+  unsigned char* sa = smem;
+  unsigned char* sb = smem + kS8Rows * ld;
+  const int row0 = blockIdx.x * kS8Rows, chunk = blockIdx.y;
+  const int tile0 = chunk * tiles_per_chunk;
+  const int tile1 = min(tile0 + tiles_per_chunk, n_tiles);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int v = threadIdx.x; v < kS8Rows * vec; v += kS8Threads) {
+    const int r = v / vec, c = (v % vec) * 16;
+    unsigned char* dst = sa + r * ld + c;
+    if (row0 + r < N)
+      cp_async16(dst, h8 + (size_t)(row0 + r) * H + c);
+    else
+      *reinterpret_cast<uint4*>(dst) = zero;
+  }
+  // W8 rows (vocab columns) tile * 128.. into buffer `buf`; zeros past Vp
+  auto load_tile = [&](int tile, int buf) {
+    unsigned char* base = sb + buf * kProjCols * ld;
+    for (int v = threadIdx.x; v < kProjCols * vec; v += kS8Threads) {
+      const int r = v / vec, c = (v % vec) * 16;
+      const int col = tile * kProjCols + r;
+      unsigned char* dst = base + r * ld + c;
+      if (col < Vp)
+        cp_async16(dst, w8t + (size_t)col * H + c);
+      else
+        *reinterpret_cast<uint4*>(dst) = zero;
+    }
+  };
+  if (tile0 < tile1) load_tile(tile0, 0);
+  cp_async_commit();
+
+  ChunkCarry carry;
+  carry.Vp = Vp;
+  carry.K = K;
+  carry.init();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float hsr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + frag_row(hh);
+    hsr[hh] = row < N ? hs[row] : 0.f;
+  }
+  const unsigned char* a = sa + (warp * 16 + g) * ld + 4 * t;
+  for (int tile = tile0, i = 0; tile < tile1; ++tile, ++i) {
+    if (tile + 1 < tile1) {
+      load_tile(tile + 1, (i + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* b = sb + (i & 1) * kProjCols * ld + g * ld + 4 * t;
+    int acc[kAccRegs];
+#pragma unroll
+    for (int j = 0; j < kAccRegs; ++j) acc[j] = 0;
+    for (int k = 0; k < H; k += 32) {
+      const uint32_t a0 = lds32(a + k), a1 = lds32(a + 8 * ld + k);
+      const uint32_t a2 = lds32(a + k + 16), a3 = lds32(a + 8 * ld + k + 16);
+#pragma unroll
+      for (int n = 0; n < kAccRegs / 4; ++n) {
+        const unsigned char* bp = b + n * 8 * ld + k;
+        mma_s8(acc + 4 * n, a0, a1, a2, a3, lds32(bp), lds32(bp + 16));
+      }
+    }
+    __syncthreads();   // every warp is done with buffer i & 1
+    // the reference's rounding chain; columns past Vp are never candidates
+    const int col0 = tile * kProjCols + frag_col(0);
+    float x[kAccRegs];
+#pragma unroll
+    for (int j = 0; j < kAccRegs / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * j + e;
+        const bool in = col < Vp;
+        const float wsc = in ? ws[col] : 0.f, bqc = in ? bq[col] : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 4 * j + 2 * hh + e;
+          x[r] = in ? bf16r(__fadd_rn(
+                          __fmul_rn((float)acc[r], __fmul_rn(hsr[hh], wsc)),
+                          bqc))
+                    : -INFINITY;
+        }
+      }
+    carry.select(x, col0);
+  }
+  carry.flush(row0, N, chunk, gridDim.y, cm, cs, cv, ci);
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). h [N, H] f32, w [H, Vp] bf16,
@@ -406,6 +601,43 @@ extern "C" int vidcap_topk_project(const void* h, const void* w, const void* b,
       static_cast<float*>(cs), static_cast<float*>(cv), static_cast<int*>(ci),
       N, H, Vp, K, vocab, n_tiles, tiles_per_chunk);
   const int rows_per_block = kThreads / 32;
+  merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, kThreads, 0, s>>>(
+      static_cast<const float*>(cm), static_cast<const float*>(cs),
+      static_cast<const float*>(cv), static_cast<const int*>(ci),
+      static_cast<float*>(vals), static_cast<int*>(idx), N, K, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the int8 variant. h [N, H] f32, w8t [Vp, H] s8
+// (W8 transposed), ws [Vp] f32 (per-column scale), bq [Vp] f32 (the bias,
+// -1e30 past the vocab); scratch h8 [N, H] s8 and hs [N] f32 (the
+// quantized rows and their scales, as the reference computes them), cm/cs
+// [N, n_chunks] f32, cv [N, n_chunks, K] f32, ci [N, n_chunks, K] i32 over
+// 128-column tiles as vidcap_topk_project's; out vals [N, K] f32, idx
+// [N, K] i32. Needs H % 32 == 0, 1 <= K <= min(8, Vp). Returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int vidcap_topk_project_int8(const void* h, const void* w8t,
+                                        const void* ws, const void* bq,
+                                        void* h8, void* hs, void* cm, void* cs,
+                                        void* cv, void* ci, void* vals,
+                                        void* idx, int N, int H, int Vp, int K,
+                                        int tiles_per_chunk, int n_chunks,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = allow_max_smem<chunk_s8_kernel>();
+  if (err) return err;
+  const int rows_per_block = kThreads / 32;
+  quantize_kernel<<<(N + rows_per_block - 1) / rows_per_block, kThreads, 0,
+                    s>>>(static_cast<const float*>(h), static_cast<int8_t*>(h8),
+                         static_cast<float*>(hs), N, H);
+  const int n_tiles = (Vp + kProjCols - 1) / kProjCols;
+  chunk_s8_kernel<<<dim3((N + kS8Rows - 1) / kS8Rows, n_chunks), kS8Threads,
+                    s8_smem(H), s>>>(
+      static_cast<const int8_t*>(h8), static_cast<const int8_t*>(w8t),
+      static_cast<const float*>(hs), static_cast<const float*>(ws),
+      static_cast<const float*>(bq), static_cast<float*>(cm),
+      static_cast<float*>(cs), static_cast<float*>(cv), static_cast<int*>(ci),
+      N, H, Vp, K, n_tiles, tiles_per_chunk);
   merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, kThreads, 0, s>>>(
       static_cast<const float*>(cm), static_cast<const float*>(cs),
       static_cast<const float*>(cv), static_cast<const int*>(ci),

@@ -3,8 +3,15 @@ sampled or beam.
 
 Runs on the card unless the caller asks for the CPU (``device="cpu"``). With
 no card and no such request it raises; it never carries on on the CPU.
-Greedy and sampled decode run through K3 (``ops/rollout.py``), beam through
-K1 and K2. With ``model.use_backbone`` a batch may be frame pixels
+For the one-layer bf16 attention decoder (``models/decoding.py::
+kernel_decoder``) greedy and sampled decode run through K3
+(``ops/rollout.py``), beam through K1 and K2 (or K2's int8 variant with
+``decode.int8_vocab_projection``). Every other decoder runs its recurrent
+step through the model's modules on the same device, as the JAX package
+runs such decoders through XLA, and its beam's projection through K2 or
+K2-int8 wherever one computes it. The beam takes the finished-hypothesis
+pool (``beam_decode_pool``) where ``use_finished_pool`` says so, as the JAX
+package does. With ``model.use_backbone`` a batch may be frame pixels
 f32[B, T, S, S, 3]: the decode encodes them through the IRv2 backbone first
 (``model.init_state``), then runs the same kernels.
 """
@@ -20,8 +27,15 @@ import torch
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.convert import load_weights
 from vidcap_tpu_torch.data.loader import CaptionDataset
-from vidcap_tpu_torch.models.decoding import (BeamWeights, beam_decode,
-                                              fused_beam_step, tile_recurrent,
+from vidcap_tpu_torch.models.decoding import (MAX_K, BeamWeights,
+                                              VocabProjection, beam_decode,
+                                              beam_decode_pool,
+                                              fused_beam_step, greedy_decode,
+                                              kernel_decoder,
+                                              module_beam_step,
+                                              projection_kernel,
+                                              require_full_f32, sample_decode,
+                                              tile_recurrent,
                                               use_finished_pool)
 from vidcap_tpu_torch.models.model import (VidCapModel, create_model,
                                            init_params)
@@ -59,6 +73,7 @@ class Captioner:
         self.seed = seed              # None → wall-clock-seeded sampling
         self._sample_calls = 0        # makes successive sample seeds differ
         self._beam_weights: Optional[BeamWeights] = None
+        self._vocab_proj: Optional[VocabProjection] = None   # other decoders
         self._rollout_weights: Optional[RolloutWeights] = None
         # K3's W_out mode of the last greedy/sample decode: True resident in
         # shared memory, False streamed from L2 (ops/rollout.py)
@@ -121,7 +136,7 @@ class Captioner:
     def reload_weights(self) -> None:
         """Drop the kernels' cast weights: the next decode casts the
         parameters as they are then."""
-        self._beam_weights = self._rollout_weights = None
+        self._beam_weights = self._rollout_weights = self._vocab_proj = None
 
     def _sample_seed(self, seed: Optional[int]) -> int:
         """The caller's seed; else one derived from ``self.seed`` and a
@@ -160,13 +175,15 @@ class Captioner:
                             device=self.device)
         if method == "beam":
             return self._beam(f, m, beam_width, nbest)
-        if self._rollout_weights is None:
-            self._rollout_weights = RolloutWeights.from_model(self.model)
         sample = method == "sample"
-        self.rollout_resident = resident_mode(self._rollout_weights,
-                                              f.shape[1], self.device)
         seed_t = (torch.tensor(self._sample_seed(seed), dtype=torch.int64,
                                device=self.device) if sample else 0)
+        if not kernel_decoder(self.cfg.model):
+            return self._module_rollout(f, m, sample, seed_t, temperature)
+        if self._rollout_weights is None:
+            self._rollout_weights = RolloutWeights.from_model(self.model)
+        self.rollout_resident = resident_mode(self._rollout_weights,
+                                              f.shape[1], self.device)
         r = model_rollout(self.model, f, m, self.max_len, sample=sample,
                           seed=seed_t,
                           temperature=temperature if sample else 1.0,
@@ -176,6 +193,41 @@ class Captioner:
         self.decode_steps += self.max_len
         return r.tokens.cpu().numpy()
 
+    def _counted(self, step):
+        def counted_step(st, tok):
+            self.decode_steps += 1
+            return step(st, tok)
+        return counted_step
+
+    def _module_rollout(self, f: torch.Tensor, m: torch.Tensor, sample: bool,
+                        seed: torch.Tensor, temperature: float) -> np.ndarray:
+        """Greedy or sampled decode of a decoder no kernel covers: the
+        loops of ``models/decoding.py`` over ``CaptionDecoder.step`` (the
+        JAX package's XLA path); the sampled noise is K3's counter hash."""
+        require_full_f32(self.model, f.device)
+        state = self.model.init_state(f, m)
+        step = self._counted(self.model.decoder.step)
+        if sample:
+            r = sample_decode(step, state, f.shape[0], self.max_len, seed,
+                              temperature)
+        else:
+            r = greedy_decode(step, state, f.shape[0], self.max_len,
+                              early_exit=self.cfg.decode.early_exit,
+                              with_logp=False)
+        self.decode_calls += 1
+        return r.tokens.cpu().numpy()
+
+    def kernels(self, method: str) -> tuple:
+        """The kernels ``method`` launches on the card for this model and
+        decode configuration (:func:`kernel_decoder`,
+        :func:`projection_kernel`)."""
+        recurrent = kernel_decoder(self.cfg.model)
+        if method != "beam":
+            return ("rollout",) if recurrent else ()
+        proj = projection_kernel(self.cfg)
+        return (("beam_core",) if recurrent else ()) + ((proj,) if proj
+                                                         else ())
+
     def warmup(self, method: str, batch_size: int, beam_width: int = 5
                ) -> None:
         """Pay before the first request what the first decode would pay:
@@ -184,8 +236,7 @@ class Captioner:
         weights to the kernels' layouts and, for greedy/sample, probes K3's
         W_out mode. The servers call it before they take requests."""
         if self.device.type == "cuda":
-            _build.build_all(("beam_core", "topk_project") if method == "beam"
-                             else ("rollout",))
+            _build.build_all(self.kernels(method))
         T, D = self.cfg.data.num_frames, self.cfg.data.feature_dim
         self.decode_batch(np.zeros((batch_size, T, D), np.float32),
                           method=method, beam_width=beam_width,
@@ -193,34 +244,35 @@ class Captioner:
 
     def _beam(self, f: torch.Tensor, m: torch.Tensor, beam_width: int,
               nbest: int) -> np.ndarray:
-        if self.cfg.decode.int8_vocab_projection:
-            raise NotImplementedError(
-                "decode.int8_vocab_projection is not ported to "
-                "vidcap_tpu_torch yet (ROADMAP Queue 1 item 9)")
-        if use_finished_pool(self.cfg.decode):
-            raise NotImplementedError(
-                "the finished-hypothesis beam pool (length_penalty != 0 or "
-                "finished_pool='on') is not ported to vidcap_tpu_torch yet "
-                "(ROADMAP Queue 1 item 3, 'beam_decode_pool')")
+        d = self.cfg.decode
         K = beam_width
         if not 1 <= nbest <= K:
             raise ValueError(f"nbest={nbest} must be in [1, beam_width={K}] "
                              "— the beam only carries K hypotheses")
-        if self._beam_weights is None:
-            self._beam_weights = BeamWeights.from_model(self.model)
+        pool = use_finished_pool(d)
+        n = K + 1 if pool else K   # candidates a row
+        kernel = projection_kernel(self.cfg)
+        if pool and n > MAX_K and f.is_cuda and kernel:
+            raise ValueError(
+                f"the finished pool takes each row's top-{n} candidates and "
+                f"{kernel} at most {MAX_K}: on the card the pool's beam "
+                f"width is at most {MAX_K - 1}, got {K}")
+        if kernel_decoder(self.cfg.model):
+            if self._beam_weights is None:
+                self._beam_weights = BeamWeights.from_model(self.model,
+                                                            kernel)
+            step = fused_beam_step(self._beam_weights, K, n)
+        else:
+            if self._vocab_proj is None:
+                self._vocab_proj = VocabProjection.from_model(self.model,
+                                                              kernel)
+            step = module_beam_step(self.model, K, self._vocab_proj, n)
         B = f.shape[0]
         state = tile_recurrent(self.model.init_state(f, m), K)
-        step = fused_beam_step(self._beam_weights, K)
-
-        def counted_step(st, tok):
-            self.decode_steps += 1
-            return step(st, tok)
-
-        toks, _ = beam_decode(
-            counted_step, state, batch=B,
-            max_len=self.max_len, beam_width=K,
-            length_penalty=self.cfg.decode.length_penalty,
-            early_exit=self.cfg.decode.early_exit, return_all=nbest > 1)
+        toks, _ = (beam_decode_pool if pool else beam_decode)(
+            self._counted(step), state, batch=B, max_len=self.max_len,
+            beam_width=K, length_penalty=d.length_penalty,
+            early_exit=d.early_exit, return_all=nbest > 1)
         self.decode_calls += 1
         toks = toks[:, :nbest] if nbest > 1 else toks
         return toks.cpu().numpy()

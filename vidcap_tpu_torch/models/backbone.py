@@ -91,8 +91,10 @@ class ConvBN(nn.Module):
 
 def _scalar(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype``: JAX casts a Python scalar to the array's
-    dtype before the product, PyTorch multiplies by it in f32."""
-    return float(torch.tensor(v, dtype=dtype))
+    dtype before the product, PyTorch multiplies by it in f32. Rounded on
+    the CPU, so that a model built on the meta device (``info``'s census)
+    can hold it."""
+    return float(torch.tensor(v, dtype=dtype, device="cpu"))
 
 
 class Block35(nn.Module):

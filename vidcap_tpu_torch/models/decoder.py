@@ -170,7 +170,11 @@ class CaptionDecoder(nn.Module):
                 "(ROADMAP Queue 1 item 13, 'dropout'); every preset has 0")
         self.embed = Embed(padded_vocab, c.embed_dim)
         self.feat_proj = Dense(feature_dim, c.hidden_dim, cd)
-        self.key_proj = Dense(c.hidden_dim, c.attn_dim, cd, use_bias=False)
+        if c.use_attention:
+            # Flax makes key_proj's kernel only where it is called: with
+            # attention (a JAX tree without attention has none)
+            self.key_proj = Dense(c.hidden_dim, c.attn_dim, cd,
+                                  use_bias=False)
         self.init_proj = Dense(c.hidden_dim,
                                2 * c.hidden_dim * c.num_lstm_layers, cd)
         for i in range(c.num_lstm_layers):

@@ -1,10 +1,18 @@
 """Decode strategies of the PyTorch package: greedy, sampled and beam.
 
-Beam search mirrors ``vidcap_tpu/models/decoding.py::beam_decode``
+Beam search mirrors ``vidcap_tpu/models/decoding.py``: :func:`beam_decode`
 (slot-blocking beams, B×K beams flattened into the batch, state gathered on
-h/c only), driven by a step that returns each row's top-K log-probs
-directly. On the card that step is :func:`fused_beam_step`: K1 ``beam_core``
-then K2 ``topk_project``, with no switch back to the plain versions.
+h/c only) and :func:`beam_decode_pool` (the finished-hypothesis pool),
+driven by a step that returns each row's top-n log-probs directly (n = K
+for slot-blocking, K+1 for the pool). :func:`kernel_decoder` is the one
+place that decides, from the configuration alone, which step that is. For
+the one-layer bf16 attention decoder it is :func:`fused_beam_step`: K1
+``beam_core`` then K2 ``topk_project`` (or K2's int8 variant), with no
+switch back to the plain versions. For every other decoder it is
+:func:`module_beam_step`: the recurrent step through the model's own
+modules, as the JAX package runs such decoders through XLA, then the same
+projection kernels wherever one computes the logits
+(:class:`VocabProjection`).
 
 Ties go to the smallest index in the per-row top-K
 (:func:`per_row_topk_iterative`, the plain K2's) and in the K·K top-K
@@ -13,24 +21,27 @@ Ties go to the smallest index in the per-row top-K
 
 :func:`greedy_decode` and :func:`sample_decode` are the generic loops over a
 logits step (``model.step``), as in the JAX package. Serving does not use
-them: ``Captioner`` runs greedy and sampled decode through K3
-(``ops/rollout.py::model_rollout``).
+them for the decoder K3 runs: ``Captioner`` runs its greedy and sampled
+decode through K3 (``ops/rollout.py::model_rollout``), and every other
+decoder's through these loops over ``CaptionDecoder.step``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD
 from vidcap_tpu_torch.models.decoder import NEG, DecoderState
 from vidcap_tpu_torch.ops.beam_core import beam_core
+from vidcap_tpu_torch.ops.int8_proj import Int8Projection, topk_project_int8
 from vidcap_tpu_torch.ops.rollout import gumbel_noise
 from vidcap_tpu_torch.ops.topk_project import (  # noqa: F401 (re-export)
-    per_row_topk_iterative, topk_project)
+    MAX_K, logits_topk, masked_logits, per_row_topk_iterative, topk_project)
 
-# step(state, prev_tok i64[B·K]) → (state, logp f32[B·K, K], idx i32[B·K, K])
+# step(state, prev_tok i64[B·K]) → (state, logp f32[B·K, n], idx i32[B·K, n])
+# with n = K (beam_decode) or K + 1 (beam_decode_pool) candidates a row
 BeamStep = Callable[[DecoderState, torch.Tensor],
                     Tuple[DecoderState, torch.Tensor, torch.Tensor]]
 # step(state, prev_tok i64[B]) → (state, logits f32[B, V])
@@ -96,10 +107,12 @@ def greedy_decode(step_fn: LogitsStep, state, batch: int, max_len: int,
 
 
 def sample_decode(step_fn: LogitsStep, state, batch: int, max_len: int,
-                  seed: int, temperature: float = 1.0) -> Rollout:
+                  seed, temperature: float = 1.0) -> Rollout:
     """Multinomial rollout by Gumbel-max on ``logits · (1/temperature)``,
     with K3's counter-hash noise of (row, column, seed, step)
-    (``ops/rollout.py::gumbel_noise``). The JAX package's ``sample_decode``
+    (``ops/rollout.py::gumbel_noise``). ``seed``: an int or an int64 tensor
+    on the state's device, read there (no host read: a captured step keeps
+    its seed in a device buffer). The JAX package's ``sample_decode``
     draws with ``jax.random.categorical`` (threefry), which PyTorch cannot
     reproduce, so only the distribution is shared with it; with the same
     seed this loop picks what K3 picks. ``logp`` is the log-softmax of the
@@ -221,59 +234,250 @@ def beam_decode(step_fn: BeamStep, state: DecoderState, batch: int,
     return alive_seq[rows, best], scores[rows, best]
 
 
+def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
+                     max_len: int, beam_width: int,
+                     length_penalty: float = 0.0, early_exit: bool = False,
+                     return_all: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search with a finished-hypothesis pool
+    (``vidcap_tpu/models/decoding.py::beam_decode_pool``). ``step_fn``
+    returns each row's top-(K+1) candidates; ``state`` has h/c tiled to B·K
+    rows (:func:`tile_recurrent`).
+
+    A hypothesis whose <eos> ranks within its row's top K+1 moves, scored
+    at its finish length, into a fixed [B, K] pool of the best finished
+    ones; all K alive slots keep the best K non-<eos> continuations. The
+    merges keep the lower index on a tie (:func:`topk_stable`), the pool's
+    block first. early_exit=True stops once no alive beam can still beat
+    the pool's K-th score even at the most favourable length factor (one
+    host read of that test a step); the result equals the full run.
+
+    Returns (tokens i32[B, L] best overall, scores f32[B]); with
+    ``return_all=True``: (tokens i32[B, K, L], scores f32[B, K]), the K
+    best of the pool and the alive beams (normalized at max_len), best
+    first, a finished one ahead of an alive one on an exact tie."""
+    K, B, C = beam_width, batch, beam_width + 1
+    dev = state.h.device
+    gather_state = _make_state_gather(B, K)
+    bidx = torch.arange(B, device=dev)[:, None]
+    # the length factor of every finish length 1..max_len, on the device
+    factors = _lp_factor(length_penalty,
+                         torch.arange(1, max_len + 1, device=dev))
+    best_factor = factors.max()
+
+    alive_seq = torch.zeros(B, K, max_len, dtype=torch.int32, device=dev)
+    alive_logp = torch.zeros(B, K, device=dev)
+    fin_seq = torch.zeros(B, K, max_len, dtype=torch.int32, device=dev)
+    fin_logp = torch.full((B, K), NEG, device=dev)
+    prev_tok = torch.full((B * K,), BOS, dtype=torch.long, device=dev)
+    for t in range(max_len):
+        if early_exit:
+            # an alive beam's raw logp only falls and is ≤ 0, so its best
+            # reachable score divides by the largest factor
+            best_possible = alive_logp.max(-1).values / best_factor
+            if not bool((best_possible > fin_logp.min(-1).values).any()):
+                break
+        state, logp_k, idx_k = step_fn(state, prev_tok)
+        logp_k = logp_k.reshape(B, K, C)
+        idx_k = idx_k.reshape(B, K, C)
+        cand = alive_logp[:, :, None] + logp_k                   # [B, K, C]
+        if t == 0:   # all beams are identical: keep beam 0's candidates
+            cand[:, 1:] += NEG
+        is_eos = idx_k == EOS
+
+        # the pool: <eos> candidates scored at finish length t+1, merged
+        # with the pool's K, the pool's block first
+        eos_scores = torch.where(is_eos, cand / factors[t],
+                                 torch.full_like(cand, NEG))
+        eos_seq = alive_seq[:, :, None, :].expand(B, K, C, max_len).reshape(
+            B, K * C, max_len).clone()
+        eos_seq[:, :, t] = EOS
+        fin_logp, fin_src = topk_stable(
+            torch.cat([fin_logp, eos_scores.reshape(B, K * C)], 1), K)
+        fin_seq = torch.cat([fin_seq, eos_seq], 1).gather(
+            1, fin_src[:, :, None].expand(B, K, max_len))
+
+        # alive: the best K non-<eos> candidates keep exploring
+        live = torch.where(is_eos, torch.full_like(cand, NEG), cand)
+        top_logp, top_idx = topk_stable(live.reshape(B, K * C), K)
+        src_beam = top_idx // C
+        new_tok = idx_k[bidx, src_beam, top_idx % C]              # [B, K]
+        alive_seq = alive_seq[bidx, src_beam]
+        alive_seq[:, :, t] = new_tok
+        state = gather_state(state, (bidx * K + src_beam).reshape(B * K))
+        prev_tok = new_tok.reshape(B * K).long()
+        alive_logp = top_logp
+
+    # alive sequences have no <eos>: normalized at full length
+    alive_norm = alive_logp / factors[max_len - 1]
+    if return_all:
+        top, idx = topk_stable(torch.cat([fin_logp, alive_norm], 1), K)
+        seqs = torch.cat([fin_seq, alive_seq], 1)
+        return seqs.gather(1, idx[:, :, None].expand(B, K, max_len)), top
+    rows = torch.arange(B, device=dev)
+    best_fin = fin_logp.argmax(-1)
+    best_alive = alive_norm.argmax(-1)
+    fin_best, alive_best = fin_logp[rows, best_fin], alive_norm[rows, best_alive]
+    use_fin = fin_best >= alive_best
+    toks = torch.where(use_fin[:, None], fin_seq[rows, best_fin],
+                       alive_seq[rows, best_alive])
+    return toks, torch.where(use_fin, fin_best, alive_best)
+
+
+def kernel_decoder(model_cfg) -> bool:
+    """True exactly for the decoder the kernels compute: one LSTM layer with
+    attention, in bf16 (``model_cfg``: the ``model`` section). K1–K3 run it
+    on the card with no switch back. Every other configuration decodes
+    through the model's own modules on the caller's device, where the JAX
+    package takes its XLA path for the same configurations (its Pallas
+    kernels cover one-layer attention decoders only, and its beam never
+    runs Pallas). Decided by the configuration alone."""
+    return (model_cfg.num_lstm_layers == 1 and model_cfg.use_attention
+            and model_cfg.compute_dtype == "bfloat16")
+
+
+def projection_kernel(cfg) -> Optional[str]:
+    """The kernel that computes the beam's projection and top-n on the card
+    for the configuration ``cfg``: K2's int8 variant with the int8 flag, K2
+    for bf16 weights, none for f32 weights (:class:`VocabProjection`)."""
+    if cfg.decode.int8_vocab_projection:
+        return "topk_project_int8"
+    return "topk_project" if cfg.model.compute_dtype == "bfloat16" else None
+
+
+@dataclasses.dataclass
+class VocabProjection:
+    """The beam step's vocab projection, per-row top-n and lse, from the
+    top hidden state, through ``kernel`` (:func:`projection_kernel` of the
+    configuration, decided once here): K2's int8 variant on the quantized
+    weights (``decode.int8_vocab_projection``, any compute dtype: the int8
+    product does not depend on it); K2 on the weights in the compute dtype
+    (``logits_topk`` of ``CaptionDecoder.logits``, exactly, for bf16); or,
+    with none, ``logits_topk`` of the f32 logits, which no kernel computes
+    (the JAX package computes them in XLA)."""
+
+    kernel: Optional[str]
+    vocab_size: int
+    w_out: Optional[torch.Tensor] = None   # compute dtype [H, Vp]; not int8
+    b_out: Optional[torch.Tensor] = None   # f32 [Vp]; not int8
+    int8: Optional[Int8Projection] = None   # int8 only
+
+    @classmethod
+    def from_model(cls, model, kernel: Optional[str] = "topk_project"
+                   ) -> "VocabProjection":
+        """Quantize (K2-int8) or cast the decoder's out_proj once."""
+        dec = model.decoder
+        if kernel == "topk_project_int8":
+            return cls(kernel, dec.vocab_size, int8=Int8Projection.from_dense(
+                dec.out_proj, dec.vocab_size))
+        return cls(kernel, dec.vocab_size,
+                   w_out=dec.out_proj.kernel.detach().to(
+                       dec.compute_dtype).contiguous(),
+                   b_out=dec.out_proj.bias.detach().contiguous())
+
+    def topk(self, h: torch.Tensor, n: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """h f32[N, H] → (logp f32[N, n], idx i32[N, n]), best first."""
+        if self.kernel == "topk_project_int8":
+            return topk_project_int8(h, self.int8, n)
+        if self.kernel == "topk_project":
+            return topk_project(h, self.w_out, self.b_out, n, self.vocab_size)
+        return logits_topk(masked_logits(h, self.w_out, self.b_out,
+                                         self.vocab_size), n)
+
+
 @dataclasses.dataclass
 class BeamWeights:
-    """The beam step's weights in the kernels' layout, cast once:
-    wq [H, A], wg [E+2H, 4H], w_out [H, Vp] in the compute dtype (bf16 on the
-    card); u, bg, b_out and the embedding table in f32."""
+    """K1's weights in the kernel's layout, cast once: wq [H, A] and
+    wg [E+2H, 4H] in the compute dtype (bf16 on the card); u, bg and the
+    embedding table in f32; and the projection (:class:`VocabProjection`,
+    K2 or K2-int8)."""
 
     embedding: torch.Tensor
     wq: torch.Tensor
     u: torch.Tensor
     wg: torch.Tensor
     bg: torch.Tensor
-    w_out: torch.Tensor
-    b_out: torch.Tensor
-    vocab_size: int
+    proj: VocabProjection
 
     @classmethod
-    def from_model(cls, model) -> "BeamWeights":
+    def from_model(cls, model, proj_kernel: Optional[str] = "topk_project"
+                   ) -> "BeamWeights":
+        """``proj_kernel``: :func:`projection_kernel` of the configuration
+        (:class:`VocabProjection`)."""
         dec = model.decoder
         c = dec.cfg
         if c.num_lstm_layers != 1 or not c.use_attention:
             raise NotImplementedError(
-                "the beam step of vidcap_tpu_torch supports only the 1-layer "
-                f"attention decoder (got num_lstm_layers={c.num_lstm_layers},"
-                f" use_attention={c.use_attention}); other decoders wait for "
-                "ROADMAP Queue 1 item 3 ('beam for other decoders')")
+                "K1 (beam_core) runs only the 1-layer attention decoder (got "
+                f"num_lstm_layers={c.num_lstm_layers}, use_attention="
+                f"{c.use_attention}); the Captioner decodes other decoders "
+                "through module_beam_step (models/decoding.py::"
+                "kernel_decoder; ROADMAP Queue 1 item 5)")
         cd = dec.compute_dtype
         if dec.out_proj.kernel.is_cuda and cd != torch.bfloat16:
             raise NotImplementedError(
-                "the Hopper beam kernels compute in bf16; "
-                "model.compute_dtype=float32 runs only on the CPU (ROADMAP "
-                "Queue 1 item 3, 'f32 beam kernels')")
+                "K1 (beam_core) computes in bf16; the Captioner decodes "
+                "model.compute_dtype=float32 through module_beam_step "
+                "(models/decoding.py::kernel_decoder; ROADMAP Queue 1 item 5)")
         d = lambda p: p.detach().contiguous()
         return cls(embedding=d(dec.embed.embedding),
                    wq=d(dec.attention.query.kernel.to(cd)),
                    u=d(dec.attention.u), wg=d(dec.lstm0.w.to(cd)),
-                   bg=d(dec.lstm0.b), w_out=d(dec.out_proj.kernel.to(cd)),
-                   b_out=d(dec.out_proj.bias), vocab_size=dec.vocab_size)
+                   bg=d(dec.lstm0.b),
+                   proj=VocabProjection.from_model(model, proj_kernel))
 
 
-def fused_beam_step(w: BeamWeights, beam_width: int) -> BeamStep:
-    """The beam step: embedding gather, K1 ``beam_core`` (attention + LSTM),
-    K2 ``topk_project`` (vocab projection + top-K + lse). On CUDA tensors
-    both launch their kernels; on CPU tensors they run their plain versions."""
+def fused_beam_step(w: BeamWeights, beam_width: int,
+                    candidates: Optional[int] = None) -> BeamStep:
+    """The beam step of the kernel decoder: embedding gather, K1
+    ``beam_core`` (attention + LSTM) over the ``beam_width`` beams of each
+    video, then the projection (K2 or K2-int8: projection + top-n + lse)
+    with ``candidates`` a row (default ``beam_width``; the pool takes
+    ``beam_width + 1``). On CUDA tensors the wrappers launch their kernels;
+    on CPU tensors they run their plain versions."""
     K = beam_width
+    n = candidates or K
 
     def step(state: DecoderState, tok: torch.Tensor):
         emb = w.embedding[tok]
         h, c = beam_core(emb, state.h[0], state.c[0], state.keys,
                          state.values, state.frame_mask, w.wq, w.u, w.wg,
                          w.bg, K)
-        logp, idx = topk_project(h, w.w_out, w.b_out, K, w.vocab_size)
+        logp, idx = w.proj.topk(h, n)
         return (DecoderState(h=h[None], c=c[None], keys=state.keys,
                              values=state.values,
                              frame_mask=state.frame_mask), logp, idx)
+
+    return step
+
+
+def require_full_f32(model, device) -> None:
+    """An f32 decoder decodes on the card in full f32, as on the CPU and in
+    the JAX package: raise if PyTorch would run its matmuls in TF32."""
+    if (torch.device(device).type == "cuda"
+            and model.decoder.compute_dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "model.compute_dtype=float32 decodes in full f32, but "
+            "torch.backends.cuda.matmul.allow_tf32 is True (TF32 keeps ~3 "
+            "decimal digits); set it to False")
+
+
+def module_beam_step(model, beam_width: int, proj: VocabProjection,
+                     candidates: Optional[int] = None) -> BeamStep:
+    """The beam step of the decoders no kernel covers: the recurrent step
+    through the model's modules (``CaptionDecoder.step_beam_hidden``, on the
+    state's device), then ``proj`` (K2 or K2-int8 where one computes the
+    logits) with ``candidates`` a row (default ``beam_width``)."""
+    K = beam_width
+    n = candidates or K
+    dec = model.decoder
+    require_full_f32(model, dec.out_proj.kernel.device)
+
+    def step(state: DecoderState, tok: torch.Tensor):
+        state, h = dec.step_beam_hidden(state, tok, K)
+        logp, idx = proj.topk(h, n)
+        return state, logp, idx
 
     return step

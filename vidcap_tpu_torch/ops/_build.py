@@ -9,14 +9,21 @@ checkout, keyed by a hash of the sources and the flags, then loaded with
          -Xcompiler -fPIC -o build/vidcap_tpu_torch/<name>-<hash>.so csrc/<name>.cu
 
 Nothing here runs at import: the CPU-only test environment has no ``nvcc``.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`build_all` starts one ``nvcc`` per source, all at once. A kernel's
+source is ``csrc/<name>.cu`` unless :data:`SOURCES` names another: K2's int8
+variant ``topk_project_int8`` lives in ``topk_project.cu`` beside K2 and has
+its own entry point and launch count.
 
 The launch counts are process-wide on purpose: a run reads them to show that
-its decode went through the kernels. Each wrapper adds one where it launches
-its kernel and nowhere else. Under CUDA-graph capture a wrapper runs once
-and the graph launches its kernels at every replay: :func:`counted` takes
-the capture's counts back out, and the replayer adds them with
-:func:`add_counts` at each replay (train/steps.py).
+its decode went through the kernels. Each wrapper counts a launch with
+:func:`count_launch` where it launches its kernel and nowhere else; K2 and
+K2-int8, whose rows take a candidate count K, are counted by K as well
+(:data:`launches_by_k`: the slot-blocking beam runs them at the beam width,
+the finished pool at the width + 1). Under CUDA-graph capture a wrapper runs
+once and the graph launches its kernels at every replay: :func:`counted`
+takes the capture's counts back out, and the replayer adds them with
+:func:`add_counts` at each replay (train/steps.py). :func:`reset_counts`,
+:func:`counted` and :func:`add_counts` treat both tallies alike.
 """
 from __future__ import annotations
 
@@ -25,39 +32,61 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vidcap_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("beam_core", "topk_project", "rollout")
+KERNELS = ("beam_core", "topk_project", "topk_project_int8", "rollout")
+SOURCES = {"topk_project_int8": "topk_project"}   # kernel → its csrc/*.cu
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+launches_by_k: Dict[Tuple[str, int], int] = {}   # (kernel, K) → launches
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def count_launch(name: str, k: Optional[int] = None) -> None:
+    """One launch of kernel ``name`` (at ``k`` candidates a row, where its
+    wrapper takes a K)."""
+    launch_counts[name] += 1
+    if k is not None:
+        launches_by_k[name, k] = launches_by_k.get((name, k), 0) + 1
 
 
 def reset_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    launches_by_k.clear()
 
 
-def counted(fn: Callable[[], object]) -> Tuple[object, Dict[str, int]]:
+def counted(fn: Callable[[], object]) -> Tuple[object, Dict]:
     """Run ``fn`` and return (its result, the launches its wrappers
-    counted), those launches taken back out of :data:`launch_counts`."""
-    before = dict(launch_counts)
+    counted: by name, and by (name, K) where counted by K), those launches
+    taken back out of :data:`launch_counts` and :data:`launches_by_k`."""
+    before, before_k = dict(launch_counts), dict(launches_by_k)
     try:
         out = fn()
-        return out, {k: launch_counts[k] - before[k] for k in before}
+        delta = {k: launch_counts[k] - before[k] for k in before}
+        delta.update({key: n - before_k.get(key, 0)
+                      for key, n in launches_by_k.items()
+                      if n != before_k.get(key, 0)})
+        return out, delta
     finally:
         launch_counts.update(before)
+        launches_by_k.clear()
+        launches_by_k.update(before_k)
 
 
-def add_counts(delta: Dict[str, int]) -> None:
-    for name, n in delta.items():
-        launch_counts[name] += n
+def add_counts(delta: Dict) -> None:
+    """Add a delta of :func:`counted` back (a captured graph's replay)."""
+    for key, n in delta.items():
+        if isinstance(key, tuple):
+            launches_by_k[key] = launches_by_k.get(key, 0) + n
+        else:
+            launch_counts[key] += n
 
 
 def _nvcc() -> str:
@@ -68,7 +97,12 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _source(name: str) -> str:
+    return SOURCES.get(name, name)
+
+
 def _so_path(name: str) -> str:
+    name = _source(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
@@ -85,14 +119,17 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, f"{_source(name)}.cu")]
     return so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> None:
-    """Compile every named kernel that is not built yet, in parallel."""
-    jobs = [(n, j) for n in names if (j := _start(n)) is not None]
+    """Compile every named kernel that is not built yet, in parallel (one
+    nvcc a source)."""
+    sources = dict.fromkeys(_source(n) for n in names)
+    jobs = [(n, j) for n in sources if (j := _start(n)) is not None]
     errors = []
     for name, (so, tmp, proc) in jobs:
         out, _ = proc.communicate()
@@ -106,10 +143,11 @@ def build_all(names: Iterable[str] = KERNELS) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    if name not in _libs:
-        build_all([name])
-        _libs[name] = ctypes.CDLL(_so_path(name))
-    return _libs[name]
+    src = _source(name)
+    if src not in _libs:
+        build_all([src])
+        _libs[src] = ctypes.CDLL(_so_path(src))
+    return _libs[src]
 
 
 def entry(name: str, n_ptrs: int, n_ints: int, tail: Sequence = ()):

@@ -75,5 +75,5 @@ def beam_core(emb, h, c, keys, values, frame_mask, wq, u, wg, bg,
              h_out.data_ptr(), c_out.data_ptr(), B, K, T, E, H, A,
              torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "beam_core")
-    _build.launch_counts["beam_core"] += 1
+    _build.count_launch("beam_core")
     return h_out, c_out

@@ -62,17 +62,18 @@ class RolloutWeights:
         c = dec.cfg
         if c.num_lstm_layers != 1 or not c.use_attention:
             raise NotImplementedError(
-                "greedy/sample decode in vidcap_tpu_torch supports only the "
-                f"1-layer attention decoder (got num_lstm_layers="
-                f"{c.num_lstm_layers}, use_attention={c.use_attention}); "
-                "other decoders wait for ROADMAP Queue 1 item 5 ('rollout "
-                "for other decoders')")
+                "K3 (the rollout kernel) runs only the 1-layer attention "
+                f"decoder (got num_lstm_layers={c.num_lstm_layers}, "
+                f"use_attention={c.use_attention}); the Captioner and SCST "
+                "decode other decoders through the model's own step "
+                "(models/decoding.py::kernel_decoder; ROADMAP Queue 1 item 5)")
         cd = dec.compute_dtype
         if dec.out_proj.kernel.is_cuda and cd != torch.bfloat16:
             raise NotImplementedError(
-                "the Hopper rollout kernel computes in bf16; "
-                "model.compute_dtype=float32 greedy/sample runs only on the "
-                "CPU (ROADMAP Queue 1 item 5, 'f32 rollout kernel')")
+                "K3 (the rollout kernel) computes in bf16; the Captioner and "
+                "SCST decode model.compute_dtype=float32 through the model's "
+                "own step (models/decoding.py::kernel_decoder; ROADMAP Queue 1 "
+                "item 5)")
         d = lambda p: p.detach().to(cd).contiguous()
         f = lambda p: p.detach().float().contiguous()
         return cls(emb=d(dec.embed.embedding), wq=d(dec.attention.query.kernel),
@@ -94,14 +95,21 @@ def gumbel_noise(clean: torch.Tensor, seed, step) -> torch.Tensor:
     (``pallas_decoder.py:216-230``) bit for bit: uint32 arithmetic emulated
     in int64. ``clean`` is f32[..., B, V]; the hash's row is the index along
     B, its column the index along V. ``seed`` and ``step`` are ints or int64
-    tensors that broadcast against [..., 1, 1]; the seed is taken mod 2³²."""
+    tensors on ``clean``'s device that broadcast against [..., 1, 1]; the
+    seed is taken mod 2³². An int is hashed on the host and enters as a
+    scalar, never copied to the device, so a CUDA graph can hold the
+    call."""
     dev = clean.device
-    as64 = lambda v: torch.as_tensor(v, dtype=torch.int64, device=dev) & _U32
+
+    def mixed(v, c: int):
+        if torch.is_tensor(v):
+            return _mul32(v.to(device=dev, dtype=torch.int64) & _U32, c)
+        return ((int(v) & _U32) * c) & _U32
+
     row = torch.arange(clean.shape[-2], device=dev)[:, None]
     col = torch.arange(clean.shape[-1], device=dev)[None, :]
     x = (_mul32(row, 0x9E3779B9) ^ _mul32(col, 0x85EBCA6B)
-         ^ ((_mul32(as64(seed), 0x27D4EB2F)
-             + _mul32(as64(step), 0x165667B1)) & _U32))
+         ^ ((mixed(seed, 0x27D4EB2F) + mixed(step, 0x165667B1)) & _U32))
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -411,7 +419,7 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
                 "and 256 threads a block); the cooperative launch was "
                 "refused")
         _build.check(err, "rollout")
-        _build.launch_counts["rollout"] += 1
+        _build.count_launch("rollout")
     return out_tok, out_logp, out_mask
 
 

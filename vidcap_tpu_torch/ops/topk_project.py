@@ -81,12 +81,13 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def chunk_layout(n_rows: int, vp: int, sms: int) -> Tuple[int, int]:
-    """(tiles per chunk, chunks) of K2's split-vocab grid: 128-row tiles ×
-    vocab chunks, as many chunks as fill ``sms`` SMs once, every chunk
-    non-empty."""
+def chunk_layout(n_rows: int, vp: int, sms: int,
+                 tile_rows: int = TILE_ROWS) -> Tuple[int, int]:
+    """(tiles per chunk, chunks) of K2's split-vocab grid: ``tile_rows``-row
+    tiles × vocab chunks, as many chunks as fill ``sms`` SMs once, every
+    chunk non-empty."""
     n_tiles = -(-vp // TILE_N)
-    row_tiles = -(-n_rows // TILE_ROWS)
+    row_tiles = -(-n_rows // tile_rows)
     chunks = max(1, min(n_tiles, sms // row_tiles))
     per_chunk = -(-n_tiles // chunks)
     return per_chunk, -(-n_tiles // per_chunk)
@@ -95,13 +96,21 @@ def chunk_layout(n_rows: int, vp: int, sms: int) -> Tuple[int, int]:
 def topk_project_chunked_plain(h, w_out, b_out, K: int, vocab_size: int,
                                chunk_cols: int
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`topk_project_plain` by the kernel's split-vocab decomposition:
-    the columns in contiguous chunks of ``chunk_cols``; per chunk its max m_c,
+    """:func:`topk_project_plain` by the kernel's split-vocab decomposition
+    (:func:`logits_topk_chunked`). The CPU tests hold it equal to the
+    one-pass version."""
+    return logits_topk_chunked(masked_logits(h, w_out, b_out, vocab_size), K,
+                               chunk_cols)
+
+
+def logits_topk_chunked(logits: torch.Tensor, K: int, chunk_cols: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`logits_topk` by the kernels' split-vocab decomposition: the
+    columns in contiguous chunks of ``chunk_cols``; per chunk its max m_c,
     Σ exp(x − m_c) and top-K (ties to the smaller column, fewer than K
     columns padded with (−inf, 2³¹−1)); then lse = m + log(max(Σ_c s_c ·
     exp(m_c − m), 1e-30)) and the top-K of all chunks' candidates by (value
-    desc, column asc). The CPU tests hold it equal to the one-pass version."""
-    logits = masked_logits(h, w_out, b_out, vocab_size)
+    desc, column asc)."""
     n, vp = logits.shape
     ms, ss, cvs, cis = [], [], [], []
     for c0 in range(0, vp, chunk_cols):
@@ -161,5 +170,5 @@ def topk_project(h, w_out, b_out, K: int, vocab_size: int
              vocab_size, per_chunk, n_chunks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "topk_project")
-    _build.launch_counts["topk_project"] += 1
+    _build.count_launch("topk_project", K)
     return vals, idx

@@ -1,18 +1,22 @@
-"""SCST train step: a sampled rollout and the greedy baseline, both on K3,
-the device CIDEr reward, the policy-gradient loss from a teacher-forced
-re-score, the XE anchor and the attribute BCE, and the update.
+"""SCST train step: a sampled rollout and the greedy baseline, the device
+CIDEr reward, the policy-gradient loss from a teacher-forced re-score, the
+XE anchor and the attribute BCE, and the update.
 
-The branch of ``vidcap_tpu/train/scst.py`` this ports is its kernel branch
-(``model.use_pallas_decoder``, ``:93-103``), the route the port's
-``Captioner`` takes for every greedy and sampled decode: both rollouts are
-forward-only calls of ``ops/rollout.py::model_rollout``, which launches K3
-(csrc/rollout.cu) for CUDA tensors and runs its plain version only for CPU
-tensors. The JAX package's other routes, the fused XLA ``dual_rollout``
-(``train.scst_fused_rollouts``) and the separate XLA sample/greedy scans,
-are not ported: on the card SCST's rollouts always run on K3, whatever
-those flags say. The gradient comes from one differentiable teacher-forced
-re-score of the sampled tokens, the same recurrence on the same fixed
-tokens, so it equals backpropagation through the sampling loop.
+The rollouts take the route the port's ``Captioner`` takes
+(``models/decoding.py::kernel_decoder``). For the one-layer bf16 attention
+decoder it is the JAX package's kernel branch (``model.use_pallas_decoder``,
+``vidcap_tpu/train/scst.py:93-103``): both rollouts are forward-only calls
+of ``ops/rollout.py::model_rollout``, which launches K3 (csrc/rollout.cu)
+for CUDA tensors and runs its plain version only for CPU tensors, whatever
+``train.scst_fused_rollouts`` says. Every other decoder (more LSTM layers,
+no attention, f32) rolls out through ``sample_decode`` and
+``greedy_decode`` over ``CaptionDecoder.step`` with no early exit, where the
+JAX package runs its XLA rollouts (``dual_rollout`` or the separate scans);
+the sampled noise is K3's counter hash (JAX's threefry cannot be matched)
+and its seed a device int64, as K3 reads it. The gradient comes from one
+differentiable teacher-forced re-score of the sampled tokens, the same
+recurrence on the same fixed tokens, so it equals backpropagation through
+the sampling loop.
 
 The step encodes its inputs once (``model.encode_features``: the IRv2
 backbone on pixels with ``model.use_backbone``, the identity on features),
@@ -35,15 +39,17 @@ from typing import Optional, Tuple
 import torch
 
 from vidcap_tpu_torch.config import Config
-from vidcap_tpu_torch.models.decoding import Rollout
+from vidcap_tpu_torch.models.decoding import (Rollout, greedy_decode,
+                                              kernel_decoder,
+                                              require_full_f32, sample_decode)
 from vidcap_tpu_torch.objectives.multitask import attribute_bce_loss
 from vidcap_tpu_torch.objectives.reward import scst_reward
 from vidcap_tpu_torch.objectives.reward_tables import (RewardTables,
                                                        tables_from_dataset)
 from vidcap_tpu_torch.objectives.scst import scst_loss
 from vidcap_tpu_torch.objectives.xe import masked_xe_loss, shift_right
-from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
-                                          resident_mode)
+from vidcap_tpu_torch.ops.rollout import (RolloutWeights, device_seed,
+                                          model_rollout, resident_mode)
 from vidcap_tpu_torch.train.state import TrainState
 from vidcap_tpu_torch.train.steps import (Batch, Grads, Metrics,
                                           add_grads, apply_grads, apply_loss,
@@ -90,6 +96,8 @@ class ScstStep:
         feats = feats.detach()
         if torch.is_tensor(seed):
             seed = seed.to(feats.device)
+        if not kernel_decoder(self.cfg.model):
+            return self._module_rollouts(model, feats, seed)
         w = RolloutWeights.from_model(model)
         self.rollout_resident = resident_mode(w, feats.shape[1], feats.device)
         sample = model_rollout(model, feats, None, d.max_len, sample=True,
@@ -97,6 +105,20 @@ class ScstStep:
                                weights=w, resident_wout=self.rollout_resident)
         greedy = model_rollout(model, feats, None, d.max_len, weights=w,
                                resident_wout=self.rollout_resident)
+        return sample, greedy
+
+    @torch.no_grad()
+    def _module_rollouts(self, model, feats: torch.Tensor, seed
+                         ) -> Tuple[Rollout, Rollout]:
+        """(sampled, greedy) of a decoder no kernel covers, through the
+        model's own step; no host read (the seed stays on the device)."""
+        d = self.cfg.decode
+        require_full_f32(model, feats.device)
+        state = model.init_state(feats)
+        B, step = feats.shape[0], model.decoder.step
+        sample = sample_decode(step, state, B, d.max_len,
+                               device_seed(seed, feats.device), d.temperature)
+        greedy = greedy_decode(step, state, B, d.max_len, with_logp=False)
         return sample, greedy
 
     def rewards(self, batch: Batch, sample: Rollout, greedy: Rollout
