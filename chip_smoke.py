@@ -69,6 +69,14 @@ decoders no kernel covers through their modules, ``info``). Phases:
                                       two-layer SCST step captured ==
                                       eager, the CLI (info, int8 and pool
                                       captions, an int8 export)
+                                   17 more than one GPU at a world of one
+                                      over NCCL: the sharded XE (banked)
+                                      and SCST steps captured against one
+                                      card, the sharded beam B=184 and
+                                      greedy B=32 decodes, dropout in the
+                                      captured XE step, the shapes the
+                                      kernels refuse (beam 9, pool beam 8,
+                                      hidden 1024) at B=184
   then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
@@ -3156,6 +3164,347 @@ def phase16_line(card, cap, trials, e2e, k3_floor, ds):
     return k28, launched
 
 
+# Phase 17: more than one GPU, run here at a world of one over NCCL (the
+# four-card readings come from scripts/torch_sharded_check.py, which runs
+# (a) and (b) on every visible card): (a) the sharded XE (banked) and SCST
+# steps at scst_cider width, B=32 a step, captured; (b) the sharded beam at
+# msrvtt_attn_beam5 width, B=184, and greedy at msvd_greedy width, B=32;
+# (c) dropout in the captured XE step; (d) the shapes the kernels refuse.
+SHARD_STEPS = 4      # steps compared in (a)
+SHARD_TIMED = 10     # steps timed in (a), after them
+SHARD_DECODES = 3    # decodes timed in (b)
+DROP_P = 0.5         # (c)
+# (d): (name, decode fields, model fields, method, beam width)
+REFUSED = (("beam 9", {}, {}, "beam", 9),
+           ("pool beam 8", {"finished_pool": "on"}, {}, "beam", 8),
+           ("hidden 1024 beam", {}, {"hidden_dim": 1024}, "beam", K),
+           ("hidden 1024 greedy", {}, {"hidden_dim": 1024}, "greedy", K))
+REFUSED_CPU_ROWS = 32   # (d): the rows held to the CPU
+RANK_BLOCKS = 4         # (b): a rank's block of the four-card mesh's rows
+
+
+def sharded_corpus():
+    """(a)'s corpus at scst_cider width: 64 videos of N(0,1) features, 5
+    captions each (phase 14's generator)."""
+    cfg = get_preset("scst_cider")
+    return cfg, bank_corpus(cfg, 64, np.random.default_rng(17))
+
+
+def sharded_steps(mesh, stage: str):
+    """(a): SHARD_STEPS + SHARD_TIMED captured steps of ``stage`` (XE
+    banked, SCST unbanked) at scst_cider width from the seeded init, B=32 a
+    step (this rank's rows on ``mesh``; one card without one). Returns the
+    compared steps' losses and the state after them (the seam's shards
+    gathered), K3's launches in them, and the timed steps' ms a step."""
+    from vidcap_tpu_torch.parallel.sharding import (full_tensors,
+                                                    make_sharded_banked_step,
+                                                    make_sharded_step,
+                                                    place_state, shard_batch)
+    cfg, ds = sharded_corpus()
+    cfg = replaced(cfg, "train", stage=stage)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    state = create_train_state(cfg, init_params(create_model(
+        cfg, VOCAB_G), cfg.train.seed).to(dev))
+    body = (make_xe_step_body(cfg) if stage == "xe"
+            else make_scst_step_body(cfg, ds))
+    bank = stage == "xe"
+    if mesh is None:
+        fn = make_banked_step(body, ds, device=dev)[0] if bank else \
+            make_step(body, dev)
+    else:
+        if bank:
+            fn, _, dp = make_sharded_banked_step(mesh, body, ds)
+        else:
+            fn, dp = make_sharded_step(mesh, body)
+        place_state(state, mesh, dp)
+    it = DeterministicBatcher(ds, BG, seed=0)
+
+    def batch():
+        b = batch_to_device_dict(next(it), bank)
+        return shard_batch(b, mesh) if mesh is not None else b
+    _build.reset_counts()
+    losses = []
+    for _ in range(SHARD_STEPS):
+        state, m = fn(state, batch())
+        losses.append(m["loss"].clone())
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    full = full_tensors(state, mesh) if mesh is not None else None
+    params = full[0] if full is not None else state.params
+    out = {"loss": torch.stack(losses).cpu(),
+           "state": {k: p.detach().cpu().clone() for k, p in params.items()},
+           "launches": launches, "captured": fn.graph is not None}
+    batches = [batch() for _ in range(SHARD_TIMED)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, m = fn(state, b)
+    torch.cuda.synchronize()
+    out["ms_a_step"] = (time.perf_counter() - t0) * 1e3 / SHARD_TIMED
+    return out
+
+
+def sharded_decode_setup():
+    """(b)'s captioner configurations and inputs: (name, preset, vocab,
+    method, the inputs)."""
+    g = np.random.default_rng(171)
+    return (("beam B=184", "msrvtt_attn_beam5", VP, "beam",
+             [g.normal(size=(B, T, D)).astype(np.float32)
+              for _ in range(SHARD_DECODES)]),
+            ("greedy B=32", "msvd_greedy", VOCAB_G, "greedy",
+             [g.normal(size=(BG, T, D)).astype(np.float32)
+              for _ in range(SHARD_DECODES)]))
+
+
+def sharded_decodes(mesh, blocks: int = 1):
+    """(b): each decode of :func:`sharded_decode_setup` through
+    ``Captioner(mesh)`` (one card without one) on the seeded weights: the
+    tokens, captions/s (the median of the timed decodes after a warm-up)
+    and the launches of the timed decodes. ``blocks`` > 1 (one card):
+    each input decoded as that many equal row blocks, as the ranks of a
+    data axis of that size decode it (the projections choose their
+    kernels and K2 its vocab split by the row count)."""
+    out = {}
+    for name, preset, vocab, method, inputs in sharded_decode_setup():
+        cfg = get_preset(preset)
+        ids = [f"video{i}" for i in range(inputs[0].shape[0])]
+        ds = CaptionDataset(inputs[0], ids, {v: [] for v in ids}, cfg.data,
+                            vocab=vocab_of(vocab))
+        cap = Captioner.from_checkpoint(cfg, ds, mesh=mesh)
+        cap.decode_batch(inputs[0], method=method, beam_width=K)
+        _build.reset_counts()
+        toks, walls = [], []
+        for f in inputs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks.append(np.concatenate([
+                cap.decode_batch(x, method=method, beam_width=K)
+                for x in np.split(f, blocks)]))
+            walls.append(time.perf_counter() - t0)
+        out[name] = dict(tokens=toks, launches=dict(_build.launch_counts),
+                         captions_per_s=inputs[0].shape[0]
+                         / float(np.median(walls)),
+                         kernels=cap.kernels(method, K))
+    return out
+
+
+def sharded_dropout():
+    """(c): dropout p=DROP_P at scst_cider width: the keep share of both
+    sites' masks on the card (4 seeds, [32, E+H] and [32, H]) within 4σ of
+    1−p; the captured XE step's second replay at seed 2 against the eager
+    body's second step at seed 2 (equal where two eager runs are, else
+    within twice their difference), and not the replay at seed 1 again."""
+    from vidcap_tpu_torch.models.decoder import Dropout
+    cfg, ds = sharded_corpus()
+    cfg = replaced(cfg, "model", dropout_rate=DROP_P)
+    kept = n = 0
+    for seed in range(1, 5):
+        for site, width in ((0, E + H), (1, H)):
+            m = Dropout(DROP_P, seed).mask(BG, width, site, "cuda")
+            kept += int(m.sum())
+            n += m.numel()
+    share = kept / n
+    sigma = (DROP_P * (1 - DROP_P) / n) ** 0.5
+    it = DeterministicBatcher(ds, BG, seed=0)
+    batches = [batch_to_device_dict(next(it)) for _ in range(2)]
+    second = {}
+    for run, how, seeds in ((0, "eager", (1, 2)), (1, "eager", (1, 2)),
+                            (2, "captured", (1, 2)), (3, "captured", (1, 1))):
+        state = create_train_state(cfg, init_params(create_model(
+            cfg, VOCAB_G), cfg.train.seed).cuda())
+        body = make_xe_step_body(cfg)
+        fn = make_step(body, "cuda")
+        for b, seed in zip(batches, seeds):
+            d = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+            d["seed"] = torch.tensor([seed], device="cuda")
+            state, m = body(state, d) if how == "eager" else fn(state, d)
+        second[run] = float(m["xe_loss"])
+    floor = abs(second[0] - second[1])
+    out = dict(keep_share=share, want=1 - DROP_P, sigma=sigma,
+               xe_loss_second_step={"eager": second[0], "eager_again":
+                                    second[1], "captured_seeds_1_2":
+                                    second[2], "captured_seeds_1_1":
+                                    second[3]})
+    problems = []
+    if abs(share - (1 - DROP_P)) > 4 * sigma:
+        problems.append(f"dropout keep share {share}")
+    if abs(second[2] - second[0]) > 2 * floor:
+        problems.append(f"captured dropout step vs eager: {out}")
+    if second[3] == second[2]:
+        problems.append(f"a new seed drew the same masks: {out}")
+    return out, problems
+
+
+def refused_shapes(beam_floor: float):
+    """(d): each shape of :data:`REFUSED` at msrvtt_attn_beam5's width on
+    B=184 N(0,1) inputs with seeded weights: the decode does not raise and
+    launches what ``Captioner.kernels`` names (every other count 0); its
+    first REFUSED_CPU_ROWS rows are held to the CPU's decode under phase 16
+    (d)'s rules (floor: the share the CPU's bf16 decode keeps of its f32
+    decode less ROW_SLACK, or ``beam_floor`` where lower); ms a decode."""
+    base = get_preset("msrvtt_attn_beam5")
+    f = np.random.default_rng(172).normal(size=(B, T, D)).astype(np.float32)
+    ids = [f"video{i}" for i in range(B)]
+    out, problems, launched = {}, [], {k: 0 for k in _build.KERNELS}
+    for name, dec, model, method, beam in REFUSED:
+        cfg = replaced(replaced(base, "decode", **dec), "model", **model)
+        ds = CaptionDataset(f, ids, {v: [] for v in ids}, cfg.data,
+                            vocab=vocab_of(VP))
+        cap = Captioner.from_checkpoint(cfg, ds)
+        kernels = cap.kernels(method, beam)
+        cap.decode_batch(f, method=method, beam_width=beam)   # warm-up
+        _build.reset_counts()
+        cap.decode_steps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = cap.decode_batch(f, method=method, beam_width=beam)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.launch_counts)
+        for k, n in launches.items():
+            launched[k] += n
+            if (n > 0) != (k in kernels):
+                problems.append(f"{name}: launches {launches}, kernels "
+                                f"{kernels}")
+        held = held_to_cpu(cap, f[:REFUSED_CPU_ROWS],
+                           toks[:REFUSED_CPU_ROWS], method, beam, beam_floor)
+        out[name] = dict(kernels=list(kernels), launches=launches,
+                         decode_steps=cap.decode_steps, ms_a_decode=ms,
+                         captions_per_s=B / ms * 1e3, **held)
+        if toks.shape != (B, cfg.decode.max_len) or \
+                held["identical_rows_vs_cpu"] < held["floor"]:
+            problems.append(f"{name}: {out[name]}")
+    return out, problems, launched
+
+
+def held_to_cpu(cap, rows, toks, method: str, beam: int,
+                beam_floor: float) -> dict:
+    """Phase 16 (d)'s rule: ``toks``, the card's decode of ``rows``,
+    against the CPU's decode of the same rows with the same weights (the
+    plain path): the share of identical rows, its witness (the share the
+    CPU's bf16 decode keeps of its f32 decode) and the floor it must reach
+    (the witness less ROW_SLACK, or ``beam_floor`` where lower)."""
+    cfg, ds = cap.cfg, cap.dataset
+    cpu = Captioner(cfg, copy.deepcopy(cap.model).cpu(), ds,
+                    torch.device("cpu"))
+    cfg32 = replaced(cfg, "model", compute_dtype="float32")
+    m32 = create_model(cfg32, vocab_size=cap.model.vocab_size)
+    m32.load_state_dict(cpu.model.state_dict())
+    cpu32 = Captioner(cfg32, m32.eval(), ds, torch.device("cpu"))
+    ref = cpu.decode_batch(rows, method=method, beam_width=beam)
+    ref32 = cpu32.decode_batch(rows, method=method, beam_width=beam)
+    witness = float((ref == ref32).all(1).mean())
+    return dict(identical_rows_vs_cpu=float((toks == ref).all(1).mean()),
+                witness_cpu_bf16_vs_cpu_f32=witness,
+                floor=min(beam_floor, witness - ROW_SLACK))
+
+
+def rank_blocks_vs_cpu(beam_floor: float):
+    """(b) at a rank's shape: the first 1/RANK_BLOCKS of (b)'s first input
+    (46 beam rows, 8 greedy rows: what a rank of the four-card mesh
+    decodes) through one card's route, held to the CPU's decode under
+    :func:`held_to_cpu`'s rule, with the launches."""
+    out, problems = {}, []
+    for name, preset, vocab, method, inputs in sharded_decode_setup():
+        cfg = get_preset(preset)
+        rows = inputs[0][:inputs[0].shape[0] // RANK_BLOCKS]
+        ids = [f"video{i}" for i in range(rows.shape[0])]
+        ds = CaptionDataset(rows, ids, {v: [] for v in ids}, cfg.data,
+                            vocab=vocab_of(vocab))
+        cap = Captioner.from_checkpoint(cfg, ds)
+        _build.reset_counts()
+        toks = cap.decode_batch(rows, method=method, beam_width=K)
+        launches = dict(_build.launch_counts)
+        held = held_to_cpu(cap, rows, toks, method, K, beam_floor)
+        kernels = cap.kernels(method, K)
+        out[f"{name} rows 0-{rows.shape[0] - 1}"] = r = dict(
+            launches=launches, kernels=list(kernels), **held)
+        if (held["identical_rows_vs_cpu"] < held["floor"]
+                or any((n > 0) != (k in kernels)
+                       for k, n in launches.items())):
+            problems.append(f"(b) rank block {name}: {r}")
+    return out, problems
+
+
+def parted(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).abs().max().item()
+
+
+def phase_sharded(beam_floor: float):
+    """Phase 17 at a world of one over NCCL: (a) each stage's sharded
+    captured step against the unsharded captured step run twice (bit for
+    bit where those two are, else within twice their difference, phase
+    14's rule; the loss and every parameter), K3 2 a SCST step, ms a step;
+    (b) the sharded decodes identical to the one-card decodes, captions/s;
+    (c); (d). Returns (the readings, the launches of the sharded runs and
+    of (d) by kernel)."""
+    from vidcap_tpu_torch.parallel import distributed
+    from vidcap_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    distributed.init_group("cuda:0")
+    out, problems = {}, []
+    launched = {k: 0 for k in _build.KERNELS}
+    try:
+        mesh = make_mesh(None)
+        for stage in ("xe", "scst"):
+            one = [sharded_steps(None, stage) for _ in range(2)]
+            sh = sharded_steps(mesh, stage)
+            floor = max([parted(one[0]["loss"], one[1]["loss"])]
+                        + [parted(one[0]["state"][k], one[1]["state"][k])
+                           for k in one[0]["state"]])
+            worst = max([parted(one[0]["loss"], sh["loss"])]
+                        + [parted(one[0]["state"][k], sh["state"][k])
+                           for k in sh["state"]])
+            k3 = sh["launches"]["rollout"]
+            out[f"{stage} steps"] = dict(
+                bit_for_bit=worst == 0.0, unsharded_twice_max_diff=floor,
+                sharded_vs_unsharded_max_diff=worst,
+                loss=sh["loss"].tolist(), k3_launches=k3,
+                captured=sh["captured"], ms_a_step_sharded=sh["ms_a_step"],
+                ms_a_step_one_card=[o["ms_a_step"] for o in one])
+            for k, n in sh["launches"].items():
+                launched[k] += n
+            want = 2 * SHARD_STEPS if stage == "scst" else 0
+            if worst > 2 * floor or k3 != want or not sh["captured"]:
+                problems.append(f"(a) {stage}: {out[f'{stage} steps']}")
+        t1 = time.perf_counter()
+        one, sh = sharded_decodes(None), sharded_decodes(mesh)
+        for name in one:
+            same = all(np.array_equal(a, b) for a, b in
+                       zip(one[name]["tokens"], sh[name]["tokens"]))
+            out[name] = dict(identical_to_one_card=same,
+                             launches=sh[name]["launches"],
+                             kernels=list(sh[name]["kernels"]),
+                             captions_per_s_sharded=sh[name][
+                                 "captions_per_s"],
+                             captions_per_s_one_card=one[name][
+                                 "captions_per_s"])
+            for k, n in sh[name]["launches"].items():
+                launched[k] += n
+                if (n > 0) != (k in sh[name]["kernels"]):
+                    problems.append(f"(b) {name}: {out[name]}")
+            if not same:
+                problems.append(f"(b) {name}: tokens differ from one card")
+        t2 = time.perf_counter()
+    finally:
+        distributed.shutdown()
+    out["rank blocks vs cpu"], p = rank_blocks_vs_cpu(beam_floor)
+    problems += p
+    t3 = time.perf_counter()
+    out["dropout"], p = sharded_dropout()
+    problems += p
+    out["refused shapes"], p, lc = refused_shapes(beam_floor)
+    problems += p
+    for k, n in lc.items():
+        launched[k] += n
+    out["seconds"] = dict(steps=t1 - t0, decodes=t2 - t1,
+                          rank_blocks_and_dropout=t3 - t2,
+                          refused=time.perf_counter() - t3)
+    if problems:
+        fail("phase 17: " + "; ".join(problems) + " | "
+             + json.dumps(out, default=str))
+    return out, launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -3245,6 +3594,20 @@ def main() -> int:
                   "else 2x their max |diff|"}}), flush=True)
     k28, launched16 = phase16_line(card, beam_cap, beam_trials, e2e,
                                    row_floor, ds)
+    sharded, launched17 = phase_sharded(min(
+        e2e["identical_rows_plain_cpu_vs_card_by_trial"]) - ROW_SLACK)
+    print(f"phase 17 more than one GPU, a world of one over NCCL on {card}: "
+          "(a) sharded XE (banked) and SCST steps at scst_cider width "
+          f"B={BG}, (b) sharded beam B={B} and greedy B={BG}, (c) dropout "
+          f"p={DROP_P} in the captured XE step, (d) the shapes the kernels "
+          "refuse at msrvtt_attn_beam5 width: " + json.dumps(
+              {**sharded, "tolerance": {
+                  "steps": "bit for bit where two unsharded runs are, else "
+                  "2x their max |diff|", "decodes": "identical",
+                  "dropout": "keep share within 4 sigma; captured vs eager "
+                  "as (a)", "refused": "rows vs the CPU >= the CPU bf16-vs-"
+                  f"f32 witness less {ROW_SLACK}, or phase 4's floor"}}),
+          flush=True)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]
@@ -3273,14 +3636,16 @@ def main() -> int:
                             in pixels["cli"]["stage_lines"]
                             + pixels["cli"]["resume_stage_lines"])
                       + pixels["cli"]["caption_launches"]["rollout"])
-    k3["launches"] += launched16["rollout"]
-    k28["launches"] = launched16["topk_project_int8"]
+    k3["launches"] += launched16["rollout"] + launched17["rollout"]
+    k28["launches"] = (launched16["topk_project_int8"]
+                       + launched17["topk_project_int8"])
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]
                                        + offline["train_launches"][k["name"]]
                                        + offline["caption_launches"][k["name"]]
                                        + sum(r["launches"][k["name"]]
                                              for r in served_beam)
-                                       + launched16[k["name"]])
+                                       + launched16[k["name"]]
+                                       + launched17[k["name"]])
                                   for k in (k1, k2)] + [k28, k3]}),
           flush=True)
     print(gpu_line(), flush=True)

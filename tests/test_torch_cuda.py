@@ -437,8 +437,9 @@ def test_topk_project_int8_matches_plain(dev, N, H, Vp, vocab, K):
 
 def test_pool_beam_width_is_capped_by_k2(dev):
     """The pool takes K+1 candidates a row and K2 at most 8: beam width 7
-    runs, K2 at K=8 on every step, and 8 raises a ValueError that names
-    the limit."""
+    runs K2 at K=8 on every step; at 8 (once refused) K1 runs every step
+    and the projection's top-9 goes through PyTorch, no K2 launch, and the
+    rows agree with the CPU's decode."""
     cfg = dataclasses.replace(get_preset("synthetic_tiny"), decode=dataclasses
                               .replace(get_preset("synthetic_tiny").decode,
                                        finished_pool="on"))
@@ -450,8 +451,16 @@ def test_pool_beam_width_is_capped_by_k2(dev):
     cap.decode_steps = 0
     assert cap.decode_batch(feats, beam_width=7).shape == (4, cap.max_len)
     assert _build.launches_by_k == {("topk_project", 8): cap.decode_steps}
-    with pytest.raises(ValueError, match="at most 7"):
-        cap.decode_batch(feats, beam_width=8)
+    _build.reset_counts()
+    cap.decode_steps = 0
+    assert cap.kernels("beam", 8) == ("beam_core",)
+    got = cap.decode_batch(feats, beam_width=8)
+    assert _build.launch_counts["beam_core"] == cap.decode_steps > 0
+    assert _build.launch_counts["topk_project"] == 0
+    cpu = Captioner(cap.cfg, cap.model.cpu(), cap.dataset,
+                    torch.device("cpu"))
+    assert (cpu.decode_batch(feats, beam_width=8) == got).all(1).mean() \
+        >= 0.75
 
 
 @pytest.mark.parametrize("over,beam_kernel", [
@@ -503,3 +512,112 @@ def test_two_layer_scst_captured_equals_eager(dev, k):
     assert _max_diff(eager, captured) <= 2 * floor
     assert int(captured["count"]) == 4
     assert sum(_build.launch_counts.values()) == 0
+
+
+@pytest.mark.parametrize("over,method,beam,kernels", [
+    ({}, "beam", 9, ()),
+    ({"hidden_dim": 1024}, "beam", 5, ("beam_core",)),
+    ({"hidden_dim": 1024}, "greedy", 5, ())])
+def test_shapes_the_kernels_refuse_decode_on_the_card(dev, over, method,
+                                                      beam, kernels):
+    """Beam 9 and hidden 1024 (K2's and K3's limits) decode without raising
+    through the route ``Captioner.kernels`` names (the modules for the
+    rest), B=32; at least 3/4 of the rows equal the CPU's decode of the
+    same weights (bf16 sums in another order may flip a near-tie)."""
+    base = get_preset("synthetic_tiny")
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model,
+                                                              **over))
+    cap = Captioner.from_checkpoint(cfg, CaptionDataset.synthetic(
+        cfg.data, num_videos=8))
+    assert cap.kernels(method, beam) == kernels
+    feats = np.random.default_rng(4).normal(
+        size=(32, cfg.data.num_frames, cfg.data.feature_dim)).astype(
+            np.float32)
+    _build.reset_counts()
+    cap.decode_steps = 0
+    got = cap.decode_batch(feats, method=method, beam_width=beam)
+    torch.cuda.synchronize()
+    for k in _build.KERNELS:
+        n = _build.launch_counts[k]
+        assert (n > 0) == (k in kernels), (k, n)
+    cpu = Captioner(cfg, cap.model.cpu(), cap.dataset, torch.device("cpu"))
+    want = cpu.decode_batch(feats, method=method, beam_width=beam)
+    assert (want == got).all(1).mean() >= 0.75
+
+
+@pytest.fixture
+def nccl_world_of_one(dev):
+    from vidcap_tpu_torch.parallel import distributed
+    from vidcap_tpu_torch.parallel.mesh import make_mesh
+    distributed.init_group(dev)
+    yield make_mesh(None)
+    distributed.shutdown()
+
+
+@pytest.mark.parametrize("stage", ["xe", "scst"])
+def test_world_one_nccl_step_is_the_unsharded_step(nccl_world_of_one,
+                                                   stage):
+    """A world of one over NCCL: the sharded step (its all-reduces inside
+    the captured graph) against the unsharded captured step run twice, 3
+    steps, the losses and the parameters: equal where the two unsharded
+    runs are, else within twice their largest difference (the card may
+    sum an index gradient in another order: chip_smoke.py phase 14's
+    rule); SCST launches K3 twice a step."""
+    from vidcap_tpu_torch.parallel.sharding import make_sharded_step
+    mesh = nccl_world_of_one
+    dev = mesh.device
+    cfg = get_preset("synthetic_tiny")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, stage=stage, batch_size=32))
+    ds = CaptionDataset.synthetic(cfg.data)
+    runs = []
+    for sharded in (False, False, True):
+        state = create_train_state(cfg, init_params(
+            create_model(cfg, ds.vocab.size), 0).to(dev))
+        body = (make_xe_step_body(cfg) if stage == "xe"
+                else make_scst_step_body(cfg, ds))
+        fn = (make_sharded_step(mesh, body)[0] if sharded
+              else make_step(body, dev))
+        it = DeterministicBatcher(ds, 32, seed=0)
+        _build.reset_counts()
+        rec = {}
+        for j in range(3):
+            state, m = fn(state, batch_to_device_dict(next(it)))
+            rec[f"loss {j}"] = m["loss"].clone()
+        torch.cuda.synchronize()
+        assert fn.graph is not None
+        rec.update({k: p.detach().clone() for k, p in state.params.items()})
+        runs.append((rec, dict(_build.launch_counts)))
+    (one, c0), (again, _), (sharded_run, c1) = runs
+    floor = _max_diff(one, again)
+    assert _max_diff(one, sharded_run) <= 2 * floor
+    assert c0 == c1
+    assert c1["rollout"] == (6 if stage == "scst" else 0)
+
+
+def test_dropout_draws_new_masks_at_each_replay(dev):
+    """XE with dropout 0.5, captured: the seed is written into the graph's
+    buffer before each replay, so the second replay at seed 2 is the eager
+    body's second step at seed 2 (within 1e-5), and not the replay at seed
+    1 again."""
+    cfg = get_preset("synthetic_tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dropout_rate=0.5))
+    ds = CaptionDataset.synthetic(cfg.data)
+    it = DeterministicBatcher(ds, 32, seed=0)
+    batches = [batch_to_device_dict(next(it)) for _ in range(2)]
+    second = {}
+    for how, seeds in (("eager", (1, 2)), ("captured", (1, 2)),
+                       ("captured", (1, 1))):
+        state = create_train_state(cfg, init_params(
+            create_model(cfg, ds.vocab.size), 0).to(dev))
+        body = make_xe_step_body(cfg)
+        fn = make_step(body, dev)
+        for b, seed in zip(batches, seeds):
+            d = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            d["seed"] = torch.tensor([seed], device=dev)
+            state, m = (body(state, d) if how == "eager" else fn(state, d))
+        second[(how, seeds)] = float(m["xe_loss"])
+    want = second[("eager", (1, 2))]
+    assert abs(second[("captured", (1, 2))] - want) <= 1e-5 * abs(want)
+    assert second[("captured", (1, 1))] != second[("captured", (1, 2))]

@@ -645,13 +645,12 @@ def test_cli_offline_path_through_subprocesses(tmp_path):
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["serve", "--sharded"], "ROADMAP Queue 1 item 12"),
     (["caption", "--from-export", "JAX_ARTIFACT"],
      "artifact of the JAX package")])
 def test_commands_not_ported_name_their_item(argv, says, tmp_path, capsys):
-    """The commands still to port name their ROADMAP item; an artifact of
-    the JAX package (a StableHLO graph, ``decoder.jaxexp`` and its meta) is
-    named and refused."""
+    """An artifact of the JAX package (a StableHLO graph,
+    ``decoder.jaxexp`` and its meta) is named and refused. (``serve
+    --sharded``, once refused here, runs: tests/test_torch_parallel.py.)"""
     jax_artifact = tmp_path / "jax_artifact"
     jax_artifact.mkdir()
     (jax_artifact / "decoder.jaxexp").write_bytes(b"")

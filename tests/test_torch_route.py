@@ -1,0 +1,152 @@
+"""The route by the kernels' limits (``ops/limits.py``): each kernel says
+which shapes it takes, from the constants its wrapper raises on, and
+``models/decoding.py::kernel_decoder`` / ``projection_kernel`` send a shape
+no kernel takes through the model's modules, as the JAX package decodes
+every width through XLA. On CPU-only shape tables (the H100's SMs and
+shared memory for K3), then through ``Captioner`` on the CPU: the shapes
+the kernels refuse (beam 9, the pool at beam 8, hidden 1024) decode through
+the module route, with the tokens of the kernels' plain versions forced on
+the same shapes (which have no limits on the CPU).
+"""
+import numpy as np
+import pytest
+import torch
+
+from vidcap_tpu_torch.config import PRESETS, apply_overrides, get_preset
+from vidcap_tpu_torch.data.loader import CaptionDataset
+from vidcap_tpu_torch.inference import Captioner
+from vidcap_tpu_torch.models import decoding
+from vidcap_tpu_torch.models.decoding import kernel_decoder, projection_kernel
+from vidcap_tpu_torch.models.model import create_model, init_params
+from vidcap_tpu_torch.ops import limits
+from vidcap_tpu_torch.ops.limits import (beam_core_takes, rollout_takes,
+                                         topk_project_int8_takes,
+                                         topk_project_takes)
+
+
+@pytest.mark.parametrize("beam,e,h,a,takes", [
+    (5, 512, 512, 512, True), (8, 512, 512, 512, True),
+    (9, 512, 512, 512, False), (0, 512, 512, 512, False),
+    (5, 512, 1024, 512, True), (5, 512, 1000, 512, False),
+    (5, 500, 512, 512, False), (5, 512, 512, 48, False)])
+def test_k1_table(beam, e, h, a, takes):
+    assert beam_core_takes(beam, e, h, a) is takes
+
+
+@pytest.mark.parametrize("k,h,vp,k2,k2_int8", [
+    (5, 512, 16_000, True, True), (8, 512, 12_032, True, True),
+    (9, 512, 16_000, False, False), (6, 1024, 16_000, False, True),
+    (5, 544, 16_000, False, True), (5, 520, 16_000, False, False),
+    (5, 512, 16_004, False, True), (5, 512, 4, False, False)])
+def test_k2_and_k2_int8_tables(k, h, vp, k2, k2_int8):
+    assert topk_project_takes(k, h, vp) is k2
+    assert topk_project_int8_takes(k, h, vp) is k2_int8
+
+
+@pytest.mark.parametrize("e,h,a,vp,t,takes", [
+    (512, 512, 512, 12_032, 26, True),     # msvd_greedy / scst_cider
+    (512, 512, 512, 65_536, 26, True),     # streamed W_out
+    (512, 1024, 512, 16_000, 26, False),   # hidden over MAX_WIDTH
+    (512, 512, 544, 16_000, 26, False),    # attention over MAX_WIDTH
+    (520, 512, 512, 16_000, 26, False),    # embedding not a multiple of 32
+    (512, 512, 512, 16_004, 26, False)])   # vocab not a multiple of 8
+def test_k3_table_on_the_h100(e, h, a, vp, t, takes):
+    assert rollout_takes(e, h, a, vp, t) is takes
+
+
+def test_k3_takes_the_cards_sms_and_shared_memory():
+    """A card with too few SMs, or too little shared memory for even the
+    streamed mode, refuses what the H100 takes."""
+    args = (512, 512, 512, 12_032, 26)
+    assert rollout_takes(*args, sms=132, smem=limits.H100_SMEM)
+    assert not rollout_takes(*args, sms=2 * limits.ROWS - 1)
+    assert not rollout_takes(*args, smem=64 * 1024)
+
+
+def _cfg(*over):
+    return apply_overrides(get_preset("msrvtt_attn_beam5"), list(over))
+
+
+def test_every_preset_takes_the_kernels_at_its_widths():
+    """The presets' decoders at their widths, beam widths, frames and
+    vocab: K1, K2 and K3 take them all, so their routes do not change."""
+    for cfg in PRESETS.values():
+        m, d = cfg.model, cfg.decode
+        vp = cfg.data.padded_vocab
+        assert kernel_decoder(m)
+        assert kernel_decoder(m, "beam", d.beam_width)
+        assert kernel_decoder(m, "greedy", frames=cfg.data.num_frames,
+                              padded_vocab=vp)
+        n = d.beam_width + 1 if decoding.use_finished_pool(d) \
+            else d.beam_width
+        assert projection_kernel(cfg, n, vp) == projection_kernel(cfg)
+
+
+@pytest.mark.parametrize("over,beam,want", [
+    ([], 5, {"beam": ("beam_core", "topk_project"), "greedy": ("rollout",)}),
+    ([], 9, {"beam": (), "greedy": ("rollout",)}),
+    (["decode.finished_pool=on"], 7,
+     {"beam": ("beam_core", "topk_project")}),
+    (["decode.finished_pool=on"], 8, {"beam": ("beam_core",)}),
+    (["model.hidden_dim=1024"], 5, {"beam": ("beam_core",), "greedy": ()}),
+    (["model.hidden_dim=1024", "decode.int8_vocab_projection=true"], 5,
+     {"beam": ("beam_core", "topk_project_int8")}),
+    (["decode.int8_vocab_projection=true"], 9, {"beam": ()})])
+def test_captioner_reports_the_route(over, beam, want):
+    """``Captioner.kernels`` at msrvtt_attn_beam5's widths (on the meta
+    device: nothing allocated): what launches on the card for each shape."""
+    cfg = _cfg(*over)
+    ds = CaptionDataset.synthetic(cfg.data, num_videos=2)
+    with torch.device("meta"):
+        model = create_model(cfg, cfg.data.vocab_size)
+    cap = Captioner(cfg, model, ds, torch.device("cpu"))
+    for method, kernels in want.items():
+        assert cap.kernels(method, beam) == kernels, method
+
+
+def _tiny(over):
+    cfg = apply_overrides(get_preset("synthetic_tiny"), over)
+    ds = CaptionDataset.synthetic(cfg.data, num_videos=4)
+    return Captioner(cfg, init_params(create_model(cfg, ds.vocab.size),
+                                      seed=2).eval(), ds,
+                     torch.device("cpu"), seed=3)
+
+
+@pytest.mark.parametrize("over,beam,method,route", [
+    ([], 9, "beam", "module_beam_step"),
+    (["decode.finished_pool=on"], 8, "beam", "fused_beam_step"),
+    (["decode.int8_vocab_projection=true"], 9, "beam",
+     "module_beam_step"),
+    (["model.hidden_dim=1024"], 3, "beam", "fused_beam_step"),
+    (["model.hidden_dim=1024"], 3, "greedy", "_module_rollout")])
+def test_refused_shapes_decode_through_the_modules(monkeypatch, over, beam,
+                                                   method, route):
+    """On the CPU, at synthetic_tiny's vocab (hidden 1024 where named):
+    the step each refused shape takes, a projection through no kernel, and
+    the tokens of the kernels' plain versions forced on the same shape."""
+    cap = _tiny(over)
+    feats = np.random.default_rng(1).normal(size=(4, 8, 64)).astype(
+        np.float32)
+    calls = []
+    import vidcap_tpu_torch.inference as inference
+    for name in ("fused_beam_step", "module_beam_step"):
+        real = getattr(inference, name)
+        monkeypatch.setattr(inference, name, lambda *a, _r=real, _n=name,
+                            **k: (calls.append(_n), _r(*a, **k))[1])
+    real_roll = Captioner._module_rollout
+    monkeypatch.setattr(Captioner, "_module_rollout", lambda self, *a, **k: (
+        calls.append("_module_rollout"), real_roll(self, *a, **k))[1])
+    got = cap.decode_batch(feats, method=method, beam_width=beam)
+    assert calls == [route]
+    if method == "beam":
+        w = cap._beam_weights or cap._vocab_proj
+        assert (w.proj if hasattr(w, "proj") else w).kernel is None
+    # the kernels' plain versions on the same shape: the same tokens
+    forced = _tiny(over)
+    monkeypatch.setattr(inference, "kernel_decoder", lambda *a, **k: True)
+    monkeypatch.setattr(inference, "projection_kernel", lambda cfg, *a, **k: (
+        "topk_project_int8" if cfg.decode.int8_vocab_projection
+        else "topk_project"))
+    np.testing.assert_array_equal(
+        forced.decode_batch(feats, method=method, beam_width=beam), got)
+

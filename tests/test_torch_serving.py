@@ -297,12 +297,31 @@ def test_warmup_casts_weights_before_the_first_request(jax_side, method,
     assert getattr(cap, weights) is cast and cap.decode_calls == 2
 
 
-def test_serve_sharded_is_refused(capsys):
-    """The counterpart of test_serve_with_mesh_captioner: one card; serve
-    --sharded waits for ROADMAP Queue 1 item 12."""
-    assert cli_main(["serve", "--preset", "synthetic_tiny", "--sharded",
-                     "--device", "cpu"]) == 2
-    assert "ROADMAP Queue 1 item 12" in capsys.readouterr().err
+def test_serve_sharded_is_refused(tmp_path, cfg, jax_side, monkeypatch,
+                                  capsys):
+    """``serve --sharded`` runs (once refused): with a mesh of one rank
+    (``mesh.num_data=1``) it prints the reference's notice and serves on
+    that device, the lines of the plain server (the multi-process server:
+    tests/test_torch_parallel.py).
+    What stays refused is the reference's refusal: ``--sharded`` with
+    ``--from-export``."""
+    weights = str(tmp_path / "w.npz")
+    save_weights(port_captioner(cfg, jax_side[1]).model, weights)
+    paths = write_features(tmp_path, (8, 2, 5), seed=3)
+    out = {}
+    for extra in ([], ["--sharded", "--set", "mesh.num_data=1"]):
+        monkeypatch.setattr(sys, "stdin", io.StringIO("\n".join(paths)
+                                                      + "\n"))
+        assert cli_main(["serve", "--preset", "synthetic_tiny", "--weights",
+                         weights, "--method", "greedy", "--batch", "4",
+                         "--device", "cpu", "--set", F32[0]] + extra) == 0
+        out[bool(extra)] = capsys.readouterr()
+    assert out[True].out == out[False].out and out[True].out
+    assert "--sharded requested but only one device visible" in \
+        out[True].err
+    with pytest.raises(SystemExit, match="--sharded requires"):
+        cli_main(["serve", "--preset", "synthetic_tiny", "--sharded",
+                  "--from-export", str(tmp_path), "--device", "cpu"])
 
 
 def test_cli_serve_stdin(tmp_path, cfg, jax_side, monkeypatch, capsys):

@@ -76,10 +76,11 @@ def kernel_route(monkeypatch):
         raise AssertionError("a module step ran on the kernel route")
 
     for mod in (inference, scst):
-        monkeypatch.setattr(mod, "kernel_decoder", lambda model_cfg: True)
+        monkeypatch.setattr(mod, "kernel_decoder",
+                            lambda model_cfg, *a, **k: True)
         monkeypatch.setattr(mod, "model_rollout",
                             spy("model_rollout", mod.model_rollout))
-    monkeypatch.setattr(inference, "projection_kernel", lambda cfg: (
+    monkeypatch.setattr(inference, "projection_kernel", lambda cfg, *a, **k: (
         "topk_project_int8" if cfg.decode.int8_vocab_projection
         else "topk_project"))
     monkeypatch.setattr(inference, "fused_beam_step",

@@ -7,6 +7,7 @@
       [--log-file log.jsonl] [--eval-every N] [--log-every K]
       [--checkpoint-dir DIR] [--seed S] [--feature-bank]
       [--steps-per-dispatch K | K1,K2] [--set ...] [--device cpu]
+      [--sharded]
   python -m vidcap_tpu_torch caption --preset msvd_greedy
       [--checkpoint-dir DIR | --weights W.npz]
       [--method greedy|beam|sample] [--beam 5] [--nbest N] [--temperature T]
@@ -20,7 +21,7 @@
       [--checkpoint-dir DIR | --weights W.npz | --from-export DIR]
       [--method M] [--beam K] [--batch 32] [--max-wait-ms MS]
       [--pipeline-depth 1] [--http PORT [--path-root DIR] [--max-queue N]]
-      [--device cpu]
+      [--device cpu] [--sharded]
   python -m vidcap_tpu_torch export --preset msvd_greedy --out DIR
       [--checkpoint-dir DIR | --weights W.npz] [--batch 32 | --batch 0]
       [--method greedy|beam] [--beam K] [--platforms cuda,cpu]
@@ -56,8 +57,12 @@ card). The end-to-end presets (``model.use_backbone``:
 ``e2e_irv2``, ``e2e_scst_multitask``) train and decode on frame pixels
 (``{dataset}_{split}_frames.*``, else the synthetic pixel fixture), and
 ``caption --inputs`` takes video files. Train, decode, serve and extract run
-on the card unless ``--device cpu`` is given. The other commands of the JAX
-CLI are not ported yet and say which ROADMAP item they wait for.
+on the card unless ``--device cpu`` is given. ``train --sharded`` and
+``serve --sharded`` run on every visible card from one command: it starts
+one worker process a rank of the mesh ``mesh.num_data`` × ``mesh.num_model``
+(``mesh.num_data`` -1: every visible card, or 2 gloo processes with
+``--device cpu``), each the same command as one rank (parallel/); with one
+rank they print the reference's notice and run on one device.
 """
 from __future__ import annotations
 
@@ -71,17 +76,43 @@ from typing import Optional
 from vidcap_tpu_torch.config import Config, apply_overrides, get_preset
 from vidcap_tpu_torch.ops._build import launch_counts
 
-# command or flag → the ROADMAP item that ports it
-_NOT_PORTED = {
-    "--sharded": "Queue 1 item 12 (multi-GPU)",
-}
 
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to vidcap_tpu_torch yet (ROADMAP "
-        f"{_NOT_PORTED[what]}); the JAX package's `python -m vidcap_tpu` "
-        "has it")
+def _sharded_mesh(args, cfg: Config, stdin: bool = False):
+    """``--sharded``: (None, an exit code) in the command that starts the
+    workers: one process a rank of ``cfg.mesh`` (``num_data`` × ``num_model``;
+    ``num_data`` -1: every visible card, with ``--device cpu`` 2 processes
+    over gloo), each this same command as one rank
+    (parallel/distributed.py::launch); (the mesh over the ranks, None) in a
+    worker; (None, None) with one rank, after the reference's notice, and
+    without ``--sharded``."""
+    if not args.sharded:
+        return None, None
+    from vidcap_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                       launch)
+    from vidcap_tpu_torch.parallel.mesh import make_mesh
+    if initialize_multihost(args.device):
+        return make_mesh(cfg.mesh), None
+    cpu = args.device == "cpu"
+    if not cpu:
+        from vidcap_tpu_torch.inference import resolve_device
+        resolve_device(args.device)   # no card and no --device cpu: exit 2
+    import torch
+    visible = None if cpu else torch.cuda.device_count()
+    nm = cfg.mesh.num_model
+    world = (cfg.mesh.num_data * nm if cfg.mesh.num_data != -1
+             else 2 if cpu else visible)
+    if visible is not None and world > visible:
+        raise SystemExit(f"--sharded: a mesh of {world} ranks, only "
+                         f"{visible} cards visible")
+    if world < 2:
+        print("[vidcap] --sharded requested but only one device visible; "
+              "running single-device", file=sys.stderr)
+        return None, None
+    nd = world // nm
+    print(f"[vidcap] --sharded: {world} processes "
+          f"({'gloo on the CPU' if cpu else 'NCCL, one a card'}), mesh "
+          f"data {nd} x model {nm}", file=sys.stderr, flush=True)
+    return None, launch(args.argv, world, stdin=stdin)
 
 
 def _load_dataset(cfg: Config, split: str):
@@ -108,17 +139,18 @@ def _load_dataset(cfg: Config, split: str):
     return CaptionDataset.synthetic(cfg.data, pixels=pixels)
 
 
-def _captioner(args, cfg: Config, dataset):
-    """The captioner of ``caption``/``sample``: the parameters of
+def _captioner(args, cfg: Config, dataset, mesh=None):
+    """The captioner of ``caption``/``sample``/``serve``: the parameters of
     ``--weights`` or of the newest checkpoint in ``--checkpoint-dir``
-    (default ``train.checkpoint_dir``)."""
+    (default ``train.checkpoint_dir``); ``mesh``: a rank's."""
     from vidcap_tpu_torch.inference import Captioner
     if args.weights and args.checkpoint_dir:
         raise SystemExit("give --weights or --checkpoint-dir, not both")
     return Captioner.from_checkpoint(
         cfg, dataset, weights=args.weights, device=args.device,
         seed=getattr(args, "seed", None), checkpoint_dir=None
-        if args.weights else (args.checkpoint_dir or cfg.train.checkpoint_dir))
+        if args.weights else (args.checkpoint_dir or cfg.train.checkpoint_dir),
+        mesh=mesh)
 
 
 def _load_export(args, cfg: Config):
@@ -177,8 +209,6 @@ def _decode_split(args, cfg: Config, method: str, beam: int = 5,
 
 
 def cmd_train(args) -> int:
-    if args.sharded:
-        _not_ported("--sharded")
     cfg = apply_overrides(get_preset(args.preset), args.set)
     # --steps: one count for every stage, or a comma list matched to
     # --stages (e.g. --stages xe,scst --steps 2500,1000)
@@ -221,6 +251,11 @@ def cmd_train(args) -> int:
     from vidcap_tpu_torch.train.loop import train
     from vidcap_tpu_torch.utils.logging import MetricsLogger
     resolve_device(args.device)   # no card and no --device cpu: exit 2 now
+    # --sharded: multi-card training over every visible card, the batch
+    # over the mesh's data axis, the vocab seam on its model axis
+    mesh, rc = _sharded_mesh(args, cfg)
+    if rc is not None:
+        return rc
     dataset = _load_dataset(cfg, split="train")
     val_dataset = None
     if cfg.data.dataset != "synthetic":
@@ -231,7 +266,8 @@ def cmd_train(args) -> int:
             val_dataset = load(cfg.data, split="val")
         except FileNotFoundError:
             pass   # periodic eval falls back to a train subset
-    logger = MetricsLogger(path=args.log_file)
+    logger = MetricsLogger(path=args.log_file if mesh is None
+                           or mesh.rank == 0 else None)
     # the staged schedule: each stage resumes from the previous stage's
     # checkpoint, and the step counts are cumulative
     total = 0
@@ -245,9 +281,12 @@ def cmd_train(args) -> int:
                                     else cfg.train.steps_per_dispatch)))
             train(scfg, dataset=dataset, logger=logger,
                   resume=args.resume or i > 0, device=args.device,
-                  val_dataset=val_dataset)
+                  val_dataset=val_dataset, mesh=mesh)
     finally:
         logger.close()
+        if mesh is not None:
+            from vidcap_tpu_torch.parallel.distributed import shutdown
+            shutdown()
     return 0
 
 
@@ -386,12 +425,52 @@ def cmd_serve(args) -> int:
     """Caption the feature paths of stdin, or of HTTP requests with
     ``--http``, until stdin ends (or the HTTP server is interrupted); the
     last stderr line reports the decodes and kernel launches, the warmup's
-    included."""
-    if args.sharded:
-        _not_ported("--sharded")
+    included. ``--sharded``: every rank decodes its rows of each flush;
+    rank 0 reads the requests, sends each flush to the others and
+    answers."""
     cfg = apply_overrides(get_preset(args.preset), args.set)
+    if args.sharded and args.from_export:
+        raise SystemExit("--from-export artifacts decode on one device; "
+                         "--sharded requires a checkpoint or --weights")
+    mesh, rc = _sharded_mesh(args, cfg, stdin=args.http is None)
+    if rc is not None:
+        return rc
+    if mesh is not None:
+        return _serve_rank(args, cfg, mesh)
+    return _serve(args, cfg)
+
+
+def _serve_rank(args, cfg: Config, mesh) -> int:
+    """One rank of ``serve --sharded``: rank 0 serves (its captioner sends
+    each flush to the others), the others decode what it sends until it
+    stops them."""
+    from vidcap_tpu_torch.parallel import sharding
+    from vidcap_tpu_torch.parallel.distributed import shutdown
+    try:
+        cap = _captioner(args, cfg, _load_dataset(cfg, split="train"), mesh)
+        if mesh.rank != 0:
+            if cap.device.type == "cuda":   # rank 0's warmup builds its own
+                from vidcap_tpu_torch.ops import _build
+                _build.build_all(cap.kernels(
+                    args.method or cfg.decode.method,
+                    args.beam or cfg.decode.beam_width))
+            sharding.follow(cap)
+            return 0
+        cap.lead = True
+        try:
+            return _serve(args, cfg, cap)
+        finally:
+            sharding.stop_followers(mesh)
+    finally:
+        shutdown()
+
+
+def _serve(args, cfg: Config, cap=None) -> int:
     from vidcap_tpu_torch.serving import CaptionServer, make_http_server
-    if args.from_export:
+    if cap is not None:
+        method = args.method or cfg.decode.method
+        beam = args.beam or cfg.decode.beam_width
+    elif args.from_export:
         # the artifact is the model: method, beam width and (unless it is
         # batch-polymorphic) the batch come from its meta, not the flags
         cap = _load_export(args, cfg)
@@ -602,6 +681,13 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
 
+    def sharded(sp):
+        sp.add_argument("--sharded", action="store_true",
+                        help="every visible card: one process a card, the "
+                             "batch over the mesh's data axis (mesh.num_data"
+                             ", mesh.num_model); with --device cpu, gloo "
+                             "processes")
+
     def common(sp):
         preset(sp)
         source(sp)
@@ -683,7 +769,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "graph on the card; checkpoints and validation at "
                         "chunk boundaries). One K or a comma list matched "
                         "to --stages (e.g. 8,4)")
-    t.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
+    sharded(t)
     t.set_defaults(fn=cmd_train)
 
     ax = sub.add_parser("export", help="write a serving artifact: "
@@ -714,7 +800,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--from-export", default=None, metavar="DIR",
                     help="serve an `export` artifact: no checkpoint; "
                          "method/beam/batch come from its meta")
-    sv.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
+    sharded(sv)
     sv.add_argument("--max-wait-ms", type=float, default=None,
                     help="flush a partial batch once its oldest request has "
                          "waited this long (default: wait for a full batch)")
@@ -763,7 +849,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv   # --sharded starts its workers with the same command
     from vidcap_tpu_torch.inference import NoDeviceError
     try:
         return args.fn(args)

@@ -6,17 +6,22 @@ no card and no such request it raises; it never carries on on the CPU.
 For the one-layer bf16 attention decoder (``models/decoding.py::
 kernel_decoder``) greedy and sampled decode run through K3
 (``ops/rollout.py``), beam through K1 and K2 (or K2's int8 variant with
-``decode.int8_vocab_projection``). Every other decoder runs its recurrent
-step through the model's modules on the same device, as the JAX package
-runs such decoders through XLA, and its beam's projection through K2 or
-K2-int8 wherever one computes it. The beam takes the finished-hypothesis
-pool (``beam_decode_pool``) where ``use_finished_pool`` says so, as the JAX
-package does. With ``model.use_backbone`` a batch may be frame pixels
-f32[B, T, S, S, 3]: the decode encodes them through the IRv2 backbone first
-(``model.init_state``), then runs the same kernels.
+``decode.int8_vocab_projection``), wherever the kernel takes the shape
+(``ops/limits.py``: the beam width, the candidates a row, the widths, K3's
+SMs and shared memory). Every other decoder, and every shape a kernel
+refuses, runs its recurrent step through the model's modules on the same
+device, as the JAX package runs such decoders through XLA, and its beam's
+projection through K2 or K2-int8 wherever one takes it. With a mesh
+(``Captioner(mesh=...)``, parallel/) greedy and beam split each batch over
+the data axis; sampling stays on the rank. The beam takes the
+finished-hypothesis pool (``beam_decode_pool``) where ``use_finished_pool``
+says so, as the JAX package does. With ``model.use_backbone`` a batch may
+be frame pixels f32[B, T, S, S, 3]: the decode encodes them through the
+IRv2 backbone first (``model.init_state``), then runs the same kernels.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional
@@ -27,7 +32,7 @@ import torch
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.convert import load_weights
 from vidcap_tpu_torch.data.loader import CaptionDataset
-from vidcap_tpu_torch.models.decoding import (MAX_K, BeamWeights,
+from vidcap_tpu_torch.models.decoding import (BeamWeights,
                                               VocabProjection, beam_decode,
                                               beam_decode_pool,
                                               fused_beam_step, greedy_decode,
@@ -42,6 +47,7 @@ from vidcap_tpu_torch.models.model import (VidCapModel, create_model,
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
                                           resident_mode)
+from vidcap_tpu_torch.parallel import sharding
 
 
 class NoDeviceError(RuntimeError):
@@ -64,8 +70,14 @@ class Captioner:
 
     def __init__(self, cfg: Config, model: VidCapModel,
                  dataset: CaptionDataset, device: torch.device,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, mesh=None):
         self.cfg = cfg
+        # a mesh of ranks (parallel/mesh.py): greedy and beam split each
+        # batch over its data axis (parallel/sharding.py); ``lead``: this
+        # rank first sends each batch to the others (serve --sharded)
+        self.mesh = mesh
+        self.lead = False
+        self._sharded: Dict[tuple, object] = {}
         self.model = model
         self.dataset = dataset
         self.device = device
@@ -88,16 +100,19 @@ class Captioner:
                         weights: Optional[str] = None,
                         device: Optional[str] = None,
                         seed: Optional[int] = None,
-                        checkpoint_dir: Optional[str] = None) -> "Captioner":
+                        checkpoint_dir: Optional[str] = None,
+                        mesh=None) -> "Captioner":
         """The parameters of the newest ``ckpt_<step>.pt`` in
         ``checkpoint_dir`` (train/checkpoint.py), or of ``weights``, a
         ``.npz`` of "/"-joined Flax paths (convert.py); with neither, the
         seeded init (``cfg.train.seed``). A named directory that holds no
         checkpoint raises FileNotFoundError rather than decoding random
-        weights. ``seed`` makes sampled decodes reproducible."""
+        weights. ``seed`` makes sampled decodes reproducible. ``mesh``: this
+        process is a rank of it, on its device; the parameters are
+        replicated (``Captioner.decode_batch``)."""
         if weights and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
-        dev = resolve_device(device)
+        dev = mesh.device if mesh is not None else resolve_device(device)
         model = init_params(create_model(cfg, vocab_size=dataset.vocab.size),
                             seed=cfg.train.seed)
         if weights:
@@ -121,17 +136,21 @@ class Captioner:
                     f"model built from this preset/dataset (vocab size "
                     f"{dataset.vocab.size} — wrong split or synthetic "
                     f"fallback?): {e}") from e
-        return cls(cfg, model.to(dev).eval(), dataset, dev, seed=seed)
+        return cls(cfg, model.to(dev).eval(), dataset, dev, seed=seed,
+                   mesh=mesh)
 
     @classmethod
-    def from_state(cls, cfg: Config, dataset: CaptionDataset, state
-                   ) -> "Captioner":
+    def from_state(cls, cfg: Config, dataset: CaptionDataset, state,
+                   mesh=None, model=None) -> "Captioner":
         """A captioner on a train state's model and device, sharing its
         parameters: the kernels' cast weights are made on the first decode,
         so call :meth:`reload_weights` (or build a new one) after the
-        parameters change."""
-        return cls(cfg, state.model, dataset,
-                   next(state.model.parameters()).device)
+        parameters change. ``model``: decode with this one instead (a rank's
+        replica of the whole vocab under the seam); ``mesh``: as
+        :meth:`from_checkpoint`."""
+        model = model if model is not None else state.model
+        return cls(cfg, model, dataset, next(model.parameters()).device,
+                   mesh=mesh)
 
     def reload_weights(self) -> None:
         """Drop the kernels' cast weights: the next decode casts the
@@ -149,7 +168,6 @@ class Captioner:
             return (self.seed * 1000003 + self._sample_calls) % (1 << 31)
         return time.time_ns() % (1 << 31)
 
-    @torch.inference_mode()
     def decode_batch(self, feats: np.ndarray, method: str = "beam",
                      beam_width: int = 5, temperature: float = 1.0,
                      seed: Optional[int] = None,
@@ -160,7 +178,35 @@ class Captioner:
         (encoded first) → token ids i32[B, L]; with nbest > 1 (beam only)
         the nbest best hypotheses per video, i32[B, nbest, L], best first.
         ``temperature`` and ``seed`` apply to method="sample"; the seed goes
-        to the card as a device int64, where K3 reads it."""
+        to the card as a device int64, where K3 reads it. With a mesh,
+        greedy and beam go through the sharded decode (every rank calls
+        this with the same batch; B divides by the data axis) and sampling
+        stays on this rank, as the reference routes them."""
+        if self.mesh is None or method not in ("greedy", "beam"):
+            return self.decode_local(feats, method, beam_width, temperature,
+                                     seed, frame_mask, nbest)
+        if nbest > 1:
+            raise ValueError("nbest > 1 is single-device only — the sharded "
+                             "decode returns the best hypothesis per video")
+        if frame_mask is None:
+            frame_mask = np.ones(feats.shape[:2], np.float32)
+        if self.lead:
+            host = lambda x: x.cpu().numpy() if torch.is_tensor(x) else x
+            sharding.lead(method, beam_width, host(feats), host(frame_mask),
+                          self.mesh)
+        key = (method, beam_width)
+        if key not in self._sharded:
+            self._sharded[key] = sharding.make_sharded_decode(
+                self, self.mesh, method, beam_width)
+        return self._sharded[key](feats, frame_mask)
+
+    @torch.inference_mode()
+    def decode_local(self, feats: np.ndarray, method: str = "beam",
+                     beam_width: int = 5, temperature: float = 1.0,
+                     seed: Optional[int] = None,
+                     frame_mask: Optional[np.ndarray] = None,
+                     nbest: int = 1) -> np.ndarray:
+        """:meth:`decode_batch` on this process's device alone."""
         if method not in ("greedy", "sample", "beam"):
             raise ValueError(f"unknown decode method {method!r}")
         if nbest > 1 and method != "beam":
@@ -178,7 +224,7 @@ class Captioner:
         sample = method == "sample"
         seed_t = (torch.tensor(self._sample_seed(seed), dtype=torch.int64,
                                device=self.device) if sample else 0)
-        if not kernel_decoder(self.cfg.model):
+        if not self._k3_takes(method, f.shape[1]):
             return self._module_rollout(f, m, sample, seed_t, temperature)
         if self._rollout_weights is None:
             self._rollout_weights = RolloutWeights.from_model(self.model)
@@ -217,14 +263,34 @@ class Captioner:
         self.decode_calls += 1
         return r.tokens.cpu().numpy()
 
-    def kernels(self, method: str) -> tuple:
-        """The kernels ``method`` launches on the card for this model and
-        decode configuration (:func:`kernel_decoder`,
-        :func:`projection_kernel`)."""
-        recurrent = kernel_decoder(self.cfg.model)
+    def _k3_takes(self, method: str, frames: int) -> bool:
+        """Whether greedy/sampled decode of ``frames`` frames runs on K3
+        (:func:`kernel_decoder` with this card's limits)."""
+        return kernel_decoder(self.cfg.model, method, frames=frames,
+                              padded_vocab=self.model.decoder.padded_vocab,
+                              device=self.device)
+
+    def _beam_route(self, beam_width: int):
+        """(K1 takes the beam, the projection's kernel or None, candidates
+        a row) for a beam of ``beam_width`` under this configuration."""
+        n = beam_width + 1 if use_finished_pool(self.cfg.decode) \
+            else beam_width
+        return (kernel_decoder(self.cfg.model, "beam", beam_width),
+                projection_kernel(self.cfg, n,
+                                  self.model.decoder.padded_vocab), n)
+
+    def kernels(self, method: str, beam_width: Optional[int] = None
+                ) -> tuple:
+        """The kernels ``method`` launches on the card for this model,
+        decode configuration and shape (``beam_width``, default the
+        preset's; the preset's frame count): :func:`kernel_decoder`,
+        :func:`projection_kernel`. A shape a kernel refuses runs its step
+        through the modules instead (ops/limits.py)."""
         if method != "beam":
-            return ("rollout",) if recurrent else ()
-        proj = projection_kernel(self.cfg)
+            return (("rollout",) if self._k3_takes(
+                method, self.cfg.data.num_frames) else ())
+        recurrent, proj, _ = self._beam_route(
+            beam_width or self.cfg.decode.beam_width)
         return (("beam_core",) if recurrent else ()) + ((proj,) if proj
                                                          else ())
 
@@ -250,23 +316,25 @@ class Captioner:
             raise ValueError(f"nbest={nbest} must be in [1, beam_width={K}] "
                              "— the beam only carries K hypotheses")
         pool = use_finished_pool(d)
-        n = K + 1 if pool else K   # candidates a row
-        kernel = projection_kernel(self.cfg)
-        if pool and n > MAX_K and f.is_cuda and kernel:
-            raise ValueError(
-                f"the finished pool takes each row's top-{n} candidates and "
-                f"{kernel} at most {MAX_K}: on the card the pool's beam "
-                f"width is at most {MAX_K - 1}, got {K}")
-        if kernel_decoder(self.cfg.model):
-            if self._beam_weights is None:
-                self._beam_weights = BeamWeights.from_model(self.model,
-                                                            kernel)
-            step = fused_beam_step(self._beam_weights, K, n)
+        recurrent, kernel, n = self._beam_route(K)   # n: candidates a row
+        int8 = d.int8_vocab_projection
+        if recurrent:
+            w = self._beam_weights
+            if w is None:
+                w = BeamWeights.from_model(self.model, kernel, int8)
+            elif w.proj.kernel != kernel:   # the same weights, cast once
+                w = dataclasses.replace(w, proj=dataclasses.replace(
+                    w.proj, kernel=kernel))
+            self._beam_weights = w
+            step = fused_beam_step(w, K, n)
         else:
-            if self._vocab_proj is None:
-                self._vocab_proj = VocabProjection.from_model(self.model,
-                                                              kernel)
-            step = module_beam_step(self.model, K, self._vocab_proj, n)
+            p = self._vocab_proj
+            if p is None:
+                p = VocabProjection.from_model(self.model, kernel, int8)
+            elif p.kernel != kernel:
+                p = dataclasses.replace(p, kernel=kernel)
+            self._vocab_proj = p
+            step = module_beam_step(self.model, K, p, n)
         B = f.shape[0]
         state = tile_recurrent(self.model.init_state(f, m), K)
         toks, _ = (beam_decode_pool if pool else beam_decode)(

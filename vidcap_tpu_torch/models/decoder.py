@@ -41,6 +41,40 @@ def rnd(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float() if dtype != torch.float32 else x.float()
 
 
+# the counter hash's "step" of each dropout site: [emb; ctx] before the LSTM
+# stack, the top h before out_proj
+DROPOUT_SITES = (0x44524F30, 0x44524F31)
+
+
+@dataclasses.dataclass
+class Dropout:
+    """The training instance's dropout (``model.dropout_rate`` = ``rate``,
+    the reference's ``nn.Dropout`` with ``deterministic=False``): a kept
+    value becomes ``x / (1 − rate)``, a dropped one 0. Each mask is drawn
+    once a forward, [B, width], and reused at every timestep of the decode
+    (the reference's scan reuses its mask). A mask bit is K3's counter
+    hash of (seed, ``row0`` + row, column, site) (``ops/rollout.py::
+    counter_uniform``), kept where the uniform is below 1 − rate: keyed by
+    the row's place in the global batch, so that a microbatch and a
+    data-parallel rank draw the masks one process draws for the same rows.
+    ``seed``: an int or an int64 tensor on the device (a captured step's
+    buffer: each replay draws new masks)."""
+
+    rate: float
+    seed: object
+    row0: int = 0
+
+    def mask(self, rows: int, width: int, site: int, device
+             ) -> torch.Tensor:
+        """bool[rows, width]: True where the value is kept."""
+        from vidcap_tpu_torch.ops.rollout import counter_uniform
+        return counter_uniform(rows, width, self.seed, DROPOUT_SITES[site],
+                               device, self.row0) < 1.0 - self.rate
+
+    def apply(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
 @dataclasses.dataclass
 class DecoderState:
     """Carried decode state. h/c are per example (``[layers, B, H]``, f32);
@@ -77,8 +111,13 @@ class Embed(nn.Module):
     def __init__(self, num: int, features: int):
         super().__init__()
         self.embedding = nn.Parameter(torch.zeros(num, features))
+        # the vocab seam (parallel/sharding.py::VocabShard): the table
+        # holds this rank's rows and the lookup is vocab-parallel
+        self.shard = None
 
     def forward(self, token: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            return self.shard.lookup(self.embedding, token)
         return self.embedding[token]
 
 
@@ -164,10 +203,6 @@ class CaptionDecoder(nn.Module):
         self.vocab_size = vocab_size
         self.padded_vocab = padded_vocab
         cd = self.compute_dtype = dtype_of(c.compute_dtype)
-        if c.dropout_rate > 0:
-            raise NotImplementedError(
-                "model.dropout_rate > 0 is not ported to vidcap_tpu_torch "
-                "(ROADMAP Queue 1 item 13, 'dropout'); every preset has 0")
         self.embed = Embed(padded_vocab, c.embed_dim)
         self.feat_proj = Dense(feature_dim, c.hidden_dim, cd)
         if c.use_attention:
@@ -183,6 +218,9 @@ class CaptionDecoder(nn.Module):
         if c.use_attention:
             self.attention = TemporalAttention(c.hidden_dim, c.attn_dim, cd)
         self.out_proj = Dense(c.hidden_dim, padded_vocab, cd)
+        # the vocab seam (parallel/sharding.py::place_state): embed and
+        # out_proj hold this rank's share of the vocab
+        self.vocab_shard = None
 
     @property
     def cells(self):
@@ -237,13 +275,24 @@ class CaptionDecoder(nn.Module):
                             keys=state.keys, values=state.values,
                             frame_mask=state.frame_mask), x
 
-    def logits(self, h_top: torch.Tensor) -> torch.Tensor:
+    def logits(self, h_top: torch.Tensor, sharded: bool = False
+               ) -> torch.Tensor:
         """Vocab projection of the top hidden state → f32[N, Vp]; padding
-        columns at −1e30."""
+        columns at −1e30. Under the vocab seam each rank projects onto its
+        columns; ``sharded`` keeps them (the teacher-forced logits), else
+        they are gathered over the model axis (decoding)."""
+        shard = self.vocab_shard
+        if shard is not None:
+            h_top = shard.copy_in(h_top)
         logits = self.out_proj(h_top)
-        col = torch.arange(self.padded_vocab, device=logits.device)
-        return torch.where(col < self.vocab_size, logits,
-                           torch.full_like(logits, NEG))
+        col = (torch.arange(self.padded_vocab, device=logits.device)
+               if shard is None
+               else shard.columns(logits.shape[-1], logits.device))
+        logits = torch.where(col < self.vocab_size, logits,
+                             torch.full_like(logits, NEG))
+        if shard is not None and not sharded:
+            return shard.gather_columns(logits)
+        return logits
 
     def step(self, state: DecoderState, token: torch.Tensor
              ) -> Tuple[DecoderState, torch.Tensor]:
@@ -251,15 +300,26 @@ class CaptionDecoder(nn.Module):
         (state, logits f32[B, Vp])."""
         return self._step_from_emb(state, self.embed(token))
 
-    def _step_from_emb(self, state: DecoderState, emb: torch.Tensor
+    def _step_from_emb(self, state: DecoderState, emb: torch.Tensor,
+                       dropout: Optional[Dropout] = None, keep=None,
+                       sharded: bool = False
                        ) -> Tuple[DecoderState, torch.Tensor]:
+        """``dropout`` with its two masks ``keep`` (:meth:`xe_logits`):
+        applied to [emb; ctx] and to the top h before the projection; the
+        state carries the top h undropped, as the reference's.
+        ``sharded``: as :meth:`logits`."""
         if self.cfg.use_attention:
             ctx, _ = self.attention(state.h[-1], state.keys, state.values,
                                     state.frame_mask)
         else:
             ctx = self._pooled_ctx(state)
-        state, x = self._lstm_stack(state, torch.cat([emb, ctx], dim=-1))
-        return state, self.logits(x)
+        x = torch.cat([emb, ctx], dim=-1)
+        if dropout is not None:
+            x = dropout.apply(x, keep[0])
+        state, x = self._lstm_stack(state, x)
+        if dropout is not None:
+            x = dropout.apply(x, keep[1])
+        return state, self.logits(x, sharded)
 
     def step_beam_hidden(self, state: DecoderState, token: torch.Tensor,
                          beam_width: int) -> Tuple[DecoderState, torch.Tensor]:
@@ -285,15 +345,24 @@ class CaptionDecoder(nn.Module):
     # ------------------------------------------------------------------ XE path
 
     def xe_logits(self, feats: torch.Tensor,
-                  frame_mask: Optional[torch.Tensor], inputs: torch.Tensor
-                  ) -> torch.Tensor:
+                  frame_mask: Optional[torch.Tensor], inputs: torch.Tensor,
+                  dropout: Optional[Dropout] = None) -> torch.Tensor:
         """Teacher-forced logits: inputs int[B, L] (<bos>-shifted tokens) →
         f32[B, L, Vp]. The embeddings of the whole sequence are gathered
-        once, outside the loop over L; differentiable throughout."""
+        once, outside the loop over L; differentiable throughout.
+        ``dropout`` (the training instance): its two masks are drawn once
+        here and reused at every step. Under the vocab seam the logits are
+        this rank's columns, f32[B, L, Vp / model ranks]."""
         state = self.init_state(feats, frame_mask)
         embs = self.embed(inputs.long())                   # [B, L, E]
+        keep = None
+        if dropout is not None:
+            B, dev, c = inputs.shape[0], feats.device, self.cfg
+            keep = (dropout.mask(B, c.embed_dim + c.hidden_dim, 0, dev),
+                    dropout.mask(B, c.hidden_dim, 1, dev))
         logits = []
         for t in range(inputs.shape[1]):
-            state, lg = self._step_from_emb(state, embs[:, t])
+            state, lg = self._step_from_emb(state, embs[:, t], dropout, keep,
+                                            sharded=True)
             logits.append(lg)
         return torch.stack(logits, dim=1)

@@ -4,15 +4,17 @@ Beam search mirrors ``vidcap_tpu/models/decoding.py``: :func:`beam_decode`
 (slot-blocking beams, B×K beams flattened into the batch, state gathered on
 h/c only) and :func:`beam_decode_pool` (the finished-hypothesis pool),
 driven by a step that returns each row's top-n log-probs directly (n = K
-for slot-blocking, K+1 for the pool). :func:`kernel_decoder` is the one
-place that decides, from the configuration alone, which step that is. For
-the one-layer bf16 attention decoder it is :func:`fused_beam_step`: K1
-``beam_core`` then K2 ``topk_project`` (or K2's int8 variant), with no
-switch back to the plain versions. For every other decoder it is
+for slot-blocking, K+1 for the pool). :func:`kernel_decoder` and
+:func:`projection_kernel` are the one place that decides, from the
+configuration and the shape (ops/limits.py), which step that is. For the
+one-layer bf16 attention decoder at a beam width K1 takes it is
+:func:`fused_beam_step`: K1 ``beam_core`` then K2 ``topk_project`` (or K2's
+int8 variant) where it takes the candidates and widths, with no switch back
+to the plain versions. For every other decoder or shape it is
 :func:`module_beam_step`: the recurrent step through the model's own
 modules, as the JAX package runs such decoders through XLA, then the same
 projection kernels wherever one computes the logits
-(:class:`VocabProjection`).
+(:class:`VocabProjection`; none where the kernel refuses the shape).
 
 Ties go to the smallest index in the per-row top-K
 (:func:`per_row_topk_iterative`, the plain K2's) and in the K·K top-K
@@ -35,8 +37,14 @@ import torch
 from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD
 from vidcap_tpu_torch.models.decoder import NEG, DecoderState
 from vidcap_tpu_torch.ops.beam_core import beam_core
-from vidcap_tpu_torch.ops.int8_proj import Int8Projection, topk_project_int8
-from vidcap_tpu_torch.ops.rollout import gumbel_noise
+from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
+                                            int8_topk_project_plain,
+                                            topk_project_int8)
+from vidcap_tpu_torch.ops.limits import (H100_SMEM, H100_SMS,
+                                         beam_core_takes, rollout_takes,
+                                         topk_project_int8_takes,
+                                         topk_project_takes)
+from vidcap_tpu_torch.ops.rollout import device_limits, gumbel_noise
 from vidcap_tpu_torch.ops.topk_project import (  # noqa: F401 (re-export)
     MAX_K, logits_topk, masked_logits, per_row_topk_iterative, topk_project)
 
@@ -107,7 +115,7 @@ def greedy_decode(step_fn: LogitsStep, state, batch: int, max_len: int,
 
 
 def sample_decode(step_fn: LogitsStep, state, batch: int, max_len: int,
-                  seed, temperature: float = 1.0) -> Rollout:
+                  seed, temperature: float = 1.0, row0: int = 0) -> Rollout:
     """Multinomial rollout by Gumbel-max on ``logits · (1/temperature)``,
     with K3's counter-hash noise of (row, column, seed, step)
     (``ops/rollout.py::gumbel_noise``). ``seed``: an int or an int64 tensor
@@ -116,12 +124,13 @@ def sample_decode(step_fn: LogitsStep, state, batch: int, max_len: int,
     draws with ``jax.random.categorical`` (threefry), which PyTorch cannot
     reproduce, so only the distribution is shared with it; with the same
     seed this loop picks what K3 picks. ``logp`` is the log-softmax of the
-    scaled logits at the pick."""
+    scaled logits at the pick. ``row0``: the hash's row of the first row (a
+    data-parallel rank's offset in the global batch)."""
     inv_t = 1.0 / temperature
 
     def select(logits, t):
         scaled = logits.float() * inv_t
-        tok = gumbel_noise(scaled, seed, t).argmax(-1)
+        tok = gumbel_noise(scaled, seed, t, row0).argmax(-1)
         return tok, _picked_logp(scaled, tok)
 
     return _rollout(step_fn, state, batch, max_len, select, early_exit=False)
@@ -324,37 +333,67 @@ def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
     return toks, torch.where(use_fin, fin_best, alive_best)
 
 
-def kernel_decoder(model_cfg) -> bool:
-    """True exactly for the decoder the kernels compute: one LSTM layer with
-    attention, in bf16 (``model_cfg``: the ``model`` section). K1–K3 run it
-    on the card with no switch back. Every other configuration decodes
-    through the model's own modules on the caller's device, where the JAX
-    package takes its XLA path for the same configurations (its Pallas
-    kernels cover one-layer attention decoders only, and its beam never
-    runs Pallas). Decided by the configuration alone."""
-    return (model_cfg.num_lstm_layers == 1 and model_cfg.use_attention
-            and model_cfg.compute_dtype == "bfloat16")
+def kernel_decoder(model_cfg, method: Optional[str] = None,
+                   beam_width: int = 1, frames: int = 1,
+                   padded_vocab: Optional[int] = None, device=None) -> bool:
+    """True for the decoder the kernels compute, one LSTM layer with
+    attention in bf16 (``model_cfg``: the ``model`` section), and, given a
+    ``method``, when its recurrent kernel takes the shape (ops/limits.py):
+    K1 ``beam_width`` beams for "beam", K3 over ``frames`` frames and the
+    ``padded_vocab`` on ``device``'s SMs and shared memory (the H100's off
+    the card) for "greedy" and "sample". K1–K3 run such a decoder on the
+    card with no switch back. Every other configuration, and every shape a
+    kernel refuses, decodes through the model's own modules on the caller's
+    device, where the JAX package takes its XLA path (its Pallas kernels
+    cover one-layer attention decoders only, and its beam never runs
+    Pallas)."""
+    c = model_cfg
+    if not (c.num_lstm_layers == 1 and c.use_attention
+            and c.compute_dtype == "bfloat16"):
+        return False
+    if method is None:
+        return True
+    if method == "beam":
+        return beam_core_takes(beam_width, c.embed_dim, c.hidden_dim,
+                               c.attn_dim)
+    device = torch.device(device or "cpu")
+    sms, smem = ((H100_SMS, H100_SMEM) if device.type != "cuda"
+                 else device_limits(device))
+    return rollout_takes(c.embed_dim, c.hidden_dim, c.attn_dim, padded_vocab,
+                         frames, sms, smem)
 
 
-def projection_kernel(cfg) -> Optional[str]:
+def projection_kernel(cfg, candidates: Optional[int] = None,
+                      padded_vocab: Optional[int] = None) -> Optional[str]:
     """The kernel that computes the beam's projection and top-n on the card
     for the configuration ``cfg``: K2's int8 variant with the int8 flag, K2
-    for bf16 weights, none for f32 weights (:class:`VocabProjection`)."""
+    for bf16 weights, none for f32 weights (:class:`VocabProjection`); given
+    ``candidates`` a row and the ``padded_vocab``, none where that kernel
+    does not take the shape (ops/limits.py)."""
+    H = cfg.model.hidden_dim
     if cfg.decode.int8_vocab_projection:
-        return "topk_project_int8"
-    return "topk_project" if cfg.model.compute_dtype == "bfloat16" else None
+        kernel, takes = "topk_project_int8", topk_project_int8_takes
+    elif cfg.model.compute_dtype == "bfloat16":
+        kernel, takes = "topk_project", topk_project_takes
+    else:
+        return None
+    if candidates is not None and not takes(candidates, H, padded_vocab):
+        return None
+    return kernel
 
 
 @dataclasses.dataclass
 class VocabProjection:
     """The beam step's vocab projection, per-row top-n and lse, from the
     top hidden state, through ``kernel`` (:func:`projection_kernel` of the
-    configuration, decided once here): K2's int8 variant on the quantized
-    weights (``decode.int8_vocab_projection``, any compute dtype: the int8
-    product does not depend on it); K2 on the weights in the compute dtype
-    (``logits_topk`` of ``CaptionDecoder.logits``, exactly, for bf16); or,
-    with none, ``logits_topk`` of the f32 logits, which no kernel computes
-    (the JAX package computes them in XLA)."""
+    configuration and shape, decided once here): K2's int8 variant on the
+    quantized weights (``decode.int8_vocab_projection``, any compute dtype:
+    the int8 product does not depend on it); K2 on the weights in the
+    compute dtype (``logits_topk`` of ``CaptionDecoder.logits``, exactly,
+    for bf16); or, with none, the same arithmetic in PyTorch, which no
+    kernel computes: K2-int8's plain version on the quantized weights, else
+    ``logits_topk`` of the logits in the compute dtype (the JAX package
+    computes them in XLA)."""
 
     kernel: Optional[str]
     vocab_size: int
@@ -363,11 +402,14 @@ class VocabProjection:
     int8: Optional[Int8Projection] = None   # int8 only
 
     @classmethod
-    def from_model(cls, model, kernel: Optional[str] = "topk_project"
-                   ) -> "VocabProjection":
-        """Quantize (K2-int8) or cast the decoder's out_proj once."""
+    def from_model(cls, model, kernel: Optional[str] = "topk_project",
+                   int8: Optional[bool] = None) -> "VocabProjection":
+        """Quantize (int8: the flag, by default whether ``kernel`` is
+        K2-int8) or cast the decoder's out_proj once."""
         dec = model.decoder
-        if kernel == "topk_project_int8":
+        if int8 is None:
+            int8 = kernel == "topk_project_int8"
+        if int8:
             return cls(kernel, dec.vocab_size, int8=Int8Projection.from_dense(
                 dec.out_proj, dec.vocab_size))
         return cls(kernel, dec.vocab_size,
@@ -378,8 +420,10 @@ class VocabProjection:
     def topk(self, h: torch.Tensor, n: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """h f32[N, H] → (logp f32[N, n], idx i32[N, n]), best first."""
-        if self.kernel == "topk_project_int8":
-            return topk_project_int8(h, self.int8, n)
+        if self.int8 is not None:
+            if self.kernel == "topk_project_int8":
+                return topk_project_int8(h, self.int8, n)
+            return int8_topk_project_plain(h, self.int8, n)
         if self.kernel == "topk_project":
             return topk_project(h, self.w_out, self.b_out, n, self.vocab_size)
         return logits_topk(masked_logits(h, self.w_out, self.b_out,
@@ -401,10 +445,10 @@ class BeamWeights:
     proj: VocabProjection
 
     @classmethod
-    def from_model(cls, model, proj_kernel: Optional[str] = "topk_project"
-                   ) -> "BeamWeights":
+    def from_model(cls, model, proj_kernel: Optional[str] = "topk_project",
+                   int8: Optional[bool] = None) -> "BeamWeights":
         """``proj_kernel``: :func:`projection_kernel` of the configuration
-        (:class:`VocabProjection`)."""
+        and shape; ``int8``: the flag (:class:`VocabProjection`)."""
         dec = model.decoder
         c = dec.cfg
         if c.num_lstm_layers != 1 or not c.use_attention:
@@ -425,7 +469,7 @@ class BeamWeights:
                    wq=d(dec.attention.query.kernel.to(cd)),
                    u=d(dec.attention.u), wg=d(dec.lstm0.w.to(cd)),
                    bg=d(dec.lstm0.b),
-                   proj=VocabProjection.from_model(model, proj_kernel))
+                   proj=VocabProjection.from_model(model, proj_kernel, int8))
 
 
 def fused_beam_step(w: BeamWeights, beam_width: int,

@@ -18,7 +18,7 @@ from torch import nn
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.models import backbone as backbone_mod
 from vidcap_tpu_torch.models.decoder import (CaptionDecoder, DecoderState,
-                                             Dense, dtype_of)
+                                             Dense, Dropout, dtype_of)
 from vidcap_tpu_torch.models.heads import AttributeHead
 
 
@@ -72,9 +72,10 @@ class VidCapModel(nn.Module):
 
     def xe_logits(self, inputs: torch.Tensor,
                   frame_mask: Optional[torch.Tensor],
-                  teacher_inputs: torch.Tensor) -> torch.Tensor:
+                  teacher_inputs: torch.Tensor,
+                  dropout: Optional[Dropout] = None) -> torch.Tensor:
         return self.decoder.xe_logits(self.encode_features(inputs),
-                                      frame_mask, teacher_inputs)
+                                      frame_mask, teacher_inputs, dropout)
 
     def attribute_logits(self, inputs: torch.Tensor,
                          frame_mask: Optional[torch.Tensor] = None

@@ -13,23 +13,30 @@ from typing import Dict, Tuple
 import torch
 
 from vidcap_tpu_torch.models.decoding import Rollout
+from vidcap_tpu_torch.parallel.mesh import ONE_RANK
 
 
 def scst_loss(sample: Rollout, reward_sample: torch.Tensor,
-              reward_greedy: torch.Tensor
+              reward_greedy: torch.Tensor, dp=ONE_RANK
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """sample: the sampled rollout, its logp carrying gradients; rewards
-    f32[B]. Returns (loss, metrics)."""
+    f32[B]. Returns (loss, metrics). ``dp`` (parallel/mesh.py::OneRank, or
+    parallel/sharding.py::DataParallel for a rank of a mesh): the loss and
+    the means are this rank's shares of the global batch's, the
+    sampled-token count and the standard deviation global."""
     advantage = (reward_sample - reward_greedy).detach()          # [B]
     seq_logp = (sample.logp * sample.mask).sum(-1)                # [B]
-    ntok = torch.clamp(sample.mask.sum(), min=1.0)
+    ntok = torch.clamp(dp.sum(sample.mask.sum()), min=1.0)
     loss = -(advantage * seq_logp).sum() / ntok
+    n = advantage.shape[0] * dp.nd
+    mean = dp.sum(advantage.sum()) / n
     metrics = {
         "pg_loss": loss,
-        "reward_sample": reward_sample.mean(),
-        "reward_greedy": reward_greedy.mean(),
-        "advantage_mean": advantage.mean(),
-        # jnp.std: the population standard deviation
-        "advantage_std": advantage.std(correction=0),
+        "reward_sample": reward_sample.mean() / dp.nd,
+        "reward_greedy": reward_greedy.mean() / dp.nd,
+        "advantage_mean": advantage.mean() / dp.nd,
+        # jnp.std: the population standard deviation, over the global batch
+        "advantage_std": torch.sqrt(
+            dp.sum(((advantage - mean) ** 2).sum()) / n),
     }
     return loss, metrics

@@ -1,9 +1,11 @@
 """Masked sequence cross-entropy, as ``vidcap_tpu/objectives/xe.py``:
 teacher-forced XE over <bos>-shifted inputs, summed over the real tokens
-(incl. <eos>) and divided by their count in the batch."""
+(incl. <eos>) and divided by their count in the batch. Under a mesh the
+count is the global batch's (``denom``) and the log-softmax may run over a
+vocab split across ranks (``vocab``: parallel/sharding.py::VocabShard)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,20 +19,31 @@ def shift_right(tokens: torch.Tensor, bos: int = BOS) -> torch.Tensor:
                      dim=1)
 
 
-def _token_logp(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def token_logp(logits: torch.Tensor, targets: torch.Tensor,
+               vocab=None) -> torch.Tensor:
+    """log_softmax(logits)[targets]; ``vocab``: the logits are this rank's
+    columns of a vocab split over the model axis."""
+    if vocab is not None:
+        return vocab.token_logp(logits, targets)
     logp = torch.log_softmax(logits, dim=-1)
     return logp.gather(-1, targets.long()[..., None])[..., 0]
 
 
+
 def masked_xe_loss(logits: torch.Tensor, targets: torch.Tensor,
-                   mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   mask: torch.Tensor, vocab=None,
+                   denom: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits f32[B, L, V], targets int[B, L], mask f32[B, L] → (loss,
-    token count)."""
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return -(_token_logp(logits, targets) * mask).sum() / denom, denom
+    token count). ``denom``: the count to divide by (a data-parallel rank's
+    share of the global mean divides by the global count), by default
+    this batch's; ``vocab``: as :func:`token_logp`."""
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+    return -(token_logp(logits, targets, vocab) * mask).sum() / denom, denom
 
 
 def sequence_logprob(logits: torch.Tensor, tokens: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """Per-sequence sum of the tokens' log-probs under ``logits``: f32[B]."""
-    return (_token_logp(logits, tokens) * mask).sum(dim=-1)
+    return (token_logp(logits, tokens) * mask).sum(dim=-1)

@@ -21,8 +21,7 @@ import torch
 
 from vidcap_tpu_torch.models.decoder import attention_beam, lstm_update, rnd
 from vidcap_tpu_torch.ops import _build
-
-MAX_BEAM = 8
+from vidcap_tpu_torch.ops.limits import MAX_BEAM, beam_core_takes
 
 
 def beam_core_plain(emb, h, c, keys, values, frame_mask, wq, u, wg, bg,
@@ -53,7 +52,7 @@ def beam_core(emb, h, c, keys, values, frame_mask, wq, u, wg, bg,
     if BK != B * K or not 1 <= K <= MAX_BEAM:
         raise ValueError(f"beam_core: {BK} rows for {B} videos × beam {K} "
                          f"(beam must be in 1..{MAX_BEAM})")
-    if H % 32 or A % 32 or E % 8:
+    if not beam_core_takes(K, E, H, A):
         raise ValueError(f"beam_core: hidden {H} and attention {A} widths "
                          f"must be multiples of 32 and embedding {E} of 8")
     f32, bf16 = torch.float32, torch.bfloat16

@@ -36,6 +36,7 @@ import torch
 
 from vidcap_tpu_torch.models.decoder import NEG
 from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.ops.limits import topk_project_int8_takes
 from vidcap_tpu_torch.ops.topk_project import (MAX_K, _sm_count,
                                                chunk_layout, logits_topk,
                                                logits_topk_chunked)
@@ -139,7 +140,7 @@ def topk_project_int8(h, proj: Int8Projection, K: int,
     if not 1 <= K <= MAX_K or Vp < K:
         raise ValueError(f"topk_project_int8: K={K} must be in 1..{MAX_K} "
                          f"and at most the vocab width {Vp}")
-    if H % 32:
+    if not topk_project_int8_takes(K, H, Vp):
         raise ValueError(f"topk_project_int8: hidden width {H} must be a "
                          "multiple of 32")
     _build.require("topk_project_int8", (

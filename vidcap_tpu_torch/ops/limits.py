@@ -1,0 +1,65 @@
+"""Which shapes the kernels take on the card: one predicate a kernel, from
+the constants its wrapper raises on.
+
+The wrappers (``beam_core``, ``topk_project``, ``topk_project_int8``,
+``rollout``) raise ``ValueError`` for a shape their kernel cannot compute;
+the router (``models/decoding.py::kernel_decoder`` and
+``projection_kernel``) asks these predicates first, so a shape no kernel
+takes decodes through the model's modules instead, as the JAX package
+decodes every width through XLA. Nothing here touches the card: K3's limits
+take the card's SM count and the shared memory a block may opt into
+(``ops/rollout.py::device_limits``), the H100's by default.
+"""
+from __future__ import annotations
+
+MAX_BEAM = 8       # K1: beams a video (a warp's rows of a video's scores)
+MAX_K = 8          # K2, K2-int8: candidates a row (the register top-K)
+MAX_HIDDEN = 512   # K2 keeps a block's rows of bf16(h) in shared memory
+MAX_WIDTH = 512    # K3: hidden and attention widths, a column pair a thread
+# K3's grid: one block per SM, a launch takes up to ROWS rows, a block holds
+# HID hidden columns of the gates; a warp merges a row's partials, 8 a lane
+ROWS, HID, MAX_GRID = 32, 4, 256
+H100_SMS, H100_SMEM = 132, 232_448   # SMs; shared memory a block may opt into
+
+
+def beam_core_takes(beam: int, embed: int, hidden: int, attn: int) -> bool:
+    """K1: 1..MAX_BEAM beams; hidden and attention widths multiples of 32,
+    the embedding a multiple of 8."""
+    return (1 <= beam <= MAX_BEAM and hidden % 32 == 0 and attn % 32 == 0
+            and embed % 8 == 0)
+
+
+def topk_project_takes(k: int, hidden: int, vocab: int) -> bool:
+    """K2: 1..MAX_K candidates a row, at most the vocab width; the hidden
+    width a multiple of 32 up to MAX_HIDDEN, the vocab width of 8."""
+    return (1 <= k <= MAX_K and vocab >= k and hidden % 32 == 0
+            and hidden <= MAX_HIDDEN and vocab % 8 == 0)
+
+
+def topk_project_int8_takes(k: int, hidden: int, vocab: int) -> bool:
+    """K2-int8: 1..MAX_K candidates a row, at most the vocab width; the
+    hidden width a multiple of 32 (its rows are not kept in shared
+    memory)."""
+    return 1 <= k <= MAX_K and vocab >= k and hidden % 32 == 0
+
+
+def rollout_shape_ok(embed: int, hidden: int, attn: int, vocab: int,
+                     sms: int) -> bool:
+    """K3's widths on a card of ``sms`` SMs: embedding, hidden and
+    attention multiples of 32, hidden and attention at most MAX_WIDTH, the
+    vocab a multiple of 8; 2·ROWS..MAX_GRID SMs holding HID hidden columns
+    each."""
+    return (hidden % 32 == 0 and attn % 32 == 0 and embed % 32 == 0
+            and vocab % 8 == 0 and max(hidden, attn) <= MAX_WIDTH
+            and 2 * ROWS <= sms <= MAX_GRID and hidden <= HID * sms)
+
+
+def rollout_takes(embed: int, hidden: int, attn: int, vocab: int,
+                  frames: int, sms: int = H100_SMS,
+                  smem: int = H100_SMEM) -> bool:
+    """K3: :func:`rollout_shape_ok`, and a block's shared memory with W_out
+    streamed (the smaller mode) within ``smem``."""
+    from vidcap_tpu_torch.ops.rollout import rollout_smem_bytes
+    return (rollout_shape_ok(embed, hidden, attn, vocab, sms)
+            and rollout_smem_bytes(False, vocab, embed, hidden, attn, frames,
+                                   sms) <= smem)

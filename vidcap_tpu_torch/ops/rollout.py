@@ -36,6 +36,8 @@ from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD
 from vidcap_tpu_torch.models.decoder import NEG
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core_plain
+from vidcap_tpu_torch.ops.limits import (  # noqa: F401 (H100_*: re-export)
+    H100_SMEM, H100_SMS, HID, MAX_GRID, MAX_WIDTH, ROWS, rollout_shape_ok)
 from vidcap_tpu_torch.ops.topk_project import masked_logits
 
 _U32 = 0xFFFFFFFF
@@ -57,7 +59,10 @@ class RolloutWeights:
     vocab_size: int
 
     @classmethod
-    def from_model(cls, model) -> "RolloutWeights":
+    def from_model(cls, model, full=None) -> "RolloutWeights":
+        """``full``: (embedding, out_proj kernel, bias) of the whole vocab
+        where the model holds a rank's share of it (the vocab seam,
+        parallel/sharding.py::VocabShard.full)."""
         dec = model.decoder
         c = dec.cfg
         if c.num_lstm_layers != 1 or not c.use_attention:
@@ -76,9 +81,11 @@ class RolloutWeights:
                 "item 5)")
         d = lambda p: p.detach().to(cd).contiguous()
         f = lambda p: p.detach().float().contiguous()
-        return cls(emb=d(dec.embed.embedding), wq=d(dec.attention.query.kernel),
+        emb, w_out, b_out = full or (dec.embed.embedding, dec.out_proj.kernel,
+                                     dec.out_proj.bias)
+        return cls(emb=d(emb), wq=d(dec.attention.query.kernel),
                    u=f(dec.attention.u), wg=d(dec.lstm0.w), bg=f(dec.lstm0.b),
-                   w_out=d(dec.out_proj.kernel), b_out=f(dec.out_proj.bias),
+                   w_out=d(w_out), b_out=f(b_out),
                    vocab_size=dec.vocab_size)
 
 
@@ -90,24 +97,22 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + (hi << 16)) & _U32
 
 
-def gumbel_noise(clean: torch.Tensor, seed, step) -> torch.Tensor:
-    """``clean − log(−log(uni))``, K3's Gumbel-perturbed logits
-    (``pallas_decoder.py:216-230``) bit for bit: uint32 arithmetic emulated
-    in int64. ``clean`` is f32[..., B, V]; the hash's row is the index along
-    B, its column the index along V. ``seed`` and ``step`` are ints or int64
-    tensors on ``clean``'s device that broadcast against [..., 1, 1]; the
-    seed is taken mod 2³². An int is hashed on the host and enters as a
-    scalar, never copied to the device, so a CUDA graph can hold the
-    call."""
-    dev = clean.device
+def counter_uniform(rows: int, cols: int, seed, step, device,
+                    row0: int = 0) -> torch.Tensor:
+    """K3's counter hash of (row0 + row, column, seed, step) as uniforms
+    f32[rows, cols] in (0, 1] (``pallas_decoder.py:216-229``), uint32
+    arithmetic emulated in int64. ``seed`` and ``step`` are ints or int64
+    tensors that broadcast against [..., 1, 1]; the seed is taken mod 2³².
+    An int is hashed on the host and enters as a scalar, never copied to
+    the device, so a CUDA graph can hold the call."""
 
     def mixed(v, c: int):
         if torch.is_tensor(v):
-            return _mul32(v.to(device=dev, dtype=torch.int64) & _U32, c)
+            return _mul32(v.to(device=device, dtype=torch.int64) & _U32, c)
         return ((int(v) & _U32) * c) & _U32
 
-    row = torch.arange(clean.shape[-2], device=dev)[:, None]
-    col = torch.arange(clean.shape[-1], device=dev)[None, :]
+    row = torch.arange(row0, row0 + rows, device=device)[:, None]
+    col = torch.arange(cols, device=device)[None, :]
     x = (_mul32(row, 0x9E3779B9) ^ _mul32(col, 0x85EBCA6B)
          ^ ((mixed(seed, 0x27D4EB2F) + mixed(step, 0x165667B1)) & _U32))
     x = x ^ (x >> 16)
@@ -115,7 +120,22 @@ def gumbel_noise(clean: torch.Tensor, seed, step) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = _mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
-    uni = (x >> 8).float() * (1.0 / (1 << 24)) + 1e-12
+    return (x >> 8).float() * (1.0 / (1 << 24)) + 1e-12
+
+
+def gumbel_noise(clean: torch.Tensor, seed, step, row0: int = 0
+                 ) -> torch.Tensor:
+    """``clean − log(−log(uni))``, K3's Gumbel-perturbed logits
+    (``pallas_decoder.py:216-230``) bit for bit: uint32 arithmetic emulated
+    in int64. ``clean`` is f32[..., B, V]; the hash's row is the index along
+    B, its column the index along V. ``seed`` and ``step`` are ints or int64
+    tensors on ``clean``'s device that broadcast against [..., 1, 1]; the
+    seed is taken mod 2³². An int is hashed on the host and enters as a
+    scalar, never copied to the device, so a CUDA graph can hold the
+    call. ``row0``: the hash's row of the first row (K3's ``row0``: a
+    data-parallel rank's offset in the global batch)."""
+    uni = counter_uniform(clean.shape[-2], clean.shape[-1], seed, step,
+                          clean.device, row0)
     return clean - torch.log(-torch.log(uni))
 
 
@@ -139,10 +159,10 @@ def _lse(clean: torch.Tensor) -> torch.Tensor:
                                      min=1e-30))
 
 
-def select_plain(clean, sample: bool, seed, step: int):
+def select_plain(clean, sample: bool, seed, step: int, row0: int = 0):
     """K3's pick from clean logits: (pick i64[B], logp f32[B], the values
     it was taken from — noisy when sampling, else clean)."""
-    scored = gumbel_noise(clean, seed, step) if sample else clean
+    scored = gumbel_noise(clean, seed, step, row0) if sample else clean
     pick = scored.argmax(-1)          # the first maximum: the smallest column
     return pick, clean.gather(1, pick[:, None])[:, 0] - _lse(clean), scored
 
@@ -156,11 +176,11 @@ def _temperature(temperature: float) -> float:
 @torch.no_grad()
 def rollout_plain(w: RolloutWeights, keys, values, frame_mask, h0, c0,
                   max_len: int, sample: bool = False, seed: int = 0,
-                  temperature: float = 1.0
+                  temperature: float = 1.0, row0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """PyTorch version of the kernel, on any device: (tokens i32[B, L],
     logp f32[B, L], mask f32[B, L]). Forward only, as K3: SCST takes its
-    gradient from a teacher-forced re-score."""
+    gradient from a teacher-forced re-score. ``row0``: as :func:`rollout`."""
     inv_t = _temperature(temperature)
     B = h0.shape[0]
     dev = h0.device
@@ -170,7 +190,7 @@ def rollout_plain(w: RolloutWeights, keys, values, frame_mask, h0, c0,
     toks, logps, masks = [], [], []
     for t in range(max_len):
         h, c, clean = step_plain(w, h, c, tok, keys, values, frame_mask, inv_t)
-        pick, logp, _ = select_plain(clean, sample, seed, t)
+        pick, logp, _ = select_plain(clean, sample, seed, t, row0)
         tok = torch.where(finished, PAD, pick)
         toks.append(tok)
         logps.append(torch.where(finished, 0.0, logp))
@@ -210,11 +230,8 @@ def replay_plain(w: RolloutWeights, keys, values, frame_mask, h0, c0,
 # The kernel's grid and shared memory (csrc/rollout.cu): one block per SM;
 # a launch takes up to ROWS rows; a block holds HID hidden columns of the
 # gates, a slice of W_out's columns (resident) or streams it through STAGES
-# ring stages of up to PASS_COLS columns.
-ROWS, HID, STAGES, PASS_COLS = 32, 4, 3, 128
-H100_SMS, H100_SMEM = 132, 232_448   # SMs; shared memory a block may opt into
-MAX_WIDTH = 512   # hidden and attention widths: a column pair per thread
-MAX_GRID = 256    # blocks: a warp merges a row's partials, 8 a lane
+# ring stages of up to PASS_COLS columns (ops/limits.py).
+STAGES, PASS_COLS = 3, 128
 
 
 def _up(x: int, m: int) -> int:
@@ -334,7 +351,8 @@ def device_seed(seed, device) -> torch.Tensor:
 
 def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
             max_len: int, sample: bool = False, seed=0,
-            temperature: float = 1.0, resident_wout: bool = True
+            temperature: float = 1.0, resident_wout: bool = True,
+            row0: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """keys bf16[B, T, A], values bf16[B, T, H], frame_mask f32[B, T],
     h0/c0 f32[B, H] and the weights of :class:`RolloutWeights` → (tokens
@@ -347,25 +365,26 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
     ``pallas_rollout(resident_wout=...)``: True keeps W_out in shared
     memory for the whole rollout and raises ValueError if it does not fit
     (:func:`rollout_fits_resident`); False streams it from L2 each step.
-    CPU tensors take :func:`rollout_plain`, which has no mode."""
+    CPU tensors take :func:`rollout_plain`, which has no mode. ``row0``:
+    the noise hash's row of the first row, so that a data-parallel rank
+    holding rows row0.. of the global batch samples what one process
+    samples for them."""
     if not h0.is_cuda:
         return rollout_plain(w, keys, values, frame_mask, h0, c0, max_len,
-                             sample, seed, temperature)
+                             sample, seed, temperature, row0)
     inv_t = _temperature(temperature)
     B, T, A = keys.shape
     H = h0.shape[1]
     Vp, E = w.emb.shape
     dev = h0.device
     sms, smem = device_limits(dev)
-    if H % 32 or A % 32 or E % 32 or Vp % 8 or max(H, A) > MAX_WIDTH:
+    if not rollout_shape_ok(E, H, A, Vp, sms):
         raise ValueError(f"rollout: embedding {E}, hidden {H} and attention "
                          f"{A} widths must be multiples of 32, hidden and "
                          f"attention at most {MAX_WIDTH}, and the vocab "
-                         f"width {Vp} a multiple of 8")
-    if not 2 * ROWS <= sms <= MAX_GRID or H > HID * sms:
-        raise ValueError(f"rollout: the kernel runs one block per SM on "
-                         f"{2 * ROWS}..{MAX_GRID} SMs, {HID} hidden columns "
-                         f"a block; the card has {sms} SMs for hidden {H}")
+                         f"width {Vp} a multiple of 8; the kernel runs one "
+                         f"block per SM on {2 * ROWS}..{MAX_GRID} SMs, {HID} "
+                         f"hidden columns a block (the card has {sms} SMs)")
     if max_len < 1 or not 1 <= w.vocab_size <= Vp:
         raise ValueError(f"rollout: max_len={max_len} must be ≥ 1 and "
                          f"vocab_size={w.vocab_size} in 1..{Vp}")
@@ -409,7 +428,7 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
                  w.wg.data_ptr(), w.bg.data_ptr(), w.w_out.data_ptr(),
                  w.b_out.data_ptr(), xh, h16, q, pm, ps, pn, pc, pi, pick,
                  at(out_tok), at(out_logp), at(out_mask), r1 - r0, T, E, H, A,
-                 Vp, w.vocab_size, max_len, r0, sms, nc, qc,
+                 Vp, w.vocab_size, max_len, row0 + r0, sms, nc, qc,
                  int(resident_wout), int(sample),
                  None if seed_t is None else seed_t.data_ptr(), inv_t, stream)
         if err == 82:   # cudaErrorCooperativeLaunchTooLarge
@@ -428,12 +447,13 @@ def model_rollout(model, feats, frame_mask, max_len: int,
                   sample: bool = False, seed=0,
                   temperature: float = 1.0,
                   weights: Optional[RolloutWeights] = None,
-                  resident_wout: Optional[bool] = None):
+                  resident_wout: Optional[bool] = None, row0: int = 0):
     """The model's ``init_state`` (feature/key projections, h0/c0), then
     :func:`rollout`. ``weights``: :meth:`RolloutWeights.from_model` of this
     model, cast once by the caller, or None to cast them here.
     ``resident_wout``: None takes :func:`resident_mode` (resident where it
-    fits, else streamed). Returns a ``models.decoding.Rollout``."""
+    fits, else streamed). ``row0``: as :func:`rollout`. Returns a
+    ``models.decoding.Rollout``."""
     from vidcap_tpu_torch.models.decoding import Rollout
     state = model.init_state(feats, frame_mask)
     w = weights if weights is not None else RolloutWeights.from_model(model)
@@ -443,5 +463,5 @@ def model_rollout(model, feats, frame_mask, max_len: int,
     toks, logp, mask = rollout(
         w, state.keys, state.values, state.frame_mask, state.h[0].contiguous(),
         state.c[0].contiguous(), max_len, sample, seed, temperature,
-        resident_wout)
+        resident_wout, row0)
     return Rollout(tokens=toks, logp=logp, mask=mask)

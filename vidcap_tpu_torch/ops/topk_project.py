@@ -26,11 +26,11 @@ import torch
 
 from vidcap_tpu_torch.models.decoder import NEG, rnd
 from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.ops.limits import (MAX_HIDDEN, MAX_K,
+                                         topk_project_takes)
 
-MAX_K = 8
 TILE_N = 128   # vocab columns per projection tile (csrc/projection.cuh)
 TILE_ROWS = 128   # rows per block of K2's product (csrc/projection.cuh)
-MAX_HIDDEN = 512   # K2 keeps a block's rows of bf16(h) in shared memory
 
 
 def per_row_topk_iterative(x: torch.Tensor, k: int
@@ -147,7 +147,7 @@ def topk_project(h, w_out, b_out, K: int, vocab_size: int
     if not 1 <= K <= MAX_K or Vp < K:
         raise ValueError(f"topk_project: K={K} must be in 1..{MAX_K} and at "
                          f"most the vocab width {Vp}")
-    if H % 32 or H > MAX_HIDDEN or Vp % 8:
+    if not topk_project_takes(K, H, Vp):
         raise ValueError(f"topk_project: hidden width {H} must be a multiple "
                          f"of 32 and at most {MAX_HIDDEN}, and vocab width "
                          f"{Vp} a multiple of 8")

@@ -46,16 +46,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, state: TrainState, iter_state: Optional[IteratorState]
-             = None, stage: Optional[str] = None) -> None:
+             = None, stage: Optional[str] = None, tensors=None) -> None:
         """iter_state: the batch stream's position after the batch this
         state consumed, so a resumed run replays the exact remaining stream
         (always written; [-1, -1, -1] when absent). stage: the stage that
-        produced this state, for the sidecar."""
+        produced this state, for the sidecar. tensors: (params, mu, nu) to
+        write in place of the state's (a rank's shards gathered into the
+        whole model: parallel/sharding.py::full_tensors)."""
         opt = state.opt_state
+        params, mu, nu = tensors or (dict(state.model.named_parameters()),
+                                     opt["mu"], opt["nu"])
         payload = {
-            "params": _cpu(dict(state.model.named_parameters())),
-            "opt_state": {"count": int(opt["count"]), "mu": _cpu(opt["mu"]),
-                          "nu": _cpu(opt["nu"])},
+            "params": _cpu(params),
+            "opt_state": {"count": int(opt["count"]), "mu": _cpu(mu),
+                          "nu": _cpu(nu)},
             "step": state.step,
             "generator": state.generator.get_state(),
             "iter_state": ([iter_state.seed, iter_state.epoch,

@@ -13,8 +13,16 @@ boundaries that cross their cadence; ``train.prefetch_depth`` draws batches
 ahead on a thread; one worker stages the next dispatch's batches (pinned
 host buffers, a copy on a side stream) while the card runs the current one.
 On the card every step is a CUDA graph (train/steps.py). Runs on the card
-unless the caller asks for the CPU. Not ported: the mesh (ROADMAP Queue 1
-item 12), which raises ``NotImplementedError``.
+unless the caller asks for the CPU.
+
+With a ``mesh`` (parallel/mesh.py: ``train --sharded``) this process is one
+rank: it draws the same global batches as every rank and steps on its rows,
+the gradients summed over the data axis inside the step
+(parallel/sharding.py), its state replicated or, on a model axis > 1,
+split at the vocab seam; K steps a dispatch fall back to one (the
+reference's notice). Rank 0 logs and writes the checkpoints (the seam's
+shards gathered first), every rank restores, and validation decodes each
+batch split over the data axis.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.data.loader import Batch, CaptionDataset
@@ -36,6 +45,10 @@ from vidcap_tpu_torch.inference import Captioner, resolve_device
 from vidcap_tpu_torch.metrics.evaluate import evaluate_captions
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops._build import launch_counts
+from vidcap_tpu_torch.parallel.sharding import (full_model, full_tensors,
+                                                make_sharded_banked_step,
+                                                make_sharded_step,
+                                                place_state, shard_batch)
 from vidcap_tpu_torch.train.checkpoint import CheckpointManager
 from vidcap_tpu_torch.train.scst import make_scst_step_body
 from vidcap_tpu_torch.train.state import TrainState, create_train_state
@@ -65,19 +78,17 @@ def batch_to_device_dict(batch: Batch, bank_mode: bool = False
     return d
 
 
-def _refuse_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training (the mesh) is not ported to "
-            "vidcap_tpu_torch yet (ROADMAP Queue 1 item 12)")
-
-
-def _stage(it, n: int, bank_mode: bool, dev: torch.device, stream):
+def _stage(it, n: int, bank_mode: bool, dev: torch.device, stream,
+           mesh=None, accum: int = 1):
     """Draw the next dispatch's n batches (stacked along a leading axis when
-    n > 1) and start their upload: on the card from pinned host buffers,
-    non-blocking on ``stream``. Returns (the tensors, the event the step
-    waits on or None, the iterator's state after these batches)."""
+    n > 1; this rank's rows of each on a ``mesh``, as ``shard_batch`` takes
+    them for ``accum`` microbatches) and start their upload:
+    on the card from pinned host buffers, non-blocking on ``stream``.
+    Returns (the tensors, the event the step waits on or None, the
+    iterator's state after these batches)."""
     ds = [batch_to_device_dict(next(it), bank_mode) for _ in range(n)]
+    if mesh is not None:
+        ds = [shard_batch(d, mesh, accum) for d in ds]
     it_state = it.state
     d = ds[0] if n == 1 else {k: np.stack([b[k] for b in ds]) for k in ds[0]}
     if dev.type != "cuda":
@@ -145,13 +156,20 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
     Every ``cfg.train.eval_every`` steps the val split (``val_dataset``, or
     without one the first 200 videos of ``dataset``) is decoded and scored,
     and a state whose CIDEr beats every earlier one is saved under
-    ``{checkpoint_dir}/best``."""
+    ``{checkpoint_dir}/best``.
+
+    ``mesh``: this process is one rank of it (module docstring); the
+    device is the mesh's."""
     t = cfg.train
     num_steps = num_steps or t.num_steps
-    _refuse_unported(mesh)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
     dataset = dataset or CaptionDataset.synthetic(cfg.data)
-    logger = logger or MetricsLogger()
+    logger = (logger or MetricsLogger()) if lead else MetricsLogger(
+        quiet=True)
+    if mesh is not None and t.batch_size % mesh.num_data:
+        raise ValueError(f"batch_size {t.batch_size} must divide evenly "
+                         f"over the {mesh.num_data}-way 'data' mesh axis")
 
     model = init_params(create_model(cfg, vocab_size=dataset.vocab.size),
                         seed=t.seed).to(dev)
@@ -186,13 +204,21 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
     if t.device_feature_bank and not bank_mode:
         print("[vidcap] device_feature_bank ignored (custom step or "
               "pixel-mode inputs)", file=sys.stderr)
-    k_dispatch = max(1, t.steps_per_dispatch) if bank_mode else 1
-    if t.steps_per_dispatch > 1 and k_dispatch == 1:
+    k_dispatch = (max(1, t.steps_per_dispatch)
+                  if bank_mode and mesh is None else 1)
+    if t.steps_per_dispatch > 1 and k_dispatch == 1 and lead:
         print("[vidcap] steps_per_dispatch ignored — multi-step dispatch "
               "requires the device feature bank (--feature-bank, "
               "feature-mode inputs) and a single device", file=sys.stderr)
     chunk_fn = None
-    if bank_mode:
+    if mesh is not None:
+        if bank_mode:
+            step_fn, _, dp = make_sharded_banked_step(mesh, body,
+                                                      dataset)
+        else:
+            step_fn, dp = make_sharded_step(mesh, body)
+        place_state(state, mesh, dp)
+    elif bank_mode:
         banks = None
         if k_dispatch > 1:
             chunk_fn, banks = make_banked_multistep(body, dataset, k_dispatch,
@@ -202,6 +228,17 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
                                       device=dev)
     else:
         step_fn = make_step(body, dev)
+
+    def save(manager: CheckpointManager, **kw) -> None:
+        """Rank 0 writes (the seam's shards gathered by every rank first);
+        every rank waits for the file."""
+        if mesh is None:
+            manager.save(state, **kw)
+            return
+        tensors = full_tensors(state, mesh)
+        if lead:
+            manager.save(state, tensors=tensors, **kw)
+        dist.barrier()
 
     eval_every = t.eval_every
     eval_on_train = val_dataset is None
@@ -215,22 +252,26 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
               f"{val.num_videos}-video TRAIN subset; 'best' checkpoint "
               f"selection reflects training fit, not held-out quality",
               file=sys.stderr)
-    best_ckpt = captioner = None
+    best_ckpt = captioner = replica = None
     best_cider = -1.0
 
     def maybe_eval(step_no: int) -> None:
-        nonlocal best_ckpt, best_cider, captioner
+        nonlocal best_ckpt, best_cider, captioner, replica
         t0 = time.perf_counter()
         # one captioner (its feature bank is kept), whose kernels' cast
-        # weights are those of the parameters as they are now
+        # weights are those of the parameters as they are now; on a mesh
+        # every rank decodes its rows of each batch, on the whole vocab
+        if mesh is not None:
+            replica = full_model(state, mesh, replica)
         if captioner is None:
-            captioner = Captioner.from_state(cfg, val, state)
+            captioner = Captioner.from_state(cfg, val, state, mesh=mesh,
+                                             model=replica)
         captioner.reload_weights()
-        state.model.eval()
+        captioner.model.eval()
         try:
             scores = run_validation(cfg, captioner, val)
         finally:
-            state.model.train()
+            captioner.model.train()
         record = {f"eval_{k}": v for k, v in scores.items()}
         if eval_on_train:
             record["eval_on_train_fallback"] = 1.0
@@ -241,7 +282,7 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
             if best_ckpt is None:
                 best_ckpt = CheckpointManager(
                     os.path.join(t.checkpoint_dir, "best"), max_to_keep=1)
-            best_ckpt.save(state, stage=t.stage)
+            save(best_ckpt, stage=t.stage)
 
     start = state.step
     launches0 = dict(launch_counts)
@@ -256,7 +297,8 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     # one worker: batch order and the iterator's state stay sequential
     pool = ThreadPoolExecutor(max_workers=1)
-    stage = lambda n: pool.submit(_stage, it, n, bank_mode, dev, side)
+    stage = lambda n: pool.submit(_stage, it, n, bank_mode, dev, side, mesh,
+                                  max(1, t.grad_accum))
     staged = stage(units[0]) if units else None
     t_last, s_last = time.time(), start
     try:
@@ -291,7 +333,7 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
                 t_last, s_last = now, b
                 logger.log(b, metrics)
             if _crossed(t.checkpoint_every, a, b) or b == num_steps:
-                ckpt.save(state, iter_state=it_state, stage=t.stage)
+                save(ckpt, iter_state=it_state, stage=t.stage)
             if _crossed(eval_every, a, b):
                 maybe_eval(b)
     finally:
@@ -305,6 +347,10 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
         mode = "; rollout W_out " + ("resident" if body.rollout_resident
                                      else "streamed")
     launches = {k: v - launches0[k] for k, v in launch_counts.items()}
-    print(f"[vidcap] {t.stage}: {max(num_steps - start, 0)} steps on {dev}"
-          f"{mode}; kernel launches {json.dumps(launches)}", file=sys.stderr)
+    if lead:
+        on = (f" on {dev}" if mesh is None else f" on {dev} (rank 0 of a "
+              f"data {mesh.num_data} x model {mesh.num_model} mesh)")
+        print(f"[vidcap] {t.stage}: {max(num_steps - start, 0)} steps{on}"
+              f"{mode}; kernel launches {json.dumps(launches)}",
+              file=sys.stderr)
     return state

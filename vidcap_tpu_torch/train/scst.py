@@ -47,9 +47,11 @@ from vidcap_tpu_torch.objectives.reward import scst_reward
 from vidcap_tpu_torch.objectives.reward_tables import (RewardTables,
                                                        tables_from_dataset)
 from vidcap_tpu_torch.objectives.scst import scst_loss
-from vidcap_tpu_torch.objectives.xe import masked_xe_loss, shift_right
+from vidcap_tpu_torch.objectives.xe import (masked_xe_loss, shift_right,
+                                            token_logp)
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, device_seed,
                                           model_rollout, resident_mode)
+from vidcap_tpu_torch.parallel.mesh import ONE_RANK
 from vidcap_tpu_torch.train.state import TrainState
 from vidcap_tpu_torch.train.steps import (Batch, Grads, Metrics,
                                           add_grads, apply_grads, apply_loss,
@@ -71,6 +73,9 @@ class ScstStep:
         self.bleu_mix = t.bleu_mix if t.scst_reward == "cider_bleu" else 0.0
         self.accum = max(1, t.grad_accum)
         self.seeds_per_step = self.accum   # the dispatch draws them
+        # the step's collectives: one process's, or a rank's of a mesh
+        # (parallel/sharding.py::make_sharded_step)
+        self.dp = ONE_RANK
         # K3's W_out mode in the last step's rollouts (ops/rollout.py)
         self.rollout_resident: Optional[bool] = None
 
@@ -96,28 +101,37 @@ class ScstStep:
         feats = feats.detach()
         if torch.is_tensor(seed):
             seed = seed.to(feats.device)
-        if not kernel_decoder(self.cfg.model):
-            return self._module_rollouts(model, feats, seed)
-        w = RolloutWeights.from_model(model)
+        # a rank's rows draw the noise one process draws for them
+        row0 = self.dp.row0(feats.shape[0])
+        if not kernel_decoder(self.cfg.model, "sample", frames=feats.shape[1],
+                              padded_vocab=model.decoder.padded_vocab,
+                              device=feats.device):
+            return self._module_rollouts(model, feats, seed, row0)
+        vocab = self.dp.vocab
+        w = RolloutWeights.from_model(
+            model, full=vocab.full(model) if vocab is not None else None)
         self.rollout_resident = resident_mode(w, feats.shape[1], feats.device)
         sample = model_rollout(model, feats, None, d.max_len, sample=True,
                                seed=seed, temperature=d.temperature,
-                               weights=w, resident_wout=self.rollout_resident)
+                               weights=w, resident_wout=self.rollout_resident,
+                               row0=row0)
         greedy = model_rollout(model, feats, None, d.max_len, weights=w,
                                resident_wout=self.rollout_resident)
         return sample, greedy
 
     @torch.no_grad()
-    def _module_rollouts(self, model, feats: torch.Tensor, seed
-                         ) -> Tuple[Rollout, Rollout]:
-        """(sampled, greedy) of a decoder no kernel covers, through the
-        model's own step; no host read (the seed stays on the device)."""
+    def _module_rollouts(self, model, feats: torch.Tensor, seed,
+                         row0: int = 0) -> Tuple[Rollout, Rollout]:
+        """(sampled, greedy) of a decoder or shape no kernel covers, through
+        the model's own step; no host read (the seed stays on the
+        device)."""
         d = self.cfg.decode
         require_full_f32(model, feats.device)
         state = model.init_state(feats)
         B, step = feats.shape[0], model.decoder.step
         sample = sample_decode(step, state, B, d.max_len,
-                               device_seed(seed, feats.device), d.temperature)
+                               device_seed(seed, feats.device), d.temperature,
+                               row0)
         greedy = greedy_decode(step, state, B, d.max_len, with_logp=False)
         return sample, greedy
 
@@ -141,25 +155,32 @@ class ScstStep:
         masked) against the greedy baseline. ``feats``: the step's
         differentiable encode (``model.encode_features``), which all three
         terms read."""
-        t = self.cfg.train
+        t, dp = self.cfg.train, self.dp
+        vocab = dp.vocab
         logits = model.xe_logits(feats, None, shift_right(sample.tokens))
-        logp_all = torch.log_softmax(
-            logits / max(self.cfg.decode.temperature, 1e-6), dim=-1)
-        logp = logp_all.gather(-1, sample.tokens.long()[..., None])[..., 0]
+        logp = token_logp(logits / max(self.cfg.decode.temperature, 1e-6),
+                          sample.tokens, vocab)
         rescored = Rollout(tokens=sample.tokens, logp=logp * sample.mask,
                            mask=sample.mask)
         r_s, r_g = rewards if rewards is not None else self.rewards(
             batch, sample, greedy)
-        pg, metrics = scst_loss(rescored, r_s, r_g)
+        pg, metrics = scst_loss(rescored, r_s, r_g, dp)
         xe = ntok = bce = None
         if t.scst_xe_mix > 0:
             # the XE anchor keeps the policy tied to the data distribution
             # while the PG term optimizes CIDEr
             gt = model.xe_logits(feats, None, shift_right(batch["tokens"]))
-            xe, ntok = masked_xe_loss(gt, batch["tokens"], batch["mask"])
+            # a microbatch's anchor over its own count (accum_grads
+            # weights it), else over the global batch's
+            denom = (None if self.accum > 1 else torch.clamp(
+                dp.sum(batch["mask"].sum()), min=1.0))
+            xe, ntok = masked_xe_loss(gt, batch["tokens"], batch["mask"],
+                                      vocab, denom)
         if t.attribute_loss_weight > 0:
             bce = attribute_bce_loss(model.attribute_logits(feats),
                                      batch["attributes"])
+            if self.accum == 1:
+                bce = bce / dp.nd
         return pg, xe, ntok, bce, metrics
 
     def loss(self, model, batch: Batch, sample: Rollout, greedy: Rollout,
@@ -188,7 +209,7 @@ class ScstStep:
         if feats is None:
             feats = state.model.encode_features(batch["features"])
         return apply_loss(state, *self.loss(state.model, batch, sample,
-                                            greedy, feats=feats))
+                                            greedy, feats=feats), dp=self.dp)
 
     def accum_grads(self, state: TrainState, batch: Batch
                     ) -> Tuple[Grads, Metrics]:
@@ -196,9 +217,14 @@ class ScstStep:
         with its own rollouts at its own seed: the PG term by 1/K, each
         normalized by its own sampled-token count (K SCST steps sharing one
         update); the XE anchor by token count over the batch's, exact; the
-        BCE by 1/K, exact; the PG metrics averaged over the microbatches."""
-        t, K = self.cfg.train, self.accum
-        n_total = torch.clamp(batch["mask"].sum(), min=1.0)
+        BCE by 1/K, exact; the PG metrics averaged over the microbatches.
+        On a mesh, this rank's shares (the counts global, the BCE over the
+        data ranks too) of each global microbatch: its rows of microbatch m
+        are its share of the global batch's (parallel/sharding.py::
+        shard_batch), so they sample the one process's noise."""
+        t, K, dp = self.cfg.train, self.accum, self.dp
+        n_total = torch.clamp(dp.sum(batch["mask"].sum()), min=1.0)
+        shares = K * dp.nd
         grads, loss, xe_num, bce_sum, m_sum = None, 0.0, 0.0, 0.0, None
         for m, mb in enumerate(micro_batches(batch, K)):
             # one encode a microbatch: the rollouts' view and the loss's
@@ -213,7 +239,7 @@ class ScstStep:
                 c = c + t.scst_xe_mix * xe * ntok / n_total
                 xe_num = xe_num + (xe * ntok).detach()
             if bce is not None:
-                c = c + t.attribute_loss_weight * bce / K
+                c = c + t.attribute_loss_weight * bce / shares
                 bce_sum = bce_sum + bce.detach()
             grads = add_grads(grads, grads_of(state, c))
             loss = loss + c.detach()
@@ -226,7 +252,7 @@ class ScstStep:
         if t.scst_xe_mix > 0:
             metrics["xe_anchor"] = xe_num / n_total
         if t.attribute_loss_weight > 0:
-            metrics["attr_loss"] = bce_sum / K
+            metrics["attr_loss"] = bce_sum / shares
         metrics["loss"] = loss
         return grads, metrics
 
@@ -238,7 +264,8 @@ class ScstStep:
             feats = state.model.encode_features(batch["features"])
             return self.update(state, batch, *self.rollouts(
                 state, batch, batch["seed"][0], feats=feats), feats=feats)
-        return apply_grads(state, *self.accum_grads(state, batch))
+        return apply_grads(state, *self.accum_grads(state, batch),
+                           dp=self.dp)
 
     def __call__(self, state: TrainState, batch: Batch,
                  seed=None) -> Tuple[TrainState, Metrics]:

@@ -147,18 +147,24 @@ class Optimizer:
                 t.zero_()
 
     @torch.no_grad()
-    def clip(self, grads: Dict[str, torch.Tensor]
+    def clip(self, grads: Dict[str, torch.Tensor],
+             norm: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        norm = optax_global_norm(grads)
+        """``norm``: the gradient's global norm where the caller has it
+        (a rank holding part of the gradient), else computed here."""
+        if norm is None:
+            norm = optax_global_norm(grads)
         limit = self.grad_clip_norm
         return {k: torch.where(norm < limit, g, g / norm * limit)
                 for k, g in grads.items()}
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
-               grads: Dict[str, torch.Tensor], opt_state: Dict) -> None:
-        """One step, in place: the parameters and ``opt_state``."""
-        grads = self.clip(grads)
+               grads: Dict[str, torch.Tensor], opt_state: Dict,
+               norm: Optional[torch.Tensor] = None) -> None:
+        """One step, in place: the parameters and ``opt_state``; ``norm``:
+        as :meth:`clip`."""
+        grads = self.clip(grads, norm)
         row = opt_state["table"].index_select(1, opt_state["count"].view(1))
         lr_rest, bc1, bc2, lr_bb = row[0, 0], row[1, 0], row[2, 0], row[3, 0]
         for k, p in params.items():
@@ -219,13 +225,14 @@ class TrainState:
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
 
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]
+    def apply_gradients(self, grads: Dict[str, torch.Tensor],
+                        norm: Optional[torch.Tensor] = None
                         ) -> "TrainState":
         if self.step >= self.tx.num_steps:
             # the count is at most the step; a later row does not exist
             raise ValueError(f"step {self.step}: the optimizer's tables end "
                              f"at {self.tx.num_steps} updates")
-        self.tx.update(self.params, grads, self.opt_state)
+        self.tx.update(self.params, grads, self.opt_state, norm)
         self.step += 1
         return self
 

@@ -28,10 +28,12 @@ import numpy as np
 import torch
 
 from vidcap_tpu_torch.config import Config
+from vidcap_tpu_torch.models.decoder import Dropout
 from vidcap_tpu_torch.objectives.multitask import attribute_bce_loss
 from vidcap_tpu_torch.objectives.xe import masked_xe_loss, shift_right
 from vidcap_tpu_torch.ops import _build
-from vidcap_tpu_torch.train.state import TrainState, optax_global_norm
+from vidcap_tpu_torch.parallel.mesh import ONE_RANK
+from vidcap_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -49,19 +51,23 @@ def grads_of(state: TrainState, loss: torch.Tensor) -> Grads:
             for (k, p), g in zip(params.items(), grads)}
 
 
-def apply_grads(state: TrainState, grads: Grads, metrics: Metrics
-                ) -> Tuple[TrainState, Metrics]:
-    """``grad_norm`` before the clip, then the update."""
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = optax_global_norm(grads)
-    return state.apply_gradients(grads), metrics
+def apply_grads(state: TrainState, grads: Grads, metrics: Metrics,
+                dp=ONE_RANK) -> Tuple[TrainState, Metrics]:
+    """``grad_norm`` before the clip, then the update. ``dp``
+    (parallel/sharding.py::DataParallel on a mesh): ``grads`` and
+    ``metrics`` are this rank's shares, summed over the data axis here (the
+    gradients in one all-reduce) before the norm and the update."""
+    grads = dp.reduce_grads(grads)
+    metrics = dp.reduce_metrics({k: v.detach() for k, v in metrics.items()})
+    metrics["grad_norm"] = norm = dp.global_norm(grads)
+    return state.apply_gradients(grads, norm), metrics
 
 
-def apply_loss(state: TrainState, loss: torch.Tensor, metrics: Metrics
-               ) -> Tuple[TrainState, Metrics]:
+def apply_loss(state: TrainState, loss: torch.Tensor, metrics: Metrics,
+               dp=ONE_RANK) -> Tuple[TrainState, Metrics]:
     """The gradients of ``loss``, ``grad_norm`` before the clip, the
-    update."""
-    return apply_grads(state, grads_of(state, loss), metrics)
+    update (``dp``: as :func:`apply_grads`)."""
+    return apply_grads(state, grads_of(state, loss), metrics, dp)
 
 
 def micro_batches(batch: Batch, accum: int) -> List[Batch]:
@@ -80,12 +86,24 @@ def add_grads(total: Optional[Grads], grads: Grads) -> Grads:
                                         for k, g in grads.items()}
 
 
-def xe_pieces(cfg: Config, model, batch: Batch):
+def dropout_of(cfg: Config, batch: Batch, row0: int) -> Optional[Dropout]:
+    """The training instance's dropout (``model.dropout_rate`` > 0) at the
+    step's seed, ``batch["seed"][0]``, for rows from global row ``row0``;
+    None at rate 0."""
+    rate = cfg.model.dropout_rate
+    return Dropout(rate, batch["seed"][0], row0) if rate > 0 else None
+
+
+def xe_pieces(cfg: Config, model, batch: Batch, row0: int = 0,
+              vocab=None, denom: Optional[torch.Tensor] = None):
     """(token-mean XE, token count, attribute BCE or None): one encode feeds
-    both heads."""
+    both heads. ``row0``: the global row of the batch's first row (the
+    dropout masks' key); ``vocab``, ``denom``: as ``masked_xe_loss``."""
     feats = model.encode_features(batch["features"])
-    logits = model.xe_logits(feats, None, shift_right(batch["tokens"]))
-    xe, ntok = masked_xe_loss(logits, batch["tokens"], batch["mask"])
+    logits = model.xe_logits(feats, None, shift_right(batch["tokens"]),
+                             dropout_of(cfg, batch, row0))
+    xe, ntok = masked_xe_loss(logits, batch["tokens"], batch["mask"], vocab,
+                              denom)
     bce = None
     if cfg.train.attribute_loss_weight > 0:
         bce = attribute_bce_loss(model.attribute_logits(feats),
@@ -93,69 +111,95 @@ def xe_pieces(cfg: Config, model, batch: Batch):
     return xe, ntok, bce
 
 
-def xe_losses(cfg: Config, model, batch: Batch) -> Tuple[torch.Tensor,
-                                                          Metrics]:
+def xe_losses(cfg: Config, model, batch: Batch, dp=ONE_RANK
+              ) -> Tuple[torch.Tensor, Metrics]:
     """The XE stage's total loss and its pieces: the token-mean XE, the
-    token count, and the attribute BCE when its weight is > 0."""
-    xe, ntok, bce = xe_pieces(cfg, model, batch)
+    token count, and the attribute BCE when its weight is > 0. ``dp``: on a
+    mesh, this rank's share of the global batch's (XE over the global
+    token count, BCE over the data ranks)."""
+    n_global = torch.clamp(dp.sum(batch["mask"].sum()), min=1.0)
+    xe, ntok, bce = xe_pieces(cfg, model, batch,
+                              dp.row0(batch["tokens"].shape[0]), dp.vocab,
+                              n_global)
     metrics = {"xe_loss": xe, "tokens": ntok}
     total = xe
     if bce is not None:
+        bce = bce / dp.nd
         total = total + cfg.train.attribute_loss_weight * bce
         metrics["attr_loss"] = bce
     metrics["loss"] = total
     return total, metrics
 
 
-def accum_grads(cfg: Config, state: TrainState, batch: Batch
+def accum_grads(cfg: Config, state: TrainState, batch: Batch, dp=ONE_RANK
                 ) -> Tuple[Grads, Metrics]:
     """``train.grad_accum`` = K microbatches, their gradients summed so
     that the sum equals the full-batch gradient (JAX ``accum_grads``): each
     microbatch's XE weighted by its token count over the batch's, its BCE
     (a row mean over equal microbatches) by 1/K. Only one microbatch's
-    activations are alive at a time."""
+    activations are alive at a time. The dropout masks are keyed by each
+    row's place in the batch, so each microbatch draws its own. ``dp``: on
+    a mesh this rank's share, as :func:`xe_losses`; its rows of microbatch
+    m are its share of the global batch's microbatch m
+    (parallel/sharding.py::shard_batch)."""
     accum, attr_w = cfg.train.grad_accum, cfg.train.attribute_loss_weight
     micro = micro_batches(batch, accum)
-    n_total = torch.clamp(batch["mask"].sum(), min=1.0)
+    rows = batch["tokens"].shape[0] // accum   # this rank's, a microbatch
+    shares = accum * dp.nd
+    n_total = torch.clamp(dp.sum(batch["mask"].sum()), min=1.0)
     grads, xe_num, ntok, bce_sum = None, 0.0, 0.0, 0.0
-    for mb in micro:
-        xe, nt, bce = xe_pieces(cfg, state.model, mb)
+    for m, mb in enumerate(micro):
+        xe, nt, bce = xe_pieces(cfg, state.model, mb,
+                                m * rows * dp.nd + dp.row0(rows), dp.vocab)
         c = xe * nt / n_total
         if bce is not None:
-            c = c + attr_w * bce / accum
+            c = c + attr_w * bce / shares
             bce_sum = bce_sum + bce.detach()
         grads = add_grads(grads, grads_of(state, c))
         xe_num = xe_num + (xe * nt).detach()
         ntok = ntok + nt
     xe_mean = xe_num / n_total          # == the full-batch masked XE
-    metrics = {"xe_loss": xe_mean, "tokens": ntok}
+    metrics = {"xe_loss": xe_mean, "tokens": dp.sum(ntok)}
     total = xe_mean
     if attr_w > 0:
-        bce_mean = bce_sum / accum      # == the full-batch row mean
+        bce_mean = bce_sum / shares     # == the full-batch row mean
         total = total + attr_w * bce_mean
         metrics["attr_loss"] = bce_mean
     metrics["loss"] = total
     return grads, metrics
 
 
-def xe_grads(cfg: Config, state: TrainState, batch: Batch
+def xe_grads(cfg: Config, state: TrainState, batch: Batch, dp=ONE_RANK
              ) -> Tuple[Grads, Metrics]:
     """The XE step's gradients and metrics, microbatched when
-    ``train.grad_accum`` > 1."""
+    ``train.grad_accum`` > 1 (``dp``: this rank's shares on a mesh)."""
     if cfg.train.grad_accum > 1:
-        return accum_grads(cfg, state, batch)
-    loss, metrics = xe_losses(cfg, state.model, batch)
+        return accum_grads(cfg, state, batch, dp)
+    loss, metrics = xe_losses(cfg, state.model, batch, dp)
     return grads_of(state, loss), metrics
 
 
-def make_xe_step_body(cfg: Config) -> StepFn:
+class XeStep:
     """The cross-entropy step: ``body(state, batch) → (state, metrics)``;
     the batch is a dict of tensors on the model's device (features,
-    tokens, mask, attributes, video_idx)."""
+    tokens, mask, attributes, video_idx, and with dropout its seed, which
+    the dispatch draws: one a step). ``dp``: the step's collectives, one
+    process's unless ``parallel/sharding.py::make_sharded_step`` sets a
+    mesh's."""
 
-    def body(state: TrainState, batch: Batch):
-        return apply_grads(state, *xe_grads(cfg, state, batch))
-    return body
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.dp = ONE_RANK
+        self.seeds_per_step = 1 if cfg.model.dropout_rate > 0 else 0
+
+    def __call__(self, state: TrainState, batch: Batch):
+        return apply_grads(state, *xe_grads(self.cfg, state, batch, self.dp),
+                           dp=self.dp)
+
+
+def make_xe_step_body(cfg: Config) -> XeStep:
+    """The cross-entropy step (:class:`XeStep`)."""
+    return XeStep(cfg)
 
 
 # ---------------------------------------------------------------- dispatch
