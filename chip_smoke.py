@@ -61,7 +61,8 @@ decoders no kernel covers through their modules, ``info``). Phases:
                                       resume / caption on frame files,
                                       encode_video
                                    16 the rest of the decode surface:
-                                      K2-int8 vs plain at N=920, the int8
+                                      K2-int8 vs plain at N=920 (H=512,
+                                      K=5 and 6; H=1024), the int8
                                       and pool beams at B=184 (launches,
                                       rows vs the CPU, captions/s), the
                                       decoders no kernel covers (2 layers,
@@ -76,7 +77,9 @@ decoders no kernel covers through their modules, ``info``). Phases:
                                       greedy B=32 decodes, dropout in the
                                       captured XE step, the shapes the
                                       kernels refuse (beam 9, pool beam 8,
-                                      hidden 1024) at B=184
+                                      hidden 1024) and the int8 beam at
+                                      hidden 1024 (K1 and K2-int8 once a
+                                      step) at B=184
   then the kernels line (one JSON object)
 
 Any failed check exits non-zero. The last line is
@@ -2600,49 +2603,77 @@ def check_k2_int8(h, proj, k):
             int(clear.sum().item()))
 
 
+def k2_int8_inputs(g, n: int, hidden: int):
+    """N(0,1) rows through tanh and a seeded W_out quantized (vocab VP)."""
+    cuda = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    h = cuda(np.tanh(g.normal(size=(n, hidden))))
+    dense = types.SimpleNamespace(kernel=cuda(g.normal(size=(hidden, VP))
+                                              / np.sqrt(hidden)),
+                                  bias=cuda(g.normal(size=VP) * 0.1))
+    return h, Int8Projection.from_dense(dense, VP)
+
+
+def k2_int8_bound(n: int, hidden: int, k: int):
+    """(bound ms, what bounds it) of K2-int8 at N = n: h read once (f32),
+    W8ᵀ, wscale and bq once, the K values and columns written once; 2·N·H·Vp
+    int8 operations at the H100's dense int8 rate."""
+    nbytes = n * hidden * 4 + VP * hidden + VP * 8 + n * k * 8
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * n * hidden * VP / PEAK_INT8
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def int_mm_ms(h, proj):
+    """torch._int_mm's time for the product alone (the yardstick; the port
+    never calls it), with the layout of W8 it takes."""
+    h8 = quantize_rows(h)[0]
+    note = None
+    for w8 in (proj.w8t.t(), proj.w8t.t().contiguous()):
+        try:
+            return time_ms(lambda: torch._int_mm(h8, w8)), (
+                "column-major W8" if not w8.is_contiguous()
+                else "row-major W8")
+        except RuntimeError as ex:
+            note = f"torch._int_mm refused: {str(ex)[:200]}"
+    return None, note
+
+
 def phase_k2_int8():
     """(a) K2-int8 at N = B·K = 920, K = 5 (the int8 beam) and 6 (the pool),
-    against int8_topk_project_plain; its time, bound and torch._int_mm's
-    time for the product alone."""
+    and at hidden 1024 (K = 5), against int8_topk_project_plain; its time,
+    bound and torch._int_mm's time for the product alone."""
     g = np.random.default_rng(16)
     n = B * K
-    cuda = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
-    h = cuda(np.tanh(g.normal(size=(n, H))))
-    dense = types.SimpleNamespace(kernel=cuda(g.normal(size=(H, VP))
-                                              / np.sqrt(H)),
-                                  bias=cuda(g.normal(size=VP) * 0.1))
-    proj = Int8Projection.from_dense(dense, VP)
+    h, proj = k2_int8_inputs(g, n, H)
     errs, exact, clear = [], {}, {}
     for k in (K, K + 1):
         e, x, c = check_k2_int8(h, proj, k)
         errs.append(e)
         exact[f"k{k}"], clear[f"k{k}"] = x, c
-    h8 = quantize_rows(h)[0]
-    lib, lib_note = None, None
-    for w8 in (proj.w8t.t(), proj.w8t.t().contiguous()):
-        try:
-            lib = time_ms(lambda: torch._int_mm(h8, w8))
-            lib_note = ("column-major W8" if not w8.is_contiguous()
-                        else "row-major W8")
-            break
-        except RuntimeError as ex:
-            lib_note = f"torch._int_mm refused: {str(ex)[:200]}"
-    nbytes = n * H * 4 + VP * H + VP * 8 + n * K * 8
-    ops = 2 * n * H * VP
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_INT8
+    lib, lib_note = int_mm_ms(h, proj)
+    bound_ms, bound_by = k2_int8_bound(n, H, K)
+    h2, proj2 = k2_int8_inputs(g, n, 2 * H)
+    e2, x2, c2 = check_k2_int8(h2, proj2, K)
+    lib2, lib2_note = int_mm_ms(h2, proj2)
+    b2_ms, b2_by = k2_int8_bound(n, 2 * H, K)
+    wide = dict(hidden=2 * H, k=K, max_abs_err=e2, exact_rows=x2,
+                clear_gap_rows=c2,
+                ms=time_ms(lambda: topk_project_int8(h2, proj2, K)),
+                bound_ms=b2_ms, bound_by=b2_by, library_ms=lib2,
+                library=lib2_note)
     return dict(name="topk_project_int8", route="cuda",
                 source="vidcap_tpu_torch/csrc/topk_project.cu",
                 replaces="vidcap_tpu/ops/int8_proj.py:75",
-                max_abs_err=max(errs),
+                max_abs_err=max(errs + [e2]),
                 ms=time_ms(lambda: topk_project_int8(h, proj, K)),
                 plain_ms=time_ms(lambda: int8_topk_project_plain(h, proj, K),
                                  iters=5),
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib), dict(exact_rows=exact, clear_gap_rows=clear,
                                       library=lib_note,
                                       ms_k6=time_ms(lambda: topk_project_int8(
-                                          h, proj, K + 1)))
+                                          h, proj, K + 1)),
+                                      hidden_1024=wide)
 
 
 def rows_vs_cpu(cap, trials, n_cand: int, pool: bool):
@@ -3178,7 +3209,9 @@ DROP_P = 0.5         # (c)
 REFUSED = (("beam 9", {}, {}, "beam", 9),
            ("pool beam 8", {"finished_pool": "on"}, {}, "beam", 8),
            ("hidden 1024 beam", {}, {"hidden_dim": 1024}, "beam", K),
-           ("hidden 1024 greedy", {}, {"hidden_dim": 1024}, "greedy", K))
+           ("hidden 1024 greedy", {}, {"hidden_dim": 1024}, "greedy", K),
+           ("hidden 1024 int8 beam", {"int8_vocab_projection": True},
+            {"hidden_dim": 1024}, "beam", K))
 REFUSED_CPU_ROWS = 32   # (d): the rows held to the CPU
 RANK_BLOCKS = 4         # (b): a rank's block of the four-card mesh's rows
 
@@ -3338,7 +3371,8 @@ def sharded_dropout():
 def refused_shapes(beam_floor: float):
     """(d): each shape of :data:`REFUSED` at msrvtt_attn_beam5's width on
     B=184 N(0,1) inputs with seeded weights: the decode does not raise and
-    launches what ``Captioner.kernels`` names (every other count 0); its
+    launches what ``Captioner.kernels`` names (every other count 0; a
+    beam's kernels once a step); its
     first REFUSED_CPU_ROWS rows are held to the CPU's decode under phase 16
     (d)'s rules (floor: the share the CPU's bf16 decode keeps of its f32
     decode less ROW_SLACK, or ``beam_floor`` where lower); ms a decode."""
@@ -3362,9 +3396,10 @@ def refused_shapes(beam_floor: float):
         launches = dict(_build.launch_counts)
         for k, n in launches.items():
             launched[k] += n
-            if (n > 0) != (k in kernels):
+            once = method != "beam" or n == cap.decode_steps
+            if (n > 0) != (k in kernels) or (k in kernels and not once):
                 problems.append(f"{name}: launches {launches}, kernels "
-                                f"{kernels}")
+                                f"{kernels}, {cap.decode_steps} steps")
         held = held_to_cpu(cap, f[:REFUSED_CPU_ROWS],
                            toks[:REFUSED_CPU_ROWS], method, beam, beam_floor)
         out[name] = dict(kernels=list(kernels), launches=launches,

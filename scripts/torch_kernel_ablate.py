@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
-"""Where K1's, K2's and K3's time goes, by ablation, on one NVIDIA GPU.
+"""Where K1's, K2's, K2-int8's and K3's time goes, by ablation, on one
+NVIDIA GPU.
 
-    python3 scripts/torch_kernel_ablate.py [beam_core] [topk_project] [rollout]
+    python3 scripts/torch_kernel_ablate.py [beam_core] [topk_project]
+        [topk_project_int8] [rollout]
 
 Builds copies of ``vidcap_tpu_torch/csrc`` with one part of a kernel taken
-out (each copy under ``build/ablate/<variant>/`` in the checkout), runs each
-variant 20 times at ``msrvtt_attn_beam5`` width (K1: B=184, K=5, T=26,
-E=H=A=512; K2: N=920, H=512, Vp=16,000, K=5) and K3's greedy rollout at
+out, or one design choice changed (each copy under
+``build/ablate/<variant>/`` in the checkout), and runs each variant 20
+times, after half a second of warm-up calls (the card idles while a variant
+builds), at ``msrvtt_attn_beam5`` width (K1: B=184, K=5, T=26, E=H=A=512;
+K2 and K2-int8: N=920, H=512, Vp=16,000, K=5) and K3's greedy rollout at
 ``msvd_greedy`` width (B=32, T=26, E=H=A=512, Vp=12,032, 30 steps, W_out
-resident) on the same seeded inputs, and
-prints one JSON object: per variant, the device time of each kernel (µs a
-launch, from ``torch.profiler``) and the card (``nvidia-smi`` name and power
-limit). The variants compute wrong results on purpose; only their times
-mean anything. The difference to ``*_full`` is what the removed part costs
-where the rest of the kernel does not hide it. ``k3_phase_clocks`` is the
-whole K3 with each block's cycles in each phase and barrier wait counted
-(clock64). With kernel names as arguments, only their variants run.
+resident) on the same seeded inputs. Prints one JSON object: per variant,
+the device time of each kernel (µs a launch, from ``torch.profiler``; K1's,
+K2's and K2-int8's read twice, the second time under ``again`` after every
+variant is built) and the card (``nvidia-smi`` name and power limit). The
+variants compute wrong results on purpose; only their times mean anything.
+The difference to ``*_full`` is what the removed part costs where the rest
+of the kernel does not hide it. ``k3_phase_clocks`` is the whole K3 with
+each block's cycles in each phase and barrier wait counted (clock64). With
+kernel names as arguments, only their variants run; a variant whose code
+is not in the sources is reported as skipped (run from a copy of another
+commit, the script reads that commit's kernels). K2-int8's report its
+three launches (``quantize_kernel``, ``chunk_s8_kernel``,
+``merge_kernel``); their anchors are matched up to whitespace.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
+import time
+import types
 
 import numpy as np
 import torch
@@ -34,6 +46,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from vidcap_tpu_torch.ops import _build  # noqa: E402
+from vidcap_tpu_torch.ops.int8_proj import Int8Projection  # noqa: E402
+from vidcap_tpu_torch.ops.int8_proj import TILE_ROWS as INT8_ROWS  # noqa: E402
 from vidcap_tpu_torch.ops.rollout import RolloutWeights, rollout  # noqa: E402
 from vidcap_tpu_torch.ops.topk_project import chunk_layout  # noqa: E402
 
@@ -56,6 +70,24 @@ NO_PROMOTION = ("hopper.cuh", """#pragma unroll
     wgmma_fence();""")
 EPILOGUE = "  __device__ void operator()(float (&acc)[kAccRegs], int tile) {\n"
 TOPK = "      bool active = mt > -INFINITY"
+# K2-int8's epilogue: the reference's rounding chain of one accumulator, and
+# the call of ChunkCarry::select on a tile's logits; SINK keeps every logit
+# live (their maximum into the carry) so that the chain is not dropped
+CHAIN = ("x[r] = in ? bf16r(__fadd_rn( __fmul_rn((float)acc[r], "
+         "__fmul_rn(hsr[hh], wsc)), bqc)) : -INFINITY;")
+SELECT = "carry.select(x, col0);"
+SINK = ("{ float t_ = x[0]; for (int j_ = 1; j_ < (int)(sizeof(x) / 4); "
+        "++j_) t_ = fmaxf(t_, x[j_]); carry.m[0] = fmaxf(carry.m[0], t_); }")
+# K2-int8's stage without its wgmmas (behind a test the compiler cannot see
+# through: the ring has boxes at run time); the TMA stream, the barriers and
+# the empty commit groups stay
+S8_MMA = "    if constexpr (First)\n      wgmma_s8_first("
+NO_S8_MMA = ("topk_project.cu", S8_MMA,
+             "    if (r.boxes < 0)\n    if constexpr (First)\n      wgmma_s8_first(")
+S8_MMA_REST = "    for (int k = 1; k < kS8Box / 32; ++k)\n      wgmma_s8("
+NO_S8_MMA_REST = ("topk_project.cu", S8_MMA_REST,
+                  S8_MMA_REST.replace("k < kS8Box / 32", "k < (r.boxes < 0 ? kS8Box / 32 : 1)"))
+
 TANH = "s[k] += bf16r(tanhf(bf16r(kf[j] + qf[j]))) * uf[j];"
 SCORES = "  for (int t = warp; t < T; t += nwarps) {\n    float s[kMaxBeam];"
 SOFTMAX = "  for (int k = warp; k < K; k += nwarps) {\n    float mx = -INFINITY;"
@@ -209,6 +241,17 @@ VARIANTS = {
         "k2_no_topk": [("topk_project.cu", TOPK, "if (Vp > 0) continue;\n" + TOPK)],
         "k2_no_promotion": [NO_PROMOTION],
     },
+    "topk_project_int8": {
+        "int8_full": [],
+        "int8_no_topk": [("topk_project.cu", TOPK,
+                          "if (Vp > 0) continue;\n" + TOPK)],
+        "int8_no_select": [("topk_project.cu", SELECT, SINK)],
+        "int8_product_only": [("topk_project.cu", CHAIN, "x[r] = (float)acc[r];"),
+                              ("topk_project.cu", SELECT, SINK)],
+        "int8_loads_only": [("topk_project.cu", CHAIN, "x[r] = (float)acc[r];"),
+                            ("topk_project.cu", SELECT, SINK), NO_S8_MMA,
+                            NO_S8_MMA_REST],
+    },
     "beam_core": {
         "k1_full": [],
         "k1_no_tanh": [("recurrent.cuh", TANH,
@@ -243,26 +286,38 @@ def build(name: str, source: str, patches) -> ctypes.CDLL:
         path = os.path.join(d, fn)
         with open(path) as f:
             text = f.read()
-        if old not in text:
-            raise RuntimeError(f"{name}: the code to take out is not in {fn}")
+        if old in text:
+            text = text.replace(old, new, 1)
+        else:   # the anchor up to whitespace
+            pat = r"\s+".join(map(re.escape, old.split()))
+            text, n = re.subn(pat, lambda _: new, text, count=1)
+            if n != 1:
+                raise LookupError(f"the code to change is not in {fn}")
         with open(path, "w") as f:
-            f.write(text.replace(old, new, 1))
+            f.write(text)
     so = os.path.join(d, "kernel.so")
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                    os.path.join(d, f"{source}.cu")], check=True)
+                    os.path.join(d, f"{_build._source(source)}.cu")],
+                   check=True)
     return ctypes.CDLL(so)
 
 
-def device_us(call, n: int = 20) -> dict:
-    for _ in range(3):
-        if call() != 0:
-            raise RuntimeError("launch failed")
-    torch.cuda.synchronize()
+def device_us(call, n: int = 20, warm_s: float = 0.5) -> dict:
+    """µs a launch of each kernel over ``n`` calls, after ``warm_s`` seconds
+    of calls: the card idles while a variant builds, and its clocks take a
+    while to rise again."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        for _ in range(3):
+            if call() != 0:
+                raise RuntimeError("launch failed")
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             call()
         torch.cuda.synchronize()
-    return {e.key[:48]: e.self_device_time_total / n
+    # over the launches the profiler recorded (it has dropped some)
+    return {e.key[:48]: e.self_device_time_total / e.count
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
@@ -325,6 +380,14 @@ def main() -> int:
                             .multi_processor_count)
     k2_out = (e(N, H, dt=bf), e(N, nch), e(N, nch), e(N, nch, K),
               e(N, nch, K, dt=torch.int32), e(N, K), e(N, K, dt=torch.int32))
+    # K2-int8 on the same rows, W_out quantized (its scratch as the wrapper's)
+    proj = Int8Projection.from_dense(types.SimpleNamespace(
+        kernel=t(g.normal(size=(H, VP)) / np.sqrt(H)), bias=b), VP)
+    per8, nch8 = chunk_layout(N, VP, torch.cuda.get_device_properties(0)
+                              .multi_processor_count, INT8_ROWS)
+    k28_io = (h, proj.w8t, proj.wscale, proj.bq, e(N, H, dt=torch.int8), e(N),
+              e(N, nch8), e(N, nch8), e(N, nch8, K),
+              e(N, nch8, K, dt=torch.int32), e(N, K), e(N, K, dt=torch.int32))
     # K1 at the same width
     B, T, E, A = 184, 26, 512, 512
     k1_in = (t(g.normal(size=(B * K, E)) * 0.2),
@@ -349,34 +412,52 @@ def main() -> int:
              t(np.ones((BG, T), np.float32)), t(np.tanh(g.normal(size=(BG, H)))),
              t(g.normal(size=(BG, H))))
     rollout(w3, *k3_in, L)   # builds the kernel, sets its entry's types
-    out = {}
+    out, again = {}, []
     only = sys.argv[1:] or list(VARIANTS)
     for source, variants in VARIANTS.items():
         if source not in only:
             continue
         for name, patches in variants.items():
-            lib = build(name, source, patches)
+            try:
+                lib = build(name, source, patches)
+            except LookupError as ex:   # another version of the kernel
+                out[name] = {"skipped": str(ex)}
+                continue
             fn = getattr(lib, f"vidcap_{source}")
             fn.restype = ctypes.c_int
             if source == "rollout":
                 fn.argtypes = _build._fns["rollout"].argtypes
                 _build._fns["rollout"] = fn   # the wrapper launches the variant
                 call = lambda: rollout(w3, *k3_in, L) and 0
+            elif source == "topk_project_int8":
+                fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p])
+                ptrs = [x.data_ptr() for x in k28_io]
+                call = lambda fn=fn, ptrs=ptrs: fn(*ptrs, N, H, VP, K, per8,
+                                                   nch8, stream)
             elif source == "topk_project":
                 fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                                + [ctypes.c_void_p])
                 ptrs = [x.data_ptr() for x in (h, w, b, *k2_out)]
-                call = lambda: fn(*ptrs, N, H, VP, K, VP, per, nch, stream)
+                call = lambda fn=fn, ptrs=ptrs: fn(*ptrs, N, H, VP, K, VP,
+                                                   per, nch, stream)
             else:
                 fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                                + [ctypes.c_void_p])
                 ptrs = [x.data_ptr() for x in (*k1_in, *k1_out)]
-                call = lambda: fn(*ptrs, B, K, T, E, H, A, stream)
+                call = lambda fn=fn, ptrs=ptrs: fn(*ptrs, B, K, T, E, H, A,
+                                                   stream)
+            if source != "rollout":
+                again.append((name, call))
             out[name] = device_us(call)
             if name == "k3_phase_clocks":
                 out[name]["phase_us_per_step"] = k3_phase_us(lib, L)
             if name == "k3_part_clocks":
                 out[name]["part_us_per_step"] = k3_sub_us(lib, call, L)
+    # every K1/K2/K2-int8 variant once more, built, one after another:
+    # the spread between the two readings
+    for name, call in again:
+        out[name]["again"] = device_us(call)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

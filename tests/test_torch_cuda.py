@@ -411,8 +411,10 @@ def _int8_inputs(dev, N, H, Vp, vocab, seed):
 @pytest.mark.parametrize("N,H,Vp,vocab,K", [
     (16, 64, 256, 200, 5),      # vocab_size < Vp: bq holds -1e30 past it
     (24, 64, 264, 264, 8),      # a ragged last tile of 8 columns; K = 8
-    (70, 32, 512, 100, 6),      # two 64-row tiles, the last one ragged
+    (70, 32, 512, 100, 6),      # one ragged 128-row tile
     (920, 512, 16000, 16000, 6),   # the pool at msrvtt_attn_beam5 width
+    (129, 1024, 16000, 16000, 5),  # a 1-row 128-row tile; a 5-stage ring
+    (256, 96, 1000, 900, 8),    # depth not a multiple of 128 (zero fill)
 ])
 def test_topk_project_int8_matches_plain(dev, N, H, Vp, vocab, K):
     """The quantized rows and scales bit for bit; the logits are the plain
@@ -433,6 +435,21 @@ def test_topk_project_int8_matches_plain(dev, N, H, Vp, vocab, K):
     assert (v_k - v_p).abs().max().item() <= 1e-4
     again = topk_project_int8(h, proj, K)
     assert torch.equal(again[0], v_k) and torch.equal(again[1], i_k)
+
+
+def test_topk_project_int8_refuses_what_shared_memory_cannot_hold(dev):
+    """Hidden 1,152 is the widest the kernel's block holds (a ring of 4
+    stages); 1,184 raises before any launch, as the router's predicate
+    says."""
+    from vidcap_tpu_torch.ops.int8_proj import topk_project_int8
+    from vidcap_tpu_torch.ops.limits import topk_project_int8_takes
+    assert topk_project_int8_takes(5, 1152, 512)
+    assert not topk_project_int8_takes(5, 1184, 512)
+    h, proj = _int8_inputs(dev, 8, 1184, 512, 512, seed=1)
+    n = _build.launch_counts["topk_project_int8"]
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_project_int8(h, proj, 5)
+    assert _build.launch_counts["topk_project_int8"] == n
 
 
 def test_pool_beam_width_is_capped_by_k2(dev):

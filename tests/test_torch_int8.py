@@ -34,23 +34,25 @@ from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.export import ExportedCaptioner, export_decoder
 from vidcap_tpu_torch.inference import Captioner
 from vidcap_tpu_torch.ops import _build
-from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
+from vidcap_tpu_torch.ops.int8_proj import (TILE_ROWS, Int8Projection,
                                             int8_logits_plain, int8_sums,
                                             int8_topk_project_chunked_plain,
                                             int8_topk_project_plain,
                                             quantize_out_proj, quantize_rows,
                                             topk_project_int8)
+from vidcap_tpu_torch.ops.limits import H100_SMS
+from vidcap_tpu_torch.ops.topk_project import TILE_N, chunk_layout
 
 INT8 = ["decode.int8_vocab_projection=true"]
 
 
-def _weights(H, Vp, seed):
+def _weights(H, Vp, seed, rows=40):
     g = np.random.default_rng(seed)
     W = (g.normal(size=(H, Vp)) * g.uniform(0.01, 0.5, size=Vp)
          ).astype(np.float32)
     W[:, 3] = 0.0                     # a zero column: the 1e-8 guard
     b = (g.normal(size=Vp) * 0.1).astype(np.float32)
-    h = np.tanh(g.normal(size=(40, H)) * 2).astype(np.float32)
+    h = np.tanh(g.normal(size=(rows, H)) * 2).astype(np.float32)
     h[5] = 0.0                        # a zero row: hscale 0, h8 0
     return W, b, h
 
@@ -105,15 +107,26 @@ def test_int8_logits_match_jax(H, Vp, vocab):
           f"{got.size}")
 
 
+def _layout(rows, Vp):
+    """The kernel's chunk width at ``rows`` rows on the H100's 132 SMs
+    (128-row tiles): 264 rows are 3 row tiles, so 44 chunks."""
+    per_chunk, _ = chunk_layout(rows, Vp, H100_SMS, TILE_ROWS)
+    return pytest.param(rows, Vp, per_chunk * TILE_N,
+                        id=f"rows{rows}-{Vp}-{per_chunk * TILE_N}")
+
+
 @pytest.mark.parametrize("K", [1, 5, 6, 8])
-@pytest.mark.parametrize("Vp,chunk_cols", [(1024, 128), (1000, 256),
-                                           (264, 128)])
-def test_chunked_int8_matches_one_pass(Vp, chunk_cols, K):
+@pytest.mark.parametrize("rows,Vp,chunk_cols", [
+    pytest.param(40, 1024, 128, id="1024-128"),
+    pytest.param(40, 1000, 256, id="1000-256"),
+    pytest.param(40, 264, 128, id="264-128"),
+    _layout(264, 16_000), _layout(264, 1000)])
+def test_chunked_int8_matches_one_pass(rows, Vp, chunk_cols, K):
     """K2-int8's split-vocab decomposition (per chunk max, exp-sum and
     top-K, then the merge) against the one pass: the same columns, values
     within 1e-6 (``tests/test_torch_topk_chunks.py``'s rule). The int8
     logits are bf16, so ties are many: both take the smaller column."""
-    W, b, h = _weights(64, Vp, seed=Vp + K)
+    W, b, h = _weights(64, Vp, seed=Vp + K, rows=rows)
     _, _, _, proj = _port_quantized(W, b, Vp - 7)
     ht = torch.tensor(h)
     v_p, i_p = int8_topk_project_plain(ht, proj, K)

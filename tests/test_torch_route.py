@@ -19,6 +19,8 @@ from vidcap_tpu_torch.models import decoding
 from vidcap_tpu_torch.models.decoding import kernel_decoder, projection_kernel
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops import limits
+from vidcap_tpu_torch.ops.int8_proj import (MIN_STAGES, s8_smem_bytes,
+                                            s8_stages)
 from vidcap_tpu_torch.ops.limits import (beam_core_takes, rollout_takes,
                                          topk_project_int8_takes,
                                          topk_project_takes)
@@ -37,10 +39,54 @@ def test_k1_table(beam, e, h, a, takes):
     (5, 512, 16_000, True, True), (8, 512, 12_032, True, True),
     (9, 512, 16_000, False, False), (6, 1024, 16_000, False, True),
     (5, 544, 16_000, False, True), (5, 520, 16_000, False, False),
-    (5, 512, 16_004, False, True), (5, 512, 4, False, False)])
+    (5, 512, 16_004, False, True), (5, 512, 4, False, False),
+    # K2-int8's edge: its block holds H/128 boxes of rows and >= 4 stages
+    (5, 1024, 16_000, False, True), (5, 1152, 16_000, False, True),
+    (5, 1184, 16_000, False, False), (6, 2048, 16_000, False, False)])
 def test_k2_and_k2_int8_tables(k, h, vp, k2, k2_int8):
     assert topk_project_takes(k, h, vp) is k2
     assert topk_project_int8_takes(k, h, vp) is k2_int8
+
+
+def test_k2_int8_takes_exactly_what_its_shared_memory_holds():
+    """Every multiple of 32 up to 4,096: K2-int8's predicate says yes
+    exactly where the Python mirror of the kernel's shared memory fits in
+    the H100's block, which is where its ring has at least 4 stages."""
+    for h in range(32, 4097, 32):
+        fits = s8_smem_bytes(h) <= limits.H100_SMEM
+        assert topk_project_int8_takes(5, h, 16_000) is fits, h
+        assert fits is (s8_stages(h) >= MIN_STAGES), h
+    assert not topk_project_int8_takes(5, 1000, 16_000)
+
+
+def test_k2_int8_shared_memory_mirrors_the_kernel_source():
+    """ops/int8_proj.py's constants are those of csrc/topk_project.cu
+    (kS8*, kProjRows, kProjCols), so the route and the kernel cannot
+    disagree on what fits."""
+    import os
+    import re
+    from vidcap_tpu_torch.ops import _build, int8_proj
+    src = open(os.path.join(_build.CSRC, "topk_project.cu")).read()
+    src += open(os.path.join(_build.CSRC, "projection.cuh")).read()
+    src += open(os.path.join(_build.CSRC, "hopper.cuh")).read()
+
+    def const(name):
+        m = re.search(rf"constexpr int [^;]*\b{name} = ([^;,]+)[;,]", src)
+        assert m, name
+        return m.group(1).strip()
+
+    env = {}
+    for name in ("kSlabCols", "kWgCols", "kProjRows", "kProjCols", "kS8Rows",
+                 "kS8Box", "kS8BTile", "kS8MinStages", "kS8MaxStages",
+                 "kS8Side", "kS8SideBytes", "kS8Fixed", "kS8SmemCap"):
+        env[name] = eval(const(name), {}, env)
+    assert env["kS8Rows"] == int8_proj.TILE_ROWS
+    assert env["kS8Box"] == int8_proj.DEPTH_BOX
+    assert env["kS8BTile"] == int8_proj.STAGE_BYTES
+    assert (env["kS8MinStages"], env["kS8MaxStages"]) == (
+        int8_proj.MIN_STAGES, int8_proj.MAX_STAGES)
+    assert env["kS8Fixed"] == int8_proj.FIXED
+    assert env["kS8SmemCap"] == limits.H100_SMEM
 
 
 @pytest.mark.parametrize("e,h,a,vp,t,takes", [

@@ -3,7 +3,7 @@
 // TMA tensor maps, and the grid barrier and cooperative launch of a
 // persistent kernel (K3).
 //
-// The operand layouts every product here uses (bf16, f32 accumulate):
+// The operand layouts the bf16 products use (f32 accumulate):
 //  A, K-major (rows of the activations, depth contiguous): TMA boxes of
 //     64 deep x R rows with 128-byte swizzle, so row r of a box sits at
 //     r * 128 bytes. One wgmma takes 64 rows x 16 deep; the k16 steps of a
@@ -15,6 +15,10 @@
 //     between groups of 8 depth rows); the k16 steps start 1 KB apart. A slab
 //     may come from any 32 columns of the weight, so one product can take
 //     the four LSTM gates' columns j0..j0+31 side by side.
+// K2-int8's s8 product (s32 accumulate) takes both operands K-major: TMA
+// boxes of 128 bytes deep x R rows with 128-byte swizzle, the layout of A
+// above (desc_a describes either operand); its k32 steps start 32 bytes
+// apart inside a box.
 // Rows and columns past a tensor's edge arrive as zeros (TMA's
 // out-of-bounds fill), so ragged edges need no masking in the product.
 #pragma once
@@ -138,10 +142,31 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most n of the warpgroup's committed wgmma groups are
+// pending; n is uniform over the warpgroup, and a caller never has more
+// than 8 pending, so n >= 8 waits for nothing.
+__device__ __forceinline__ void wgmma_wait_upto(int n) {
+  switch (n) {
+    case 0: asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); break;
+    case 1: asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); break;
+    case 2: asm volatile("wgmma.wait_group.sync.aligned 2;\n" ::: "memory"); break;
+    case 3: asm volatile("wgmma.wait_group.sync.aligned 3;\n" ::: "memory"); break;
+    case 4: asm volatile("wgmma.wait_group.sync.aligned 4;\n" ::: "memory"); break;
+    case 5: asm volatile("wgmma.wait_group.sync.aligned 5;\n" ::: "memory"); break;
+    case 6: asm volatile("wgmma.wait_group.sync.aligned 6;\n" ::: "memory"); break;
+    case 7: asm volatile("wgmma.wait_group.sync.aligned 7;\n" ::: "memory"); break;
+    default: break;
+  }
+}
+
 // Keep the compiler from moving accesses of `d` across an asynchronous wgmma.
 __device__ __forceinline__ void fence_regs(float (&d)[kAccRegs]) {
 #pragma unroll
   for (int i = 0; i < kAccRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(int (&d)[kAccRegs]) {
+#pragma unroll
+  for (int i = 0; i < kAccRegs; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (+)= A[64 x 16] . B[16 x 128]; scale_d = 0 overwrites d.
@@ -179,6 +204,83 @@ __device__ __forceinline__ void wgmma_128(float (&d)[kAccRegs], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 32] . B[32 x 128] in s8 x s8 -> s32, both operands K-major
+// (desc_a); the sums are exact, so a chain accumulates in the tensor cores.
+// The first of a chain overwrites d and its asm only writes d, so the
+// compiler keeps no earlier value of d alive for it; the others add.
+__device__ __forceinline__ void wgmma_s8_first(int (&d)[kAccRegs], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      :
+        "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+__device__ __forceinline__ void wgmma_s8(int (&d)[kAccRegs], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // acc += A[64 rows x 64 deep] . B[64 deep x 128] for one warpgroup: `a` is
@@ -273,27 +375,32 @@ static int allow_max_smem() {
   return err;
 }
 
-// A 2-D bf16 tensor map: `cols` innermost (contiguous), `rows` outer with
-// `row_elems` elements from one row to the next; boxes of box_cols x
-// box_rows; 128-byte swizzle for A operands (box_cols = 64), 64-byte for B
-// slabs (box_cols = 32), none for 8-column panels (box_cols = 8: a box
-// lands as box_rows rows of 16 bytes). Needs base and row stride 16-byte
-// aligned.
+// A 2-D tensor map of `elem_bytes`-byte elements of type `type` (bf16 by
+// default): `cols` innermost (contiguous), `rows` outer with `row_elems`
+// elements from one row to the next; boxes of box_cols x box_rows. The
+// swizzle follows a box row's bytes: 128-byte for K-major operands (64 bf16
+// or 128 s8 deep), 64-byte for B slabs (32 bf16 columns), none otherwise
+// (8-column bf16 panels land as box_rows rows of 16 bytes; K2-int8's
+// 128-float rows of per-column scales and bias). Needs base and row stride
+// 16-byte aligned.
 inline int make_tmap(CUtensorMap* map, const void* base, uint64_t cols,
                      uint64_t rows, uint64_t row_elems, uint32_t box_cols,
-                     uint32_t box_rows) {
+                     uint32_t box_rows,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     uint32_t elem_bytes = sizeof(__nv_bfloat16)) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return kTensorMapError;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_elems * sizeof(__nv_bfloat16)};
+  const cuuint64_t strides[1] = {row_elems * elem_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
+  const uint32_t box_bytes = box_cols * elem_bytes;
   const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box_cols * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : box_cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                           : CU_TENSOR_MAP_SWIZZLE_NONE,
+      map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }

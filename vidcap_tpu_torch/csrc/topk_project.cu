@@ -388,35 +388,92 @@ merge_kernel(const float* __restrict__ cm, const float* __restrict__ cs,
 
 // ---- K2's int8 variant -------------------------------------------------------
 //
-// The beam step's projection with decode.int8_vocab_projection: the JAX
-// package computes it in XLA (vidcap_tpu/ops/int8_proj.py:int8_logits, no
-// Pallas kernel), bf16(f32(h8 . W8) * (hscale * wscale) + bq), and K2's
-// top-K and lse follow here on those logits, as topk_project does on its
-// own. Three launches, as K2's:
+// The beam step's projection with decode.int8_vocab_projection. It replaces
+// vidcap_tpu/ops/int8_proj.py:int8_logits (:75, the quantization :58; XLA,
+// no Pallas kernel), bf16(f32(h8 . W8) * (hscale * wscale) + bq), and the
+// top-K and lse that the JAX package's beam takes of those logits, which
+// here are K2's (vidcap_tpu/ops/pallas_topk.py:117: ChunkCarry, merge_kernel).
+// Three launches, as K2's:
 //  (a) quantize_kernel: a warp a row, hscale = max|h| / 127 and h8 =
 //      clip(rint(h / max(hscale, 1e-8)), -127, 127), with IEEE division
 //      (__fdiv_rn) and round-half-even (rintf), as jnp.round and torch.round;
 //      h8 and hscale are left in the scratch (the wrapper can return them).
-//  (b) chunk_s8_kernel: K2's grid of (row tile, vocab chunk) blocks with
-//      64-row tiles and four warps. The block's rows of h8 and, double
-//      buffered by cp.async, each 128-column tile of W8 stored transposed
-//      [Vp, H] (K-major, as mma.sync's B operand wants it) sit in shared
-//      memory, rows padded by 16 bytes so that every 32-bit fragment load
-//      is free of bank conflicts. A warp's 16 rows x 128 columns run on
-//      mma.sync m16n8k32 s8 x s8 -> s32, whose 16 n8 accumulators lie in
-//      the wgmma layout that ChunkCarry reads. The int32 sums are exact, so
-//      no promotion is needed. The epilogue is the reference's rounding
-//      chain with explicit _rn intrinsics, so that nvcc contracts nothing
-//      into an FMA, then ChunkCarry's running max, exp-sum and top-K.
-//  (c) merge_kernel, unchanged.
-// What bounds it: 15.1 G int8 operations at the bench shape (7.6 us at
-// 1,979 TOPS) against 8.2 MB of W8 (2.4 us). What holds this simple
-// version back: mma.sync, not wgmma, the W8 tiles re-read from L2 by each
-// of the 15 row tiles, and the epilogue after each tile's product.
+//  (b) chunk_s8_kernel: K2's grid of (128-row tile, vocab chunk) blocks. A
+//      producer warpgroup (one thread issues the TMA loads; the warpgroup
+//      gives its registers to the consumers) brings the block's 128 rows of
+//      h8 once, in boxes of 128 bytes of depth (zeros past H and past N),
+//      then streams W8 stored transposed [Vp, H] (K-major, as wgmma's s8
+//      operands must be) in stages of 128 columns x 128 bytes (16 KB)
+//      through an mbarrier ring, and each tile's 128 wscale and bq with it
+//      (a side ring of 4 tiles). Two consumer warpgroups of 64 rows run
+//      wgmma m64n128k32 s8 x s8 -> s32 from shared-memory descriptors: a
+//      tile is H/32 k32 steps, one commit group a stage, and a stage goes
+//      back to the producer as soon as its group has completed. The int32
+//      sums are exact (|sum| <= 127^2 * H < 2^31), so nothing is promoted.
+//      The epilogue reads the accumulator registers: the reference's
+//      rounding chain with explicit _rn intrinsics, so that nvcc contracts
+//      nothing into an FMA, then ChunkCarry's running max, exp-sum and
+//      top-K (columns past Vp never candidates; ties to the smaller
+//      column).
+//  (c) merge_kernel, K2's.
+// The ring holds two tiles' stages where shared memory allows (8 at H <=
+// 512) and at least 4 (5 at H = 1024, fewer than a tile's 8: hence a
+// commit group a stage, not a tile). Shared memory s8_smem(H) (mirrored in
+// ops/int8_proj.py; ops/limits.py routes by it) is 197 KB at H = 512 and
+// 213 KB at H = 1024; the kernel takes H up to 1152.
+// What bounds it: 15.1 G int8 operations at the bench shape (N = 920, H =
+// 512, Vp = 16,000: 7.6 us at 1,979 TOPS) against 8.2 MB of W8 (2.4 us at
+// 3.35 TB/s). What held the mma.sync version back, and what this one does:
+// mma.sync fed from padded shared rows by the warps themselves -> wgmma from
+// TMA-filled swizzled tiles; W8 re-read from L2 by each of 15 64-row tiles
+// (123 MB a step) -> 8 128-row tiles (65 MB); the epilogue after each
+// tile's product on the same warps -> still so, and why: the 384-thread
+// block (three warps on each SM sub-partition) gets 168 registers a thread
+// from ptxas whatever setmaxnreg then grants, and a second set of 64
+// accumulators on top of the 64 logits and the 40-register carry spills
+// the set in flight, which serializes the wgmmas (a build with two sets
+// spilled 872 bytes and ran about 2x slower on an H100: PERF.md); 64-column
+// tiles halve the sets but double the select epilogue's fixed work a
+// column (built, and slower on the same card). The ring holds two tiles'
+// stages, so the next tile's loads are issued during the epilogue. What
+// holds it back now: ChunkCarry::select, about 60% of the kernel, most of
+// it the candidate loop (int8_no_topk, int8_no_select in the ablation);
+// then the TMA stream of W8, most of the product's time even with no
+// wgmma (int8_loads_only).
 
-constexpr int kS8Rows = 64;    // a block's rows: four warps x 16
-constexpr int kS8Threads = 128;
-constexpr int kS8Pad = 16;     // bytes after each shared-memory row
+constexpr int kS8Rows = kProjRows;   // two consumer warpgroups x 64 rows
+constexpr int kS8Box = 128;          // bytes of depth in a box and a stage
+constexpr int kS8ATile = kS8Rows * kS8Box;   // 16 KB: one box of rows
+constexpr int kS8BTile = kProjCols * kS8Box;   // 16 KB: one ring stage
+constexpr int kS8MinStages = 4, kS8MaxStages = 8;
+constexpr int kS8Side = 4;   // tiles of (wscale, bq) in the side ring
+constexpr int kS8SideBytes = 2 * kProjCols * 4;   // 1 KB a tile
+// alignment slack (smem_aligned), the side ring, 256 bytes of barriers
+constexpr int kS8Fixed = 1024 + kS8Side * kS8SideBytes + 256;
+constexpr int kS8SmemCap = 232448;   // what an H100 block may opt into
+static_assert(2 * kS8MaxStages + 2 * kS8Side + 1 <= 256 / 8, "barriers");
+
+__host__ __device__ inline int s8_depth_boxes(int H) {
+  return (H + kS8Box - 1) / kS8Box;
+}
+
+// Ring stages at hidden width H: two tiles' worth, at least kS8MinStages
+// and at most kS8MaxStages, as far as kS8SmemCap allows (< kS8MinStages:
+// the kernel does not take H).
+inline int s8_stages(int H) {
+  const int fit =
+      (kS8SmemCap - kS8Fixed - s8_depth_boxes(H) * kS8ATile) / kS8BTile;
+  const int two_tiles = 2 * s8_depth_boxes(H);
+  const int want = two_tiles < kS8MinStages   ? kS8MinStages
+                   : two_tiles > kS8MaxStages ? kS8MaxStages
+                                              : two_tiles;
+  return want < fit ? want : fit;
+}
+
+inline size_t s8_smem(int H) {
+  return kS8Fixed + (size_t)s8_depth_boxes(H) * kS8ATile +
+         (size_t)s8_stages(H) * kS8BTile;
+}
 
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ h, int8_t* __restrict__ h8,
@@ -436,136 +493,210 @@ quantize_kernel(const float* __restrict__ h, int8_t* __restrict__ h8,
   if (lane == 0) hs[row] = scale;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+struct S8Ring {
+  unsigned char* a;   // the block's rows of h8: one 16 KB box a 128 deep
+  unsigned char* b;   // the ring of W8 stages
+  float* side;        // per side slot: wscale[128], then bq[128]
+  uint64_t* bars;     // a_full, full[], empty[], side_full[], side_empty[]
+  int boxes, stages;
+
+  __device__ __forceinline__ uint64_t* a_full() const { return bars; }
+  __device__ __forceinline__ uint64_t* full(int s) const { return bars + 1 + s; }
+  __device__ __forceinline__ uint64_t* empty(int s) const {
+    return bars + 1 + kS8MaxStages + s;
+  }
+  __device__ __forceinline__ uint64_t* side_full(int s) const {
+    return bars + 1 + 2 * kS8MaxStages + s;
+  }
+  __device__ __forceinline__ uint64_t* side_empty(int s) const {
+    return bars + 1 + 2 * kS8MaxStages + kS8Side + s;
+  }
+};
+
+// Lays out the block's shared memory and initialises the barriers; every
+// thread of the block calls it (it ends with a barrier).
+__device__ __forceinline__ S8Ring s8_ring(unsigned char* smem_raw, int H,
+                                          int stages) {
+  S8Ring r;
+  r.boxes = s8_depth_boxes(H);
+  r.stages = stages;
+  r.a = smem_aligned(smem_raw);
+  r.b = r.a + r.boxes * kS8ATile;
+  r.side = reinterpret_cast<float*>(r.b + stages * kS8BTile);
+  r.bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(r.side) + kS8Side * kS8SideBytes);
+  if (threadIdx.x == 0) {
+    mbar_init(r.a_full(), 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(r.full(s), 1);
+      mbar_init(r.empty(s), 8);   // one arrival per consumer warp
+    }
+    for (int s = 0; s < kS8Side; ++s) {
+      mbar_init(r.side_full(s), 1);
+      mbar_init(r.side_empty(s), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return r;
 }
 
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The producer (one thread): rows row0.. of h8 once, then for each vocab
+// tile in [tile0, tile1) its wscale and bq and its H/128 stages of W8.
+__device__ __forceinline__ void s8_produce(const S8Ring& r,
+                                           const CUtensorMap* th,
+                                           const CUtensorMap* tw,
+                                           const CUtensorMap* tws,
+                                           const CUtensorMap* tbq, int row0,
+                                           int tile0, int tile1) {
+  mbar_expect_tx(r.a_full(), r.boxes * kS8ATile);
+  for (int kb = 0; kb < r.boxes; ++kb)
+    tma_load(r.a + kb * kS8ATile, th, kb * kS8Box, row0, r.a_full());
+  int it = 0;
+  for (int tile = tile0, n = 0; tile < tile1; ++tile, ++n) {
+    const int sl = n % kS8Side;
+    if (n >= kS8Side) mbar_wait(r.side_empty(sl), (n / kS8Side - 1) & 1);
+    mbar_expect_tx(r.side_full(sl), kS8SideBytes);
+    float* side = r.side + sl * 2 * kProjCols;
+    tma_load(side, tws, tile * kProjCols, 0, r.side_full(sl));
+    tma_load(side + kProjCols, tbq, tile * kProjCols, 0, r.side_full(sl));
+    for (int kb = 0; kb < r.boxes; ++kb, ++it) {
+      const int s = it % r.stages;
+      if (it >= r.stages) mbar_wait(r.empty(s), (it / r.stages - 1) & 1);
+      mbar_expect_tx(r.full(s), kS8BTile);
+      tma_load(r.b + s * kS8BTile, tw, kb * kS8Box, tile * kProjCols,
+               r.full(s));
+    }
+  }
 }
 
-// d += a . b on one m16n8k32 tile: a 16 x 32 s8 (row), b 32 x 8 s8 (col)
-__device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// A consumer warpgroup's place in the ring: `it` stages issued, `rel`
+// released (stages [rel, it) hold wgmma groups not known to be complete).
+struct S8Pipe {
+  S8Ring r;
+  int wg, it, rel;
+
+  // every stage before `upto` back to the producer (one arrival a warp)
+  __device__ __forceinline__ void release(int upto) {
+    for (; rel < upto; ++rel) {
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) mbar_arrive(r.empty(rel % r.stages));
+    }
+  }
+
+  // stage `it` (depth box kb of its tile): wait until its slot is free of
+  // the stage `stages` back and loaded, then its four k32 wgmmas, one group
+  template <bool First>
+  __device__ __forceinline__ void stage(int (&acc)[kAccRegs], int kb) {
+    if (it - r.stages >= rel) {   // groups after that stage: stages - 1
+      wgmma_wait_upto(r.stages - 1);
+      release(it - r.stages + 1);
+    }
+    const int s = it % r.stages;
+    mbar_wait(r.full(s), (it / r.stages) & 1);
+    const uint32_t a = smem_u32(r.a + kb * kS8ATile + wg * 64 * kS8Box);
+    const uint32_t b = smem_u32(r.b + s * kS8BTile);
+    wgmma_fence();
+    if constexpr (First)
+      wgmma_s8_first(acc, desc_a(a), desc_a(b));
+    else
+      wgmma_s8(acc, desc_a(a), desc_a(b));
+#pragma unroll
+    for (int k = 1; k < kS8Box / 32; ++k)
+      wgmma_s8(acc, desc_a(a + 32 * k), desc_a(b + 32 * k));
+    wgmma_commit();
+    ++it;
+  }
+
+  // a whole tile's product into acc, issued and left in flight
+  __device__ __forceinline__ void issue(int (&acc)[kAccRegs]) {
+    stage<true>(acc, 0);
+    for (int kb = 1; kb < r.boxes; ++kb) stage<false>(acc, kb);
+  }
+
+  // wait for the tile's product and give its stages back
+  __device__ __forceinline__ void finish() {
+    wgmma_wait_upto(0);
+    release(it);
+  }
+};
+
+// The epilogue of tile `tile` (the n-th of the block) in acc: the
+// reference's rounding chain, then the carry's running max, exp-sum and
+// top-K; hsr the thread's two rows' hscale.
+__device__ __forceinline__ void s8_epilogue(int (&acc)[kAccRegs], int tile,
+                                            int n, const S8Ring& ring,
+                                            const float (&hsr)[2],
+                                            ChunkCarry& carry, int Vp) {
+  fence_regs(acc);
+  const int sl = n % kS8Side;
+  mbar_wait(ring.side_full(sl), (n / kS8Side) & 1);
+  const float* sw = ring.side + sl * 2 * kProjCols;
+  // the reference's rounding chain; columns past Vp are never candidates
+  const int col0 = tile * kProjCols + frag_col(0);
+  float x[kAccRegs];
+#pragma unroll
+  for (int j = 0; j < kAccRegs / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = frag_col(j) + e;   // the column in the tile
+      const bool in = tile * kProjCols + c < Vp;
+      const float wsc = sw[c], bqc = sw[kProjCols + c];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 4 * j + 2 * hh + e;
+        x[r] = in ? bf16r(__fadd_rn(
+                        __fmul_rn((float)acc[r], __fmul_rn(hsr[hh], wsc)),
+                        bqc))
+                  : -INFINITY;
+      }
+    }
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(ring.side_empty(sl));
+  carry.select(x, col0);
 }
 
-inline size_t s8_smem(int H) {
-  return (size_t)(kS8Rows + 2 * kProjCols) * (H + kS8Pad);
-}
-
-__global__ void __launch_bounds__(kS8Threads, 1)
-chunk_s8_kernel(const int8_t* __restrict__ h8, const int8_t* __restrict__ w8t,
-                const float* __restrict__ hs, const float* __restrict__ ws,
-                const float* __restrict__ bq, float* __restrict__ cm,
+__global__ void __launch_bounds__(kProjThreads, 1)
+chunk_s8_kernel(const __grid_constant__ CUtensorMap th,
+                const __grid_constant__ CUtensorMap tw,
+                const __grid_constant__ CUtensorMap tws,
+                const __grid_constant__ CUtensorMap tbq,
+                const float* __restrict__ hs, float* __restrict__ cm,
                 float* __restrict__ cs, float* __restrict__ cv,
                 int* __restrict__ ci, int N, int H, int Vp, int K,
-                int n_tiles, int tiles_per_chunk) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = H + kS8Pad, vec = H / 16;
-  unsigned char* sa = smem;
-  unsigned char* sb = smem + kS8Rows * ld;
+                int stages, int n_tiles, int tiles_per_chunk) {
+  extern __shared__ unsigned char smem_raw[];
+  const S8Ring ring = s8_ring(smem_raw, H, stages);
   const int row0 = blockIdx.x * kS8Rows, chunk = blockIdx.y;
   const int tile0 = chunk * tiles_per_chunk;
   const int tile1 = min(tile0 + tiles_per_chunk, n_tiles);
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int v = threadIdx.x; v < kS8Rows * vec; v += kS8Threads) {
-    const int r = v / vec, c = (v % vec) * 16;
-    unsigned char* dst = sa + r * ld + c;
-    if (row0 + r < N)
-      cp_async16(dst, h8 + (size_t)(row0 + r) * H + c);
-    else
-      *reinterpret_cast<uint4*>(dst) = zero;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {   // producer warpgroup
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == 256)
+      s8_produce(ring, &th, &tw, &tws, &tbq, row0, tile0, tile1);
+    return;
   }
-  // W8 rows (vocab columns) tile * 128.. into buffer `buf`; zeros past Vp
-  auto load_tile = [&](int tile, int buf) {
-    unsigned char* base = sb + buf * kProjCols * ld;
-    for (int v = threadIdx.x; v < kProjCols * vec; v += kS8Threads) {
-      const int r = v / vec, c = (v % vec) * 16;
-      const int col = tile * kProjCols + r;
-      unsigned char* dst = base + r * ld + c;
-      if (col < Vp)
-        cp_async16(dst, w8t + (size_t)col * H + c);
-      else
-        *reinterpret_cast<uint4*>(dst) = zero;
-    }
-  };
-  if (tile0 < tile1) load_tile(tile0, 0);
-  cp_async_commit();
-
+  regs_claim<kConsumerRegs>();
   ChunkCarry carry;
   carry.Vp = Vp;
   carry.K = K;
   carry.init();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
   float hsr[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + frag_row(hh);
+    const int row = row0 + wg * 64 + frag_row(hh);
     hsr[hh] = row < N ? hs[row] : 0.f;
   }
-  const unsigned char* a = sa + (warp * 16 + g) * ld + 4 * t;
-  for (int tile = tile0, i = 0; tile < tile1; ++tile, ++i) {
-    if (tile + 1 < tile1) {
-      load_tile(tile + 1, (i + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* b = sb + (i & 1) * kProjCols * ld + g * ld + 4 * t;
-    int acc[kAccRegs];
-#pragma unroll
-    for (int j = 0; j < kAccRegs; ++j) acc[j] = 0;
-    for (int k = 0; k < H; k += 32) {
-      const uint32_t a0 = lds32(a + k), a1 = lds32(a + 8 * ld + k);
-      const uint32_t a2 = lds32(a + k + 16), a3 = lds32(a + 8 * ld + k + 16);
-#pragma unroll
-      for (int n = 0; n < kAccRegs / 4; ++n) {
-        const unsigned char* bp = b + n * 8 * ld + k;
-        mma_s8(acc + 4 * n, a0, a1, a2, a3, lds32(bp), lds32(bp + 16));
-      }
-    }
-    __syncthreads();   // every warp is done with buffer i & 1
-    // the reference's rounding chain; columns past Vp are never candidates
-    const int col0 = tile * kProjCols + frag_col(0);
-    float x[kAccRegs];
-#pragma unroll
-    for (int j = 0; j < kAccRegs / 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = col0 + 8 * j + e;
-        const bool in = col < Vp;
-        const float wsc = in ? ws[col] : 0.f, bqc = in ? bq[col] : 0.f;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = 4 * j + 2 * hh + e;
-          x[r] = in ? bf16r(__fadd_rn(
-                          __fmul_rn((float)acc[r], __fmul_rn(hsr[hh], wsc)),
-                          bqc))
-                    : -INFINITY;
-        }
-      }
-    carry.select(x, col0);
+  S8Pipe p{ring, wg, 0, 0};
+  mbar_wait(ring.a_full(), 0);
+  int acc[kAccRegs];
+  for (int n = 0; n < tile1 - tile0; ++n) {
+    p.issue(acc);
+    p.finish();
+    s8_epilogue(acc, tile0 + n, n, ring, hsr, carry, Vp);
   }
-  carry.flush(row0, N, chunk, gridDim.y, cm, cs, cv, ci);
+  carry.flush(row0 + wg * 64, N, chunk, gridDim.y, cm, cs, cv, ci);
 }
 
 }  // namespace
@@ -613,9 +744,11 @@ extern "C" int vidcap_topk_project(const void* h, const void* w, const void* b,
 // -1e30 past the vocab); scratch h8 [N, H] s8 and hs [N] f32 (the
 // quantized rows and their scales, as the reference computes them), cm/cs
 // [N, n_chunks] f32, cv [N, n_chunks, K] f32, ci [N, n_chunks, K] i32 over
-// 128-column tiles as vidcap_topk_project's; out vals [N, K] f32, idx
-// [N, K] i32. Needs H % 32 == 0, 1 <= K <= min(8, Vp). Returns the
-// cudaError_t of the launches (0 on success).
+// 128-row tiles and 128-column vocab tiles as vidcap_topk_project's; out
+// vals [N, K] f32, idx [N, K] i32. Needs H % 32 == 0 with s8_stages(H) >=
+// kS8MinStages (H <= 1152), 1 <= K <= min(8, Vp), every pointer 16-byte
+// aligned. Returns the cudaError_t of the launches, or kTensorMapError +
+// CUresult if a TMA map cannot be made (0 on success).
 extern "C" int vidcap_topk_project_int8(const void* h, const void* w8t,
                                         const void* ws, const void* bq,
                                         void* h8, void* hs, void* cm, void* cs,
@@ -624,20 +757,31 @@ extern "C" int vidcap_topk_project_int8(const void* h, const void* w8t,
                                         int tiles_per_chunk, int n_chunks,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = allow_max_smem<chunk_s8_kernel>();
+  const int stages = s8_stages(H);
+  if (H % 32 != 0 || stages < kS8MinStages)
+    return (int)cudaErrorInvalidValue;
+  constexpr CUtensorMapDataType kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const uint64_t vec = (Vp + 3) & ~3;   // one row; its stride 16-byte whole
+  CUtensorMap th, tw, tws, tbq;
+  int err = make_tmap(&th, h8, H, N, H, kS8Box, kS8Rows, kU8, 1);
+  if (!err) err = make_tmap(&tw, w8t, H, Vp, H, kS8Box, kProjCols, kU8, 1);
+  if (!err) err = make_tmap(&tws, ws, Vp, 1, vec, kProjCols, 1, kF32, 4);
+  if (!err) err = make_tmap(&tbq, bq, Vp, 1, vec, kProjCols, 1, kF32, 4);
+  if (err) return err;
+  err = allow_max_smem<chunk_s8_kernel>();
   if (err) return err;
   const int rows_per_block = kThreads / 32;
+  const int n_tiles = (Vp + kProjCols - 1) / kProjCols;
   quantize_kernel<<<(N + rows_per_block - 1) / rows_per_block, kThreads, 0,
                     s>>>(static_cast<const float*>(h), static_cast<int8_t*>(h8),
                          static_cast<float*>(hs), N, H);
-  const int n_tiles = (Vp + kProjCols - 1) / kProjCols;
-  chunk_s8_kernel<<<dim3((N + kS8Rows - 1) / kS8Rows, n_chunks), kS8Threads,
-                    s8_smem(H), s>>>(
-      static_cast<const int8_t*>(h8), static_cast<const int8_t*>(w8t),
-      static_cast<const float*>(hs), static_cast<const float*>(ws),
-      static_cast<const float*>(bq), static_cast<float*>(cm),
-      static_cast<float*>(cs), static_cast<float*>(cv), static_cast<int*>(ci),
-      N, H, Vp, K, n_tiles, tiles_per_chunk);
+  chunk_s8_kernel<<<dim3((N + kS8Rows - 1) / kS8Rows, n_chunks),
+                    kProjThreads, s8_smem(H), s>>>(
+      th, tw, tws, tbq, static_cast<const float*>(hs),
+      static_cast<float*>(cm), static_cast<float*>(cs),
+      static_cast<float*>(cv), static_cast<int*>(ci), N, H, Vp, K, stages,
+      n_tiles, tiles_per_chunk);
   merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, kThreads, 0, s>>>(
       static_cast<const float*>(cm), static_cast<const float*>(cs),
       static_cast<const float*>(cv), static_cast<const int*>(ci),

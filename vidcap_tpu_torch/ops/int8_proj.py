@@ -18,10 +18,14 @@ and per-row activation quantization, each step::
     logits = bf16(f32(h8 · W8) * (hscale * wscale) + bq)
 
 The int32 sums are exact. On the card the logits never reach memory: K2's
-int8 variant quantizes the rows, runs the s8 × s8 → s32 product and K2's
-running max, exp-sum and top-K over vocab chunks, and merges the chunks.
-:func:`topk_project_int8` launches it for CUDA tensors and runs
-:func:`int8_topk_project_plain` for CPU tensors; it never falls back.
+int8 variant quantizes the rows, runs the s8 × s8 → s32 product (TMA and
+``wgmma`` on 128-row tiles) and, after each tile's product, the rounding
+chain and K2's running max, exp-sum and top-K over vocab chunks, and
+merges the chunks. :func:`topk_project_int8` launches it for CUDA tensors
+and runs :func:`int8_topk_project_plain` for CPU tensors; it never falls
+back. It takes the hidden widths at which a block's shared memory holds
+a ring of at least MIN_STAGES W8 stages (:func:`s8_stages`, the kernel's
+``s8_stages``): multiples of 32 up to 1,152 on the H100.
 
 Not bit-identical to the bf16 projection: the weight rounding moves logits
 by ~1e-2, which flips most beam captions on random weights and few on
@@ -36,12 +40,38 @@ import torch
 
 from vidcap_tpu_torch.models.decoder import NEG
 from vidcap_tpu_torch.ops import _build
-from vidcap_tpu_torch.ops.limits import topk_project_int8_takes
+from vidcap_tpu_torch.ops.limits import H100_SMEM, topk_project_int8_takes
 from vidcap_tpu_torch.ops.topk_project import (MAX_K, _sm_count,
                                                chunk_layout, logits_topk,
                                                logits_topk_chunked)
 
-TILE_ROWS = 64   # rows per block of the int8 chunk kernel
+TILE_ROWS = 128   # rows per block of the int8 chunk kernel
+# The kernel's shared memory (csrc/topk_project.cu: kS8*, s8_stages,
+# s8_smem): the block's rows of h8 in boxes of DEPTH_BOX bytes of depth
+# (TILE_ROWS x DEPTH_BOX each), a ring of W8 stages of 128 columns x
+# DEPTH_BOX bytes, and FIXED bytes (alignment slack, the wscale/bq side
+# ring of 4 tiles, barriers). The ring holds two tiles' stages,
+# MIN_STAGES..MAX_STAGES, as far as the H100's H100_SMEM (kS8SmemCap)
+# allows; fewer than MIN_STAGES, and the kernel refuses.
+DEPTH_BOX = 128
+STAGE_BYTES = 128 * DEPTH_BOX
+MIN_STAGES, MAX_STAGES = 4, 8
+FIXED = 1024 + 4 * 2 * 128 * 4 + 256
+
+
+def s8_stages(hidden: int) -> int:
+    """The ring's stages at ``hidden`` (the kernel's ``s8_stages``)."""
+    boxes = -(-hidden // DEPTH_BOX)
+    fit = (H100_SMEM - FIXED - boxes * TILE_ROWS * DEPTH_BOX) // STAGE_BYTES
+    return min(min(MAX_STAGES, max(MIN_STAGES, 2 * boxes)), fit)
+
+
+def s8_smem_bytes(hidden: int) -> int:
+    """Dynamic shared memory a block of the kernel needs at ``hidden``
+    (the kernel's ``s8_smem``), with at least MIN_STAGES ring stages."""
+    boxes = -(-hidden // DEPTH_BOX)
+    return (FIXED + boxes * TILE_ROWS * DEPTH_BOX
+            + max(s8_stages(hidden), MIN_STAGES) * STAGE_BYTES)
 
 
 def _div127(x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +101,7 @@ def quantize_out_proj(kernel: torch.Tensor, bias: Optional[torch.Tensor],
 class Int8Projection:
     """The quantized projection in K2-int8's layout: ``w8t`` int8[Vp, H]
     (W8 transposed: each vocab column's H values contiguous, the K-major B
-    operand of ``mma.sync``), ``wscale`` and ``bq`` f32[Vp]."""
+    operand of the s8 ``wgmma``), ``wscale`` and ``bq`` f32[Vp]."""
 
     w8t: torch.Tensor
     wscale: torch.Tensor
@@ -142,7 +172,8 @@ def topk_project_int8(h, proj: Int8Projection, K: int,
                          f"and at most the vocab width {Vp}")
     if not topk_project_int8_takes(K, H, Vp):
         raise ValueError(f"topk_project_int8: hidden width {H} must be a "
-                         "multiple of 32")
+                         "multiple of 32 whose shared memory "
+                         f"({s8_smem_bytes(H)} bytes) fits in a block")
     _build.require("topk_project_int8", (
         (h, "h", torch.float32, (N, H)),
         (proj.w8t, "w8t", torch.int8, (Vp, H)),

@@ -38,9 +38,12 @@ def topk_project_takes(k: int, hidden: int, vocab: int) -> bool:
 
 def topk_project_int8_takes(k: int, hidden: int, vocab: int) -> bool:
     """K2-int8: 1..MAX_K candidates a row, at most the vocab width; the
-    hidden width a multiple of 32 (its rows are not kept in shared
-    memory)."""
-    return 1 <= k <= MAX_K and vocab >= k and hidden % 32 == 0
+    hidden width a multiple of 32 at which the H100's block, with its rows
+    of h8 resident, holds a ring of at least MIN_STAGES W8 stages
+    (``ops/int8_proj.py::s8_stages``, the kernel's formula): up to 1,152."""
+    from vidcap_tpu_torch.ops.int8_proj import MIN_STAGES, s8_stages
+    return (1 <= k <= MAX_K and vocab >= k and hidden % 32 == 0
+            and s8_stages(hidden) >= MIN_STAGES)
 
 
 def rollout_shape_ok(embed: int, hidden: int, attn: int, vocab: int,
