@@ -80,9 +80,15 @@ decoders no kernel covers through their modules, ``info``). Phases:
                                       hidden 1024) and the int8 beam at
                                       hidden 1024 (K1 and K2-int8 once a
                                       step) at B=184
+                                   18 the SCST lift (synthetic_tiny, 40
+                                      XE and 300 SCST captured steps, K3
+                                      2 a SCST step): held-out val CIDEr
+                                      up by more than 0.1
   then the kernels line (one JSON object)
 
-Any failed check exits non-zero. The last line is
+Phase 1 also requires the native host library (``vidcap_tpu_torch/
+native.py``, built with g++), and phase 14 tables counted by it. Any
+failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device
 it exits 2 and prints no result. Imports torch and numpy, never JAX.
 """
@@ -92,6 +98,7 @@ import atexit
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import signal
@@ -105,6 +112,7 @@ import types
 import numpy as np
 import torch
 
+from vidcap_tpu_torch import native
 from vidcap_tpu_torch.config import get_preset
 from vidcap_tpu_torch.convert import save_weights
 from vidcap_tpu_torch.data.loader import CaptionDataset
@@ -2144,6 +2152,10 @@ def phase_dispatch():
     if bank_bytes != BANK_VIDEOS * T * D * 4 + BANK_VIDEOS * \
             cfg.data.num_attributes * 4:
         problems.append(f"bank of {bank_bytes} bytes")
+    out["reward_tables_counter"] = tables.counter
+    if tables.counter != "native":
+        problems.append(f"reward tables counted by the {tables.counter} "
+                        "counter, not the native library")
     if problems or cli_problems:
         fail("phase 14: " + "; ".join(problems + cli_problems) + " | "
              + json.dumps(out))
@@ -3540,6 +3552,44 @@ def phase_sharded(beam_floor: float):
     return out, launched
 
 
+# Phase 18: the SCST lift (scripts/torch_scst_lift.py, the reference's
+# scripts/scst_lift_experiment.py): synthetic_tiny, batch 16, 40 XE steps,
+# 300 SCST steps through the captured steps, greedy val CIDEr on 64
+# held-out videos after each; the reference asserts a lift over 0.1.
+LIFT_XE, LIFT_SCST, LIFT_MIN = 40, 300, 0.1
+
+
+def phase_lift():
+    """The lift on the card: (val CIDEr after XE, after SCST, the last
+    reward_sample, K3's launches: 2 a SCST step plus the two validations'
+    greedy decodes, one a batch), with the launches of the run."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_scst_lift as lift
+    cfg = lift.lift_config(0)
+    val_batches = -(-lift.VAL_VIDEOS // cfg.train.batch_size)
+    t0 = time.perf_counter()
+    # ---- the main path: counts at 0 just before, read just after
+    _build.reset_counts()
+    cider_xe, cider_scst, reward = lift.build(LIFT_XE, LIFT_SCST, seed=0,
+                                              device="cuda")
+    launches = dict(_build.launch_counts)
+    want = counts(rollout=2 * LIFT_SCST + 2 * val_batches)
+    out = dict(val_cider_xe=cider_xe, val_cider_scst=cider_scst,
+               lift=cider_scst - cider_xe, final_reward_sample=reward,
+               launches=launches, launches_expected=want,
+               seconds=time.perf_counter() - t0)
+    problems = []
+    if not cider_scst > cider_xe + LIFT_MIN:
+        problems.append(f"lift {cider_scst - cider_xe} <= {LIFT_MIN}")
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    if not math.isfinite(reward):
+        problems.append(f"reward_sample {reward}")
+    if problems:
+        fail("phase 18: " + "; ".join(problems) + " | " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -3552,6 +3602,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
+    if not native.available():
+        fail("the native host library did not build (g++ is on the CUDA "
+             "toolkit's machines)")
     print(f"phase 1 card: {card} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | kernels "
           f"built in {build_s:.1f} s", flush=True)
@@ -3643,6 +3696,11 @@ def main() -> int:
                   "as (a)", "refused": "rows vs the CPU >= the CPU bf16-vs-"
                   f"f32 witness less {ROW_SLACK}, or phase 4's floor"}}),
           flush=True)
+    lift = phase_lift()
+    print(f"phase 18 the SCST lift, synthetic_tiny B=16, {LIFT_XE} XE and "
+          f"{LIFT_SCST} SCST captured steps, greedy val CIDEr on 64 held-out "
+          f"videos, on {card}: " + json.dumps(
+              {**lift, "bound": f"lift > {LIFT_MIN}"}), flush=True)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]
@@ -3671,7 +3729,8 @@ def main() -> int:
                             in pixels["cli"]["stage_lines"]
                             + pixels["cli"]["resume_stage_lines"])
                       + pixels["cli"]["caption_launches"]["rollout"])
-    k3["launches"] += launched16["rollout"] + launched17["rollout"]
+    k3["launches"] += (launched16["rollout"] + launched17["rollout"]
+                       + lift["launches"]["rollout"])
     k28["launches"] = (launched16["topk_project_int8"]
                        + launched17["topk_project_int8"])
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]

@@ -8,6 +8,8 @@ Tolerance: both rewards are f32 sums of the same products in another order
 that and fails any wrong count, weight or norm (each moves a reward by
 > 1e-3). The host oracles compute in float64.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,24 +129,48 @@ def _canonical(t):
                                             "ref_valid", "num_refs")}
 
 
-def test_tables_equal_jax_tables():
-    """The tables of a random corpus with ref-less videos, and of the
-    synthetic dataset, hold the JAX package's entries, IDF weights, norms,
-    lengths and counts."""
+def _table_pairs(plain: bool):
+    """(port, JAX) tables of a random corpus with ref-less videos, and of
+    the synthetic dataset; the port's counted in Python with ``plain``."""
     from vidcap_tpu.config import get_preset as jax_get_preset
     refs = _random_corpus(np.random.default_rng(4)) + [[], []]
     cfg = get_preset("synthetic_tiny").data
-    pairs = [(build_reward_tables(refs), jax_build_tables(refs)),
-             (tables_from_dataset(CaptionDataset.synthetic(cfg)),
-              jax_tables_from_dataset(JaxDataset.synthetic(
-                  jax_get_preset("synthetic_tiny").data)))]
-    for port, ref in pairs:
+    return [(build_reward_tables(refs, plain=plain), jax_build_tables(refs)),
+            (tables_from_dataset(CaptionDataset.synthetic(cfg), plain=plain),
+             jax_tables_from_dataset(JaxDataset.synthetic(
+                 jax_get_preset("synthetic_tiny").data)))]
+
+
+def test_tables_equal_jax_tables():
+    """The tables of the Python counter hold the JAX package's entries,
+    IDF weights, norms, lengths and counts (in another slot order)."""
+    for port, ref in _table_pairs(plain=True):
+        assert port.counter == "python"
         assert port.log_n == ref.log_n
         (pe, pi, pa), (je, ji, ja) = _canonical(port), _canonical(ref)
         assert pe == je and pi == ji
         for name in pa:   # norms: float64 sums in entry order, then f32
             np.testing.assert_allclose(pa[name], ja[name], rtol=1e-6,
                                        err_msg=name)
+
+
+def test_native_tables_equal_jax_tables_array_for_array():
+    """With both packages on their native counters (the same C++ source),
+    every array equals the JAX package's slot for slot, the norms and
+    the IDF table's probe length included."""
+    from vidcap_tpu import native as jax_native
+    from vidcap_tpu_torch import native
+    if not (native.available() and jax_native.available()):
+        pytest.skip("no g++: a native library cannot be built")
+    for port, ref in _table_pairs(plain=False):
+        assert port.counter == "native"
+        assert (port.log_n, port.num_probes) == (ref.log_n, ref.num_probes)
+        for f in dataclasses.fields(port):
+            a = getattr(port, f.name)
+            if isinstance(a, torch.Tensor):
+                b = np.asarray(getattr(ref, f.name))
+                assert a.shape == b.shape, f.name
+                np.testing.assert_array_equal(a.numpy(), b, err_msg=f.name)
 
 
 @pytest.mark.parametrize("seed,refless", [(0, 0), (1, 0), (2, 0), (7, 3)])

@@ -175,6 +175,28 @@ class CaptionDataset:
     def num_captions(self) -> int:
         return self.tokens.shape[0]
 
+    def batches(self, batch_size: int, seed: int = 0, loop: bool = True
+                ) -> Iterator[Batch]:
+        """Shuffled fixed-size caption batches, in the order of
+        ``vidcap_tpu/data/loader.py``'s ``batches``: one generator of
+        ``seed`` draws every epoch's permutation, and a tail shorter than a
+        batch starts the next epoch (``loop=False``: ends there)."""
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(self.num_captions)
+        pos = 0
+        while True:
+            if pos + batch_size > len(order):
+                if not loop:
+                    return
+                order = rng.permutation(self.num_captions)
+                pos = 0
+            sel = order[pos: pos + batch_size]
+            pos += batch_size
+            vidx = self.caption_video_idx[sel]
+            yield Batch(features=self.features[vidx], tokens=self.tokens[sel],
+                        mask=self.mask[sel], attributes=self.attributes[vidx],
+                        video_idx=vidx)
+
     def video_batches(self, batch_size: int) -> Iterator[Batch]:
         """Deterministic per-video batches for inference/eval; the last batch is
         padded by repeating the final video (callers slice with ``video_idx``)."""

@@ -10,11 +10,15 @@ reward needs then lives in fixed-shape tensors on the device:
     (grams absent from the corpus get the df = 0 weight log N, exactly like
     pycocoevalcap's ``ref_len - log(max(1, df))`` with df missing).
 
-The n-gram entries of a reference are counted in Python here; the JAX
-package may count them in its native extension, in another order. The
-order decides the IDF table's probe lengths: where the JAX package refuses
-a table whose longest probe exceeds the cap, the port doubles the table
-(a lookup's result does not depend on the table's size).
+A reference's n-gram entries are counted by the native host library
+(``native.py``: the port's copy of the JAX package's C++ counter) where it
+is built, so the entry order, the norms and the IDF table's probe lengths
+match the JAX package's slot for slot; without a compiler they are counted
+in Python (:func:`_ref_entries_plain`: the same entries, in another
+order). Where a table's longest probe would exceed the cap, which the JAX
+package refuses, the port doubles the table (a lookup's result does not
+depend on the table's size). ``RewardTables.counter`` says which counter
+built the tables.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from vidcap_tpu_torch import native
 from vidcap_tpu_torch.ops.ngram_hash import host_ngram_key
 
 NGRAMS = 4
@@ -50,6 +55,7 @@ class RewardTables:
     idf_val: torch.Tensor       # f32[S]
     log_n: float                # log(videos with references): idf on a miss
     num_probes: int             # linear-probe length used at build time
+    counter: str = "python"     # what counted the n-grams: native | python
 
     def to(self, device) -> "RewardTables":
         return dataclasses.replace(self, **{
@@ -58,8 +64,9 @@ class RewardTables:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def _ref_entries(tokens: Sequence[int]):
-    """Unique n-gram entries (lo, hi, tf, order) of one reference."""
+def _ref_entries_plain(tokens: Sequence[int]):
+    """Unique n-gram entries (lo, hi, tf, order) of one reference, counted
+    in Python."""
     entries = []
     for n in range(1, NGRAMS + 1):
         counter = Counter(tuple(tokens[i: i + n])
@@ -68,6 +75,13 @@ def _ref_entries(tokens: Sequence[int]):
             lo, hi = host_ngram_key(gram, n)
             entries.append((lo, hi, float(tf), n))
     return entries
+
+
+def _ref_entries(tokens: Sequence[int]):
+    """The entries of :func:`_ref_entries_plain`, counted by the native
+    library (which must be available), in its order."""
+    lo, hi, tf, order = native.ref_ngrams(tokens, NGRAMS)
+    return list(zip(lo.tolist(), hi.tolist(), tf.tolist(), order.tolist()))
 
 
 def _open_addressing(keys, weight, log_n: float, S: int, max_probes: int):
@@ -95,10 +109,13 @@ def _open_addressing(keys, weight, log_n: float, S: int, max_probes: int):
 
 
 def build_reward_tables(refs_per_video: List[List[Sequence[int]]],
-                        max_probes: int = 16) -> RewardTables:
+                        max_probes: int = 16, plain: bool = False
+                        ) -> RewardTables:
     """refs_per_video[v]: the tokenized references of video v (id lists
-    without <bos>/<eos>/<pad>), in the dataset's video order. Returns CPU
-    tensors; move them with :meth:`RewardTables.to`."""
+    without <bos>/<eos>/<pad>), in the dataset's video order. The n-grams
+    are counted by the native library where it is available, in Python
+    with ``plain`` or without it. Returns CPU tensors; move them with
+    :meth:`RewardTables.to`."""
     V = len(refs_per_video)
     # the IDF document count is the videos that carry references: ref-less
     # rows are feature-alignment placeholders, not corpus documents, and the
@@ -106,8 +123,9 @@ def build_reward_tables(refs_per_video: List[List[Sequence[int]]],
     n_docs = sum(1 for r in refs_per_video if r)
     log_n = math.log(max(n_docs, 1))
 
-    per_video_entries = [[_ref_entries(r) for r in refs]
-                         for refs in refs_per_video]
+    counter = "python" if plain or not native.available() else "native"
+    count = _ref_entries if counter == "native" else _ref_entries_plain
+    per_video_entries = [[count(r) for r in refs] for refs in refs_per_video]
 
     # corpus document frequency over each video's reference set of keys
     df: Dict[tuple, int] = defaultdict(int)
@@ -175,14 +193,15 @@ def build_reward_tables(refs_per_video: List[List[Sequence[int]]],
         ref_idf=t(idf), ref_order=t(order), ref_norm=t(norm),
         ref_len=t(rlen), ref_valid=t(valid), num_refs=t(nrefs),
         idf_key_lo=t(t_lo), idf_key_hi=t(t_hi), idf_val=t(t_val),
-        log_n=log_n, num_probes=probes_needed)
+        log_n=log_n, num_probes=probes_needed, counter=counter)
 
 
-def tables_from_dataset(dataset) -> RewardTables:
+def tables_from_dataset(dataset, plain: bool = False) -> RewardTables:
     """Tables of a CaptionDataset: the references are its tokenized
-    captions (specials stripped), grouped by video in ``video_ids`` order."""
+    captions (specials stripped), grouped by video in ``video_ids`` order
+    (``plain``: as :func:`build_reward_tables`)."""
     refs: List[List[List[int]]] = [[] for _ in dataset.video_ids]
     for row, vidx in zip(dataset.tokens, dataset.caption_video_idx):
         ids = [int(t) for t in row if t >= 3]  # strip PAD/BOS/EOS, keep <unk>
         refs[int(vidx)].append(ids)
-    return build_reward_tables(refs)
+    return build_reward_tables(refs, plain=plain)

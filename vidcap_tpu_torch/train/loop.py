@@ -151,7 +151,8 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
     ``num_steps`` (default ``cfg.train.num_steps``; counts are cumulative
     over stages); returns the final TrainState. Ends with one stderr line:
     the stage, the steps run, the device, K3's W_out mode (SCST) and the
-    kernel launches of this call, validation's included.
+    kernel launches of this call, validation's included. SCST first prints
+    the reward tables' build seconds and which counter built them.
 
     Every ``cfg.train.eval_every`` steps the val split (``val_dataset``, or
     without one the first 200 videos of ``dataset``) is decoded and scored,
@@ -197,6 +198,10 @@ def train(cfg: Config, dataset: Optional[CaptionDataset] = None,
         body = make_xe_step_body(cfg)
     elif t.stage == "scst":
         body = make_scst_step_body(cfg, dataset)
+        if lead:
+            print(f"[vidcap] scst: reward tables of {dataset.num_videos} "
+                  f"videos built in {body.tables_seconds:.2f} s by the "
+                  f"{body.tables.counter} counter", file=sys.stderr)
     else:
         raise ValueError(f"unknown stage {t.stage!r}")
     # feature-mode inputs only (pixel datasets are too large to bank)

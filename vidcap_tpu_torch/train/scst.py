@@ -34,6 +34,7 @@ package's ``accum_grads``.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -78,6 +79,8 @@ class ScstStep:
         self.dp = ONE_RANK
         # K3's W_out mode in the last step's rollouts (ops/rollout.py)
         self.rollout_resident: Optional[bool] = None
+        # host seconds make_scst_step_body took to build the tables
+        self.tables_seconds: Optional[float] = None
 
     def _tables(self, device) -> RewardTables:
         if self.tables.ref_tf.device != device:
@@ -280,9 +283,14 @@ class ScstStep:
 def make_scst_step_body(cfg: Config, dataset=None,
                         tables: Optional[RewardTables] = None) -> ScstStep:
     """The SCST step; the reward tables come from ``dataset`` (built on the
-    host once) unless given."""
+    host once, timed in ``tables_seconds``) unless given."""
+    seconds = None
     if tables is None:
         if dataset is None:
             raise ValueError("make_scst_step_body needs a dataset or tables")
+        t0 = time.perf_counter()
         tables = tables_from_dataset(dataset)
-    return ScstStep(cfg, tables)
+        seconds = time.perf_counter() - t0
+    step = ScstStep(cfg, tables)
+    step.tables_seconds = seconds
+    return step
