@@ -1,0 +1,11 @@
+"""Trainer: the device's busy time (the union of its activity, less the
+loader's host-to-device copies) in the traced slice from each of the two
+``vidcap_phase_loss`` marks (the re-score after the rollouts; the PG
+loss, XE anchor and BCE after the reward) to the next mark, over the
+whole steps in the slice, in ms a step
+(``benchmark/inside.py::phase_seconds``)."""
+from benchmark import inside
+
+
+def read(r):
+    return inside.phase_ms(r, "loss")

@@ -451,11 +451,14 @@ def http_script(cfg, make, captioner, root):
     return got, {k: stats[k] for k in ("served", "rejected")}, sorted(stats)
 
 
+PORT_STATS = {"flushes", "rows_decoded", "rows_padded", "queue_wait_p50_ms"}
+
+
 def test_http_captions_and_status_codes_identical_to_jax(tmp_path, cfg,
                                                         jax_side, cap):
     """The same POSTs and GETs to the JAX server and to the port's: the
     same captions and the same 200, 400, 403, 404, 413 and 429, and the
-    same /stats keys and counts."""
+    same /stats counts and keys, the port's batcher counters besides."""
     jcfg, jcap = jax_side
     root = tmp_path / "safe"
     root.mkdir()
@@ -466,7 +469,9 @@ def test_http_captions_and_status_codes_identical_to_jax(tmp_path, cfg,
         jcfg, c, **kw), jcap, root)
     got = http_script(cfg, lambda c, **kw: make_http_server(cfg, c, **kw),
                       cap, root)
-    assert got == want
+    assert got[:2] == want[:2]
+    # the port's /stats adds the batcher's counters to the JAX server's keys
+    assert set(got[2]) == set(want[2]) | PORT_STATS
     statuses = [s for s, _ in got[0]]
     assert statuses == [200] * 4 + [403, 400, 400, 413, 404, 404, 429,
                                     200, 200]
@@ -616,6 +621,63 @@ def test_batching_captioner_drains_queued_requests_past_the_deadline(cfg,
         assert not t.is_alive()
     assert stub.calls == 2 and svc.stats()["served"] == 4
     svc.close()
+
+
+def test_batching_captioner_counts_flushes_padding_and_queue_wait(cfg, cap):
+    """Two flushes at batch 4: one request while the batcher waits, then
+    three that queue behind its held decode. ``rows_decoded`` counts the
+    batch rows decoded, ``rows_padded`` the part of them that padded a
+    partial batch; the three queued requests' wait covers the hold."""
+    stub = StubCaptioner(cap.dataset)
+    gate = Gate(stub)
+    svc = BatchingCaptioner(cfg, gate, batch_size=4, max_wait_ms=1.0)
+    assert svc.stats()["queue_wait_p50_ms"] is None
+    feats = np.zeros((cfg.data.num_frames, cfg.data.feature_dim), np.float32)
+    gate.release.clear()
+    threads = [threading.Thread(target=svc.submit, args=(feats, 30.0))]
+    threads[0].start()
+    assert gate.entered.wait(30)
+    threads += [threading.Thread(target=svc.submit, args=(feats, 30.0))
+                for _ in range(3)]
+    for t in threads[1:]:
+        t.start()
+    deadline = time.time() + 30
+    while svc._q.qsize() < 3 and time.time() < deadline:
+        time.sleep(0.005)
+    time.sleep(0.2)
+    gate.release.set()
+    for t in threads:
+        t.join(30)
+        assert not t.is_alive()
+    stats = svc.stats()
+    svc.close()
+    assert stub.calls == 2 and stats["served"] == 4
+    assert (stats["flushes"], stats["rows_decoded"],
+            stats["rows_padded"]) == (2, 8, 4)
+    # the median of four waits is a queued request's, held >= 200 ms
+    assert stats["queue_wait_p50_ms"] >= 100
+    assert svc._latencies_ms.maxlen == svc._queue_wait_ms.maxlen == 10_000
+
+
+def test_batching_captioner_flush_is_a_span(cfg, cap):
+    """While tracing is on each flush is a ``batcher.flush`` span, ``id``
+    the flush's number, on the batcher's thread."""
+    from vidcap_tpu_torch.utils import profiling
+    profiling.clear()
+    svc = BatchingCaptioner(cfg, StubCaptioner(cap.dataset), batch_size=2,
+                            max_wait_ms=1.0)
+    feats = np.zeros((cfg.data.num_frames, cfg.data.feature_dim), np.float32)
+    try:
+        with profiling.recording():
+            for _ in range(3):
+                svc.submit(feats, timeout=30.0)
+    finally:
+        svc.close()
+    flushes = [s for s in profiling.spans() if s.name == "batcher.flush"]
+    profiling.clear()
+    assert [s.id for s in flushes] == [0, 1, 2]
+    assert {s.thread for s in flushes} == {svc._thread.ident}
+    assert svc.stats()["rows_padded"] == 3
 
 
 def test_http_hardening(tmp_path, cfg, cap):

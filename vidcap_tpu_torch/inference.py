@@ -48,6 +48,7 @@ from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
                                           resident_mode)
 from vidcap_tpu_torch.parallel import sharding
+from vidcap_tpu_torch.utils import profiling
 
 
 class NoDeviceError(RuntimeError):
@@ -206,7 +207,12 @@ class Captioner:
                      seed: Optional[int] = None,
                      frame_mask: Optional[np.ndarray] = None,
                      nbest: int = 1) -> np.ndarray:
-        """:meth:`decode_batch` on this process's device alone."""
+        """:meth:`decode_batch` on this process's device alone. While
+        tracing is on (``utils/profiling.py``) it records the spans
+        ``captioner.decode`` around the call, ``captioner.upload`` (features
+        and mask to the device) and ``captioner.download`` (the tokens to
+        the host), each with the call's number (:attr:`decode_calls`
+        before it) as ``id``."""
         if method not in ("greedy", "sample", "beam"):
             raise ValueError(f"unknown decode method {method!r}")
         if nbest > 1 and method != "beam":
@@ -214,11 +220,25 @@ class Captioner:
                              "(greedy/sample decode one hypothesis)")
         if frame_mask is None:
             frame_mask = np.ones(feats.shape[:2], np.float32)
-        f = (feats.to(self.device, torch.float32) if torch.is_tensor(feats)
-             else torch.as_tensor(np.asarray(feats, np.float32),
-                                  device=self.device))
-        m = torch.as_tensor(np.asarray(frame_mask, np.float32),
-                            device=self.device)
+        call = self.decode_calls
+        with profiling.annotate("captioner.decode", call):
+            with profiling.annotate("captioner.upload", call):
+                f = (feats.to(self.device, torch.float32)
+                     if torch.is_tensor(feats)
+                     else torch.as_tensor(np.asarray(feats, np.float32),
+                                          device=self.device))
+                m = torch.as_tensor(np.asarray(frame_mask, np.float32),
+                                    device=self.device)
+            toks = self._decode(f, m, method, beam_width, temperature, seed,
+                                nbest)
+            with profiling.annotate("captioner.download", call):
+                return toks.cpu().numpy()
+
+    def _decode(self, f: torch.Tensor, m: torch.Tensor, method: str,
+                beam_width: int, temperature: float, seed: Optional[int],
+                nbest: int) -> torch.Tensor:
+        """The decode of features ``f`` and mask ``m`` on the device: the
+        token ids, still on the device."""
         if method == "beam":
             return self._beam(f, m, beam_width, nbest)
         sample = method == "sample"
@@ -237,7 +257,7 @@ class Captioner:
                           resident_wout=self.rollout_resident)
         self.decode_calls += 1
         self.decode_steps += self.max_len
-        return r.tokens.cpu().numpy()
+        return r.tokens
 
     def _counted(self, step):
         def counted_step(st, tok):
@@ -246,7 +266,8 @@ class Captioner:
         return counted_step
 
     def _module_rollout(self, f: torch.Tensor, m: torch.Tensor, sample: bool,
-                        seed: torch.Tensor, temperature: float) -> np.ndarray:
+                        seed: torch.Tensor, temperature: float
+                        ) -> torch.Tensor:
         """Greedy or sampled decode of a decoder no kernel covers: the
         loops of ``models/decoding.py`` over ``CaptionDecoder.step`` (the
         JAX package's XLA path); the sampled noise is K3's counter hash."""
@@ -261,7 +282,7 @@ class Captioner:
                               early_exit=self.cfg.decode.early_exit,
                               with_logp=False)
         self.decode_calls += 1
-        return r.tokens.cpu().numpy()
+        return r.tokens
 
     def _k3_takes(self, method: str, frames: int) -> bool:
         """Whether greedy/sampled decode of ``frames`` frames runs on K3
@@ -309,7 +330,7 @@ class Captioner:
                           frame_mask=np.ones((batch_size, T), np.float32))
 
     def _beam(self, f: torch.Tensor, m: torch.Tensor, beam_width: int,
-              nbest: int) -> np.ndarray:
+              nbest: int) -> torch.Tensor:
         d = self.cfg.decode
         K = beam_width
         if not 1 <= nbest <= K:
@@ -342,8 +363,7 @@ class Captioner:
             beam_width=K, length_penalty=d.length_penalty,
             early_exit=d.early_exit, return_all=nbest > 1)
         self.decode_calls += 1
-        toks = toks[:, :nbest] if nbest > 1 else toks
-        return toks.cpu().numpy()
+        return toks[:, :nbest] if nbest > 1 else toks
 
     def caption_dataset(self, method: str = "beam", beam_width: int = 5,
                         temperature: float = 1.0, batch_size: int = 32,

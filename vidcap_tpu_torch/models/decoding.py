@@ -26,6 +26,10 @@ logits step (``model.step``), as in the JAX package. Serving does not use
 them for the decoder K3 runs: ``Captioner`` runs its greedy and sampled
 decode through K3 (``ops/rollout.py::model_rollout``), and every other
 decoder's through these loops over ``CaptionDecoder.step``.
+
+With early exit, each loop reads its finish test on the host once a step,
+inside a ``beam.exit_check`` span (``utils/profiling.py``; ``id`` the
+step): the count of those spans is the count of host reads.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from vidcap_tpu_torch.ops.limits import (H100_SMEM, H100_SMS,
 from vidcap_tpu_torch.ops.rollout import device_limits, gumbel_noise
 from vidcap_tpu_torch.ops.topk_project import (  # noqa: F401 (re-export)
     MAX_K, logits_topk, masked_logits, per_row_topk_iterative, topk_project)
+from vidcap_tpu_torch.utils import profiling
 
 # step(state, prev_tok i64[B·K]) → (state, logp f32[B·K, n], idx i32[B·K, n])
 # with n = K (beam_decode) or K + 1 (beam_decode_pool) candidates a row
@@ -81,7 +86,7 @@ def _rollout(step_fn: LogitsStep, state, batch: int, max_len: int,
     prev = torch.full((batch,), BOS, dtype=torch.long, device=dev)
     finished = torch.zeros(batch, dtype=torch.bool, device=dev)
     for t in range(max_len):
-        if early_exit and bool(finished.all()):
+        if early_exit and _exit_check(finished.all(), t):
             break
         state, logits = step_fn(state, prev)
         tok, logp = select_fn(logits, t)
@@ -92,6 +97,13 @@ def _rollout(step_fn: LogitsStep, state, batch: int, max_len: int,
         finished = finished | (tok == EOS)
         prev = tok
     return Rollout(tokens=toks, logp=logps, mask=masks)
+
+
+def _exit_check(flag: torch.Tensor, t: int) -> bool:
+    """The decode loops' one host read a step, of the device flag of their
+    finish test at step ``t``, in a ``beam.exit_check`` span."""
+    with profiling.annotate("beam.exit_check", t):
+        return bool(flag)
 
 
 def _picked_logp(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
@@ -208,7 +220,7 @@ def beam_decode(step_fn: BeamStep, state: DecoderState, batch: int,
     finished = torch.zeros(B, K, dtype=torch.bool, device=dev)
     prev_tok = torch.full((B * K,), BOS, dtype=torch.long, device=dev)
     for t in range(max_len):
-        if early_exit and bool(finished.all()):
+        if early_exit and _exit_check(finished.all(), t):
             break
         state, logp_k, idx_k = step_fn(state, prev_tok)
         logp_k = logp_k.reshape(B, K, K)
@@ -284,7 +296,8 @@ def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
             # an alive beam's raw logp only falls and is ≤ 0, so its best
             # reachable score divides by the largest factor
             best_possible = alive_logp.max(-1).values / best_factor
-            if not bool((best_possible > fin_logp.min(-1).values).any()):
+            if not _exit_check(
+                    (best_possible > fin_logp.min(-1).values).any(), t):
                 break
         state, logp_k, idx_k = step_fn(state, prev_tok)
         logp_k = logp_k.reshape(B, K, C)

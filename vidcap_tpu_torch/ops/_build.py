@@ -12,7 +12,9 @@ Nothing here runs at import: the CPU-only test environment has no ``nvcc``.
 :func:`build_all` starts one ``nvcc`` per source, all at once. A kernel's
 source is ``csrc/<name>.cu`` unless :data:`SOURCES` names another: K2's int8
 variant ``topk_project_int8`` lives in ``topk_project.cu`` beside K2 and has
-its own entry point and launch count.
+its own entry point and launch count. :data:`MARKS`, the training step's
+phase marks (``utils/profiling.py::phase``), is built and loaded the same
+way and counts no launches.
 
 The launch counts are process-wide on purpose: a run reads them to show that
 its decode went through the kernels. Each wrapper counts a launch with
@@ -41,6 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("beam_core", "topk_project", "topk_project_int8", "rollout")
 SOURCES = {"topk_project_int8": "topk_project"}   # kernel → its csrc/*.cu
+MARKS = "phase_marks"    # csrc/phase_marks.cu: empty kernels, not counted
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 launches_by_k: Dict[Tuple[str, int], int] = {}   # (kernel, K) → launches
@@ -125,9 +128,9 @@ def _start(name: str):
                                      stderr=subprocess.STDOUT, text=True)
 
 
-def build_all(names: Iterable[str] = KERNELS) -> None:
+def build_all(names: Iterable[str] = KERNELS + (MARKS,)) -> None:
     """Compile every named kernel that is not built yet, in parallel (one
-    nvcc a source)."""
+    nvcc a source); by default every kernel and the phase marks."""
     sources = dict.fromkeys(_source(n) for n in names)
     jobs = [(n, j) for n in sources if (j := _start(n)) is not None]
     errors = []

@@ -60,11 +60,14 @@ import numpy as np
 
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.data.frames import VIDEO_EXTS as _VIDEO_EXTS
+from vidcap_tpu_torch.utils import profiling
 
 _EOF = object()
 
 # long-lived servers: percentiles over the most recent window of latencies
 _LATENCY_WINDOW = 65_536
+# the HTTP batcher's /stats percentiles: over its last 10,000 requests
+_STATS_WINDOW = 10_000
 
 
 class ServerOverloaded(RuntimeError):
@@ -296,7 +299,16 @@ class BatchingCaptioner:
     ``batch_size`` (what is queued, and what arrives within ``max_wait_ms``
     of the oldest request), decode on ONE batcher thread, and each caller
     blocks until its caption is ready. The card only ever sees full
-    fixed-shape batches."""
+    fixed-shape batches.
+
+    :meth:`stats` (``/stats``) reports, besides the served and refused
+    counts, ``flushes`` (batches decoded), ``rows_decoded`` (the batch
+    rows the card decoded, ``batch_size`` a flush whose decode returned)
+    and ``rows_padded`` (the part of them that filled a partial batch),
+    and ``queue_wait_p50_ms`` (a request's arrival to its flush's start).
+    Its percentiles cover the last 10,000 requests. Each flush is a
+    ``batcher.flush`` span (``utils/profiling.py``; ``id`` the flush's
+    number) while tracing is on."""
 
     def __init__(self, cfg: Config, captioner, batch_size: int = 32,
                  method: str = "greedy", beam_width: int = 5,
@@ -317,9 +329,13 @@ class BatchingCaptioner:
                              "(0 would disable overload protection)")
         self.max_queue = max_queue if max_queue is not None else 4 * batch_size
         self._q: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
-        self._latencies_ms = collections.deque(maxlen=_LATENCY_WINDOW)
+        self._latencies_ms = collections.deque(maxlen=_STATS_WINDOW)
+        self._queue_wait_ms = collections.deque(maxlen=_STATS_WINDOW)
         self._served = 0
         self._rejected = 0
+        self._flushes = 0
+        self._rows_decoded = 0
+        self._rows_padded = 0
         self._closed = False
         self._lock = threading.Lock()
         self._loader = _FeatureLoader(cfg, getattr(captioner, "device",
@@ -402,37 +418,57 @@ class BatchingCaptioner:
                     items.append(nxt)
             if not items:
                 continue
+            start = time.perf_counter()
+            with self._lock:
+                flush = self._flushes
+                self._flushes += 1
+                self._queue_wait_ms.extend((start - it["t"]) * 1e3
+                                           for it in items)
+            with profiling.annotate("batcher.flush", flush):
+                self._flush(items, vocab)
 
-            batch, mask = _pad_batch(self.cfg, [it["feats"] for it in items],
-                                     self.batch_size)
-            try:
-                toks = self.captioner.decode_batch(
-                    batch, method=self.method, beam_width=self.beam_width,
-                    frame_mask=mask)
-                done = time.perf_counter()
-                with self._lock:
-                    for i, it in enumerate(items):
-                        it["caption"] = vocab.decode_str(toks[i])
-                        self._latencies_ms.append((done - it["t"]) * 1e3)
-                    self._served += len(items)
-            except BaseException as e:   # deliver the failure to every caller
-                for it in items:
-                    it["error"] = e
-            finally:
-                for it in items:
-                    it["event"].set()
+    def _flush(self, items: list, vocab) -> None:
+        """Decode one batch of requests and answer each caller."""
+        batch, mask = _pad_batch(self.cfg, [it["feats"] for it in items],
+                                 self.batch_size)
+        try:
+            toks = self.captioner.decode_batch(
+                batch, method=self.method, beam_width=self.beam_width,
+                frame_mask=mask)
+            done = time.perf_counter()
+            with self._lock:
+                for i, it in enumerate(items):
+                    it["caption"] = vocab.decode_str(toks[i])
+                    self._latencies_ms.append((done - it["t"]) * 1e3)
+                self._served += len(items)
+                self._rows_decoded += self.batch_size
+                self._rows_padded += self.batch_size - len(items)
+        except BaseException as e:   # deliver the failure to every caller
+            for it in items:
+                it["error"] = e
+        finally:
+            for it in items:
+                it["event"].set()
 
     def stats(self):
+        """The counters above; ``p50_ms``/``p99_ms`` (arrival to caption)
+        and ``queue_wait_p50_ms`` over the last 10,000 requests, None
+        before the first."""
+        def pct(window, q):
+            return (round(float(np.percentile(np.asarray(window), q)), 1)
+                    if window else None)
+
         with self._lock:
-            lat = np.asarray(self._latencies_ms)
             return {
                 "served": self._served,
                 "rejected": self._rejected,
                 "queue_depth": self._q.qsize(),
-                "p50_ms": round(float(np.percentile(lat, 50)), 1) if lat.size
-                else None,
-                "p99_ms": round(float(np.percentile(lat, 99)), 1) if lat.size
-                else None,
+                "p50_ms": pct(self._latencies_ms, 50),
+                "p99_ms": pct(self._latencies_ms, 99),
+                "flushes": self._flushes,
+                "rows_decoded": self._rows_decoded,
+                "rows_padded": self._rows_padded,
+                "queue_wait_p50_ms": pct(self._queue_wait_ms, 50),
             }
 
     def close(self) -> None:

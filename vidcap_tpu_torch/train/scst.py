@@ -58,6 +58,7 @@ from vidcap_tpu_torch.train.steps import (Batch, Grads, Metrics,
                                           add_grads, apply_grads, apply_loss,
                                           draw_seeds, grads_of,
                                           micro_batches)
+from vidcap_tpu_torch.utils import profiling
 
 
 class ScstStep:
@@ -165,8 +166,11 @@ class ScstStep:
                           sample.tokens, vocab)
         rescored = Rollout(tokens=sample.tokens, logp=logp * sample.mask,
                            mask=sample.mask)
-        r_s, r_g = rewards if rewards is not None else self.rewards(
-            batch, sample, greedy)
+        if rewards is None:
+            profiling.phase("reward", sample.tokens)
+            rewards = self.rewards(batch, sample, greedy)
+            profiling.phase("loss", sample.tokens)
+        r_s, r_g = rewards
         pg, metrics = scst_loss(rescored, r_s, r_g, dp)
         xe = ntok = bce = None
         if t.scst_xe_mix > 0:
@@ -231,9 +235,11 @@ class ScstStep:
         grads, loss, xe_num, bce_sum, m_sum = None, 0.0, 0.0, 0.0, None
         for m, mb in enumerate(micro_batches(batch, K)):
             # one encode a microbatch: the rollouts' view and the loss's
+            profiling.phase("rollout", mb["features"])
             feats = state.model.encode_features(mb["features"])
             sample, greedy = self.rollouts(state, mb, batch["seed"][m],
                                            feats=feats)
+            profiling.phase("loss", sample.tokens)
             pg, xe, ntok, bce, metrics = self.pieces(state.model, mb,
                                                      sample, greedy,
                                                      feats=feats)
@@ -262,11 +268,17 @@ class ScstStep:
     def body(self, state: TrainState, batch: Batch
              ) -> Tuple[TrainState, Metrics]:
         """One step on a batch that brings its seeds (``batch["seed"]``,
-        int64[grad_accum])."""
+        int64[grad_accum]). Its phase marks (``utils/profiling.py::
+        phase``), a microbatch's repeated for each: rollout, loss after the
+        rollouts, reward, loss after the reward, backward; then update and
+        end."""
         if self.accum == 1:
+            profiling.phase("rollout", batch["features"])
             feats = state.model.encode_features(batch["features"])
-            return self.update(state, batch, *self.rollouts(
-                state, batch, batch["seed"][0], feats=feats), feats=feats)
+            sample, greedy = self.rollouts(state, batch, batch["seed"][0],
+                                           feats=feats)
+            profiling.phase("loss", sample.tokens)
+            return self.update(state, batch, sample, greedy, feats=feats)
         return apply_grads(state, *self.accum_grads(state, batch),
                            dp=self.dp)
 

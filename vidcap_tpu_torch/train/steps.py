@@ -34,6 +34,7 @@ from vidcap_tpu_torch.objectives.xe import masked_xe_loss, shift_right
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.parallel.mesh import ONE_RANK
 from vidcap_tpu_torch.train.state import TrainState
+from vidcap_tpu_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -43,7 +44,8 @@ Grads = Dict[str, torch.Tensor]
 
 def grads_of(state: TrainState, loss: torch.Tensor) -> Grads:
     """d loss / d parameters by autograd (zeros for parameters it does not
-    reach, as JAX gives)."""
+    reach, as JAX gives), after the ``backward`` phase mark."""
+    profiling.phase("backward", loss)
     params = state.params
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
@@ -56,11 +58,16 @@ def apply_grads(state: TrainState, grads: Grads, metrics: Metrics,
     """``grad_norm`` before the clip, then the update. ``dp``
     (parallel/sharding.py::DataParallel on a mesh): ``grads`` and
     ``metrics`` are this rank's shares, summed over the data axis here (the
-    gradients in one all-reduce) before the norm and the update."""
+    gradients in one all-reduce) before the norm and the update. The
+    ``update`` phase mark comes first, the ``end`` mark last."""
+    like = next(iter(grads.values()))
+    profiling.phase("update", like)
     grads = dp.reduce_grads(grads)
     metrics = dp.reduce_metrics({k: v.detach() for k, v in metrics.items()})
     metrics["grad_norm"] = norm = dp.global_norm(grads)
-    return state.apply_gradients(grads, norm), metrics
+    state = state.apply_gradients(grads, norm)
+    profiling.phase("end", like)
+    return state, metrics
 
 
 def apply_loss(state: TrainState, loss: torch.Tensor, metrics: Metrics,
@@ -326,24 +333,38 @@ class _Dispatch:
               for j in range(self.k)]
         return {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
 
-    def __call__(self, state: TrainState, batch: Batch
-                 ) -> Tuple[TrainState, Metrics]:
+    def _inputs(self, state: TrainState, batch: Batch) -> Batch:
+        """The batch with its seeds, on the device: on the card the static
+        tensors the graph reads, refilled."""
         batch = {key: torch.as_tensor(v) for key, v in batch.items()}
         if self.seeds and "seed" not in batch:
             s = draw_seeds(state, self.k * self.seeds)
             batch["seed"] = s.view(self.k, self.seeds) if self.k > 1 else s
         if self.device.type != "cuda":
-            return state, self._run(state, {key: v.to(self.device)
-                                            for key, v in batch.items()})
+            return {key: v.to(self.device) for key, v in batch.items()}
         if self.static is None:
             self.static = {key: torch.empty(v.shape, dtype=v.dtype,
                                             device=self.device)
                            for key, v in batch.items()}
         for key, v in batch.items():
             self.static[key].copy_(v, non_blocking=True)
+        return self.static
+
+    def __call__(self, state: TrainState, batch: Batch
+                 ) -> Tuple[TrainState, Metrics]:
+        """While tracing is on, the spans ``dispatch.inputs`` (the seeds
+        and the copies into the static batch) and ``dispatch.replay`` (the
+        graph's replay, on the CPU the body), ``id`` the state's step."""
+        step = state.step
+        with profiling.annotate("dispatch.inputs", step):
+            batch = self._inputs(state, batch)
+        if self.device.type != "cuda":
+            with profiling.annotate("dispatch.replay", step):
+                return state, self._run(state, batch)
         if self.graph is None:
-            self.graph = Captured(self._run, state, self.static, self.k)
-        return state, self.graph.replay(state)
+            self.graph = Captured(self._run, state, batch, self.k)
+        with profiling.annotate("dispatch.replay", step):
+            return state, self.graph.replay(state)
 
 
 def make_step(body: StepFn, device) -> StepFn:

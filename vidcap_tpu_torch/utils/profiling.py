@@ -1,5 +1,6 @@
 """Tracing and profiling hooks, the counterparts of
-``vidcap_tpu/utils/profiling.py``'s four names.
+``vidcap_tpu/utils/profiling.py``'s four names, and the port's own spans
+and phase marks.
 
 ``trace`` records a ``torch.profiler`` trace (CPU, and CUDA where a card is
 visible) of the enclosed region, which TensorBoard's profiler plugin and
@@ -9,9 +10,34 @@ through an NVTX range on a CUDA device); ``start_server`` stands in for
 local HTTP endpoint that records the next N ms of the process on request;
 ``enable_nan_debugging`` is ``jax_debug_nans``: the first operation whose
 floating-point output holds a NaN raises.
+
+Spans. ``annotate(name, id)`` also records a :class:`Span` in a bounded
+in-memory store (:data:`MAX_SPANS`, the oldest dropped first), read with
+:func:`spans` and emptied with :func:`clear`. It records only while
+tracing is on: while a ``torch.profiler`` session records in the process
+(``trace``, the ``/trace`` endpoint, any caller's profiler; PyTorch's
+``_is_profiler_enabled`` flag), or inside ``recording()``. Otherwise it
+returns a shared no-op context, at the cost of one check of those two
+flags. Times are ``time.perf_counter`` seconds; ``parent`` is the name of
+the innermost span open on the same thread; ``id`` ties the spans of one
+call together (a decode's number, a training step). The program's spans:
+``captioner.decode`` / ``.upload`` / ``.download`` (``inference.py``),
+``beam.exit_check`` around each host read of a decode loop's finish test
+(``models/decoding.py``; ``id`` the step), ``dispatch.inputs`` /
+``dispatch.replay`` (``train/steps.py``), ``batcher.flush``
+(``serving.py``; ``id`` the flush).
+
+Phase marks. A CUDA graph replays kernels, never Python, so a training
+step marks its phases on the device: :func:`phase` launches
+``vidcap_phase_<name>`` (``csrc/phase_marks.cu``, an empty one-thread
+kernel) on the current stream, where a capture records it and every replay
+runs it, whether tracing is on or off. A device trace then splits a step's
+time at the marks: rollout, reward, loss (twice: after the rollouts and
+after the reward), backward, update, end. On the CPU a mark does nothing.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import http.server
 import json
@@ -20,7 +46,7 @@ import tempfile
 import threading
 import time
 import urllib.parse
-from typing import Iterator, Optional
+from typing import Iterator, List, NamedTuple, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -50,19 +76,128 @@ def trace(trace_dir: Optional[str] = None) -> Iterator[None]:
         yield
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range of the enclosed region: a ``record_function`` in
-    ``torch.profiler`` traces, and an NVTX range where a card is visible."""
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_available():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
+class Span(NamedTuple):
+    """One recorded region: ``t0``/``t1`` in ``time.perf_counter`` seconds,
+    ``parent`` the name of the span open around it on ``thread``, or
+    None."""
+
+    name: str
+    id: Optional[int]
+    parent: Optional[str]
+    thread: int
+    t0: float
+    t1: float
+
+
+MAX_SPANS = 1_000_000
+_store: "collections.deque[Span]" = collections.deque(maxlen=MAX_SPANS)
+_open = threading.local()        # .stack: this thread's open spans
+_recording = 0                   # open recording() contexts
+_recording_lock = threading.Lock()
+_profiler = torch.autograd.profiler   # ._is_profiler_enabled: a session runs
+_nvtx: Optional[bool] = None     # a card is visible (asked once)
+
+
+class _Off:
+    """What :func:`annotate` returns while tracing is off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _On:
+    """A span being recorded: a ``record_function``, an NVTX range on a
+    card, then a :class:`Span` in the store when it closes."""
+
+    __slots__ = ("name", "id", "parent", "t0", "rf", "stack")
+
+    def __init__(self, name: str, id: Optional[int]):
+        self.name, self.id = name, id
+
+    def __enter__(self):
+        global _nvtx
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.stack = stack
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        if _nvtx is None:
+            _nvtx = torch.cuda.is_available()
+        if _nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if _nvtx:
             torch.cuda.nvtx.range_pop()
+        self.rf.__exit__(*exc)
+        self.stack.pop()
+        _store.append(Span(self.name, self.id, self.parent,
+                           threading.get_ident(), self.t0, t1))
+        return False
+
+
+def annotate(name: str, id: Optional[int] = None):
+    """A named region, as a context manager: while tracing is on (a
+    ``torch.profiler`` session records, or inside :func:`recording`) a
+    ``record_function`` in ``torch.profiler`` traces, an NVTX range where a
+    card is visible, and a :class:`Span` in the store; otherwise nothing."""
+    if _profiler._is_profiler_enabled or _recording:
+        return _On(name, id)
+    return _OFF
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[None]:
+    """Record spans inside the block without a profiler."""
+    global _recording
+    with _recording_lock:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _recording_lock:
+            _recording -= 1
+
+
+def spans() -> List[Span]:
+    """A copy of the store, oldest first."""
+    return list(_store)
+
+
+def clear() -> None:
+    """Empty the store."""
+    _store.clear()
+
+
+PHASES = ("rollout", "reward", "loss", "backward", "update", "end")
+_PHASE_INDEX = {name: i for i, name in enumerate(PHASES)}
+
+
+def phase(name: str, like: torch.Tensor) -> None:
+    """Launch the phase mark ``vidcap_phase_<name>`` (one of
+    :data:`PHASES`) on the current stream of ``like``'s device; on the CPU,
+    nothing. Its library is built like the kernels' (``ops/_build.py``,
+    ``MARKS``); the marks are not launch-counted."""
+    if not like.is_cuda:
+        return
+    from vidcap_tpu_torch.ops import _build
+    fn = _build.entry(_build.MARKS, 0, 1)
+    stream = torch.cuda.current_stream(like.device).cuda_stream
+    _build.check(fn(_PHASE_INDEX[name], stream), f"phase mark {name}")
 
 
 MAX_TRACE_MS = 60_000
