@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from vidcap_tpu_torch.config import get_preset
+from vidcap_tpu_torch import inference
+from vidcap_tpu_torch.config import apply_overrides, get_preset
 from vidcap_tpu_torch.data.loader import CaptionDataset
-from vidcap_tpu_torch.inference import Captioner
+from vidcap_tpu_torch.inference import Captioner, staging_chunks
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.data.vocab import EOS, PAD
 from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
@@ -278,6 +279,91 @@ def test_captioner_beam_goes_through_both_kernels(dev):
     assert _build.launch_counts == {"beam_core": cap.decode_steps,
                                     "topk_project": cap.decode_steps,
                                     "topk_project_int8": 0, "rollout": 0}
+
+
+def _staging_captioner(frames=8, dim=64):
+    cfg = apply_overrides(get_preset("synthetic_tiny"), [
+        f"data.num_frames={frames}", f"data.feature_dim={dim}"])
+    return Captioner.from_checkpoint(cfg, CaptionDataset.synthetic(
+        cfg.data, num_videos=12))
+
+
+def _host_inputs(cap, B, seed):
+    T, D = cap.cfg.data.num_frames, cap.cfg.data.feature_dim
+    g = np.random.default_rng(seed)
+    mask = np.ones((B, T), np.float32)
+    mask[1, T // 2:] = 0.0
+    return g.normal(size=(B, T, D)).astype(np.float32), mask
+
+
+def _pageable_decode(cap, feats, mask, method):
+    """The decode of the f32 features copied to the card as they were
+    before the staged upload."""
+    dev = cap.device
+    with torch.inference_mode():
+        return cap._decode(torch.as_tensor(feats, device=dev),
+                           torch.as_tensor(mask, device=dev), method, 5,
+                           1.0, None, 1).cpu().numpy()
+
+
+@pytest.mark.parametrize("method,B,frames,dim,buffer,chunks", [
+    ("beam", 32, 26, 1536, None, 1),      # the serving flush: one chunk
+    ("greedy", 32, 26, 1536, None, 1),    # K3
+    ("beam", 5, 8, 64, 600, 9),           # 9 chunks, the last ragged
+    ("greedy", 5, 8, 64, 600, 9),
+    ("beam", 1472, 26, 1536, None, 8)])   # the bulk batch
+def test_staged_upload_decodes_as_the_pageable_f32_upload(
+        dev, monkeypatch, method, B, frames, dim, buffer, chunks):
+    if buffer is not None:
+        monkeypatch.setattr(inference, "STAGING_BYTES", buffer)
+    cap = _staging_captioner(frames, dim)
+    feats, mask = _host_inputs(cap, B, seed=B)
+    assert len(staging_chunks(feats.size, 2)) == chunks
+    _build.reset_counts()
+    toks = cap.decode_batch(feats, method=method, frame_mask=mask)
+    assert cap.staged_uploads == 1
+    assert (_build.launch_counts["rollout"] == 1 if method == "greedy"
+            else _build.launch_counts["beam_core"] == cap.decode_steps)
+    assert np.array_equal(toks, _pageable_decode(cap, feats, mask, method))
+
+
+def test_staged_uploads_back_to_back_reuse_the_ring_safely(dev, monkeypatch):
+    """Two uploads of 9 chunks each through 3 buffers, queued behind a
+    sleeping kernel so that no copy has left when the host comes round to
+    a buffer again: each lands whole. Then two decodes back to back each
+    equal their own decode."""
+    monkeypatch.setattr(inference, "STAGING_BYTES", 600)
+    cap = _staging_captioner()
+    (x1, m1), (x2, m2) = _host_inputs(cap, 5, 1), _host_inputs(cap, 5, 2)
+    torch.cuda._sleep(50_000_000)
+    a = cap._upload(x1, features=True)
+    b = cap._upload(x2, features=True)
+    for got, x in ((a, x1), (b, x2)):
+        assert torch.equal(got.cpu(), torch.from_numpy(x).to(torch.bfloat16))
+    t1 = cap.decode_batch(x1, frame_mask=m1)
+    t2 = cap.decode_batch(x2, frame_mask=m2)
+    assert np.array_equal(t1, _pageable_decode(cap, x1, m1, "beam"))
+    assert np.array_equal(t2, _pageable_decode(cap, x2, m2, "beam"))
+
+
+def test_staged_uploads_count_host_inputs_alone(dev):
+    """Host arrays go through the ring (features bf16, mask and pixels
+    f32, f64 rounded to f32 first); inputs on the card do not."""
+    cap = _staging_captioner()
+    feats, mask = _host_inputs(cap, 8, 0)
+    cap.decode_batch(feats, frame_mask=mask)
+    cap.decode_batch(torch.as_tensor(feats, device=dev), frame_mask=mask)
+    assert (cap.decode_calls, cap.staged_uploads) == (2, 1)
+    cap.caption_dataset(batch_size=8, device_bank=True)     # 12 videos
+    assert (cap.decode_calls, cap.staged_uploads) == (4, 1)
+    cap.caption_dataset(batch_size=8)
+    assert (cap.decode_calls, cap.staged_uploads) == (6, 3)
+    assert cap._upload(feats, features=True).dtype == torch.bfloat16
+    assert cap._upload(mask).dtype == torch.float32
+    assert cap._upload(np.zeros((2, 2, 4, 4, 3)),
+                       features=True).dtype == torch.float32
+    x = np.full((2, 8, 64), 1.0 + 2.0 ** -8 + 2.0 ** -30, np.float64)
+    assert bool((cap._upload(x, features=True).float() == 1.0).all())
 
 
 def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):

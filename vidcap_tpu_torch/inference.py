@@ -18,13 +18,17 @@ finished-hypothesis pool (``beam_decode_pool``) where ``use_finished_pool``
 says so, as the JAX package does. With ``model.use_backbone`` a batch may
 be frame pixels f32[B, T, S, S, 3]: the decode encodes them through the
 IRv2 backbone first (``model.init_state``), then runs the same kernels.
+Host arrays reach the card through the Captioner's ring of page-locked
+buffers (``StagingRing``), a chunk's copy under the host's work on the next;
+the features of a bf16 model cross as bf16, which is what the model's
+first operation on them rounds them to.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +55,75 @@ from vidcap_tpu_torch.parallel import sharding
 from vidcap_tpu_torch.utils import profiling
 
 
+# The staged upload of host inputs (``StagingRing``): page-locked buffers of
+# 16 MiB, three of them. One holds the serving flush of 32 videos (2.5 MB
+# bf16) whole and an eighth of a bulk batch of 1,472 (118 MB bf16: 8 chunks
+# of 184 videos), so the host's converting copy of one chunk overlaps the
+# copy to the card of the one before it, and the ring costs 48 MiB of
+# pinned memory once, whatever the batch.
+STAGING_BYTES = 16 << 20
+STAGING_SLOTS = 3
+
+
+def staging_dtype(compute_dtype: torch.dtype, ndim: int) -> torch.dtype:
+    """The dtype a host input crosses to the device in: bf16 for features
+    (rank 3) of a bf16 model, whose first operation on them (``feat_proj``,
+    ``models/decoder.py::Dense``) rounds them to bf16, to nearest even on
+    the host as on the card; f32 for pixels, which the backbone reads, and
+    for an f32 model."""
+    return (torch.bfloat16 if compute_dtype == torch.bfloat16 and ndim == 3
+            else torch.float32)
+
+
+def staging_chunks(n: int, itemsize: int) -> List[Tuple[int, int]]:
+    """The ``[a, b)`` element ranges that cut ``n`` elements of
+    ``itemsize`` bytes into the fewest near-even chunks that each fit one
+    staging buffer."""
+    chunks = max(1, -(-n // (STAGING_BYTES // itemsize)))
+    step = max(1, -(-n // chunks))
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+class StagingRing:
+    """Page-locked host buffers that every upload of one :class:`Captioner`
+    reuses, allocated in its first upload (``warmup``'s decode) and kept.
+    An upload cuts its array into chunks (:func:`staging_chunks`). Each
+    chunk is written into the next buffer by one torch copy on the host's
+    threads (converting f32 to the upload's dtype), then copied to the card
+    on the current stream without blocking, and an event recorded after
+    that copy says when the buffer may be written again. So a chunk crosses
+    to the card while the host writes the next one. Nothing waits at the
+    end: the decode follows the copies on the same stream. One upload at a
+    time: a Captioner decodes one batch at a time."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: List[torch.Tensor] = []
+        self._free = [torch.cuda.Event() for _ in range(STAGING_SLOTS)]
+        self._slot = 0
+
+    def upload(self, x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """``x`` (f32 on the host) as ``dtype`` on the device."""
+        if not self._bufs:
+            self._bufs = [torch.empty(STAGING_BYTES, dtype=torch.uint8,
+                                      pin_memory=True)
+                          for _ in range(STAGING_SLOTS)]
+        src = torch.from_numpy(np.ascontiguousarray(x).reshape(-1))
+        out = torch.empty(x.shape, dtype=dtype, device=self.device)
+        dst = out.view(-1)
+        stream = torch.cuda.current_stream(self.device)
+        size = dtype.itemsize
+        for a, b in staging_chunks(src.numel(), size):
+            slot = self._slot
+            self._slot = (slot + 1) % STAGING_SLOTS
+            self._free[slot].synchronize()   # its last copy has left
+            buf = self._bufs[slot][:(b - a) * size].view(dtype)
+            buf.copy_(src[a:b])
+            dst[a:b].copy_(buf, non_blocking=True)
+            self._free[slot].record(stream)
+        return out
+
+
 class NoDeviceError(RuntimeError):
     """The card was asked for (or implied) and none is visible."""
 
@@ -67,7 +140,12 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 class Captioner:
-    """A model with its decode weights prepared once for the kernels."""
+    """A model with its decode weights prepared once for the kernels.
+
+    Host inputs reach the card through the Captioner's own
+    :class:`StagingRing`. One ring is enough because calls to
+    :meth:`decode_batch` run one at a time: the servers call it from one
+    thread (``serving.py``)."""
 
     def __init__(self, cfg: Config, model: VidCapModel,
                  dataset: CaptionDataset, device: torch.device,
@@ -92,7 +170,10 @@ class Captioner:
         # shared memory, False streamed from L2 (ops/rollout.py)
         self.rollout_resident: Optional[bool] = None
         self._feature_bank: Optional[torch.Tensor] = None
+        self._staging: Optional[StagingRing] = None
         self.decode_calls = 0   # decode_batch calls run so far
+        self.staged_uploads = 0   # of them, those whose features went
+        #   through the staging ring (host arrays on the card)
         self.decode_steps = 0   # decode steps run so far, any method (early
         #   exit ends some beam decodes; a greedy/sample rollout runs max_len)
 
@@ -210,9 +291,10 @@ class Captioner:
         """:meth:`decode_batch` on this process's device alone. While
         tracing is on (``utils/profiling.py``) it records the spans
         ``captioner.decode`` around the call, ``captioner.upload`` (features
-        and mask to the device) and ``captioner.download`` (the tokens to
-        the host), each with the call's number (:attr:`decode_calls`
-        before it) as ``id``."""
+        and mask to the device: on the card the host's part of the staged
+        upload, whose last copy may end after the span) and
+        ``captioner.download`` (the tokens to the host), each with the
+        call's number (:attr:`decode_calls` before it) as ``id``."""
         if method not in ("greedy", "sample", "beam"):
             raise ValueError(f"unknown decode method {method!r}")
         if nbest > 1 and method != "beam":
@@ -223,16 +305,30 @@ class Captioner:
         call = self.decode_calls
         with profiling.annotate("captioner.decode", call):
             with profiling.annotate("captioner.upload", call):
-                f = (feats.to(self.device, torch.float32)
-                     if torch.is_tensor(feats)
-                     else torch.as_tensor(np.asarray(feats, np.float32),
-                                          device=self.device))
-                m = torch.as_tensor(np.asarray(frame_mask, np.float32),
-                                    device=self.device)
+                f = self._upload(feats, features=True)
+                m = self._upload(frame_mask)
             toks = self._decode(f, m, method, beam_width, temperature, seed,
                                 nbest)
             with profiling.annotate("captioner.download", call):
                 return toks.cpu().numpy()
+
+    def _upload(self, x, features: bool = False) -> torch.Tensor:
+        """``x`` on the device. A tensor goes as f32. A host array is made
+        f32 first, from any other dtype, then the ``features`` take
+        :func:`staging_dtype` and the rest stay f32; on the card it goes
+        through the staging ring."""
+        if torch.is_tensor(x):
+            return x.to(self.device, torch.float32)
+        x = np.asarray(x, np.float32)
+        dtype = (staging_dtype(self.model.decoder.feat_proj.compute_dtype,
+                               x.ndim) if features else torch.float32)
+        if self.device.type != "cuda":
+            return torch.as_tensor(x).to(dtype)
+        if self._staging is None:
+            self._staging = StagingRing(self.device)
+        if features:
+            self.staged_uploads += 1
+        return self._staging.upload(x, dtype)
 
     def _decode(self, f: torch.Tensor, m: torch.Tensor, method: str,
                 beam_width: int, temperature: float, seed: Optional[int],
