@@ -77,14 +77,20 @@ decoders no kernel covers through their modules, ``info``). Phases:
                                       greedy B=32 decodes, dropout in the
                                       captured XE step, the shapes the
                                       kernels refuse (beam 9, pool beam 8,
-                                      hidden 1024) and the int8 beam at
-                                      hidden 1024 (K1 and K2-int8 once a
-                                      step) at B=184
+                                      hidden 1024: K1 refuses it, K2
+                                      streams its rows) and the int8 beam
+                                      at hidden 1024 (K1 and K2-int8 once
+                                      a step) at B=184
                                    18 the SCST lift (synthetic_tiny, 40
                                       XE and 300 SCST captured steps, K3
                                       2 a SCST step): held-out val CIDEr
                                       up by more than 0.1
+                                   19 K2 at Kimi-VL-A3B's head: N=5120,
+                                      H=2048 (rows streamed), Vp=163,840,
+                                      K=5 vs plain, times
   then the kernels line (one JSON object)
+
+``python3 chip_smoke.py --k2-wide`` runs phases 1 and 19 alone.
 
 Phase 1 also requires the native host library (``vidcap_tpu_torch/
 native.py``, built with g++), and phase 14 tables counted by it. Any
@@ -372,6 +378,27 @@ def phase_k2():
                                  iters=5),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(lambda: torch.matmul(h16, w))), exact_rows
+
+
+def phase_k2_wide():
+    """K2 at Kimi-VL-A3B's head, the beam-5 step of 1,024 videos: h
+    f32[5120, 2048] (past 512 the rows stream through the ring beside
+    W_out), W_out bf16[2048, 163840], K=5, against the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    n, hid, vp, k = 5120, 2048, 163_840, 5
+    h = torch.randn(n, hid, generator=g, device="cuda")
+    w = (torch.randn(hid, vp, generator=g, device="cuda") * 0.02).bfloat16()
+    b = torch.zeros(vp, device="cuda")
+    err, exact = check_topk(h, w, b, k, vp)
+    b_ms, b_by = bound(n * hid * 4 + hid * vp * 2 + vp * 4 + n * k * 8,
+                       2 * n * hid * vp)
+    h16 = h.bfloat16()
+    return dict(max_abs_err=err, exact_rows=exact,
+                ms=time_ms(lambda: topk_project(h, w, b, k, vp), iters=5),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: torch.matmul(h16, w), iters=5),
+                plain_ms=time_ms(lambda: topk_project_plain(h, w, b, k, vp),
+                                 iters=1, reps=3))
 
 
 def phase_end_to_end():
@@ -3220,7 +3247,8 @@ DROP_P = 0.5         # (c)
 # (d): (name, decode fields, model fields, method, beam width)
 REFUSED = (("beam 9", {}, {}, "beam", 9),
            ("pool beam 8", {"finished_pool": "on"}, {}, "beam", 8),
-           ("hidden 1024 beam", {}, {"hidden_dim": 1024}, "beam", K),
+           ("hidden 1024 beam, K1 refuses, K2 streamed", {},
+            {"hidden_dim": 1024}, "beam", K),
            ("hidden 1024 greedy", {}, {"hidden_dim": 1024}, "greedy", K),
            ("hidden 1024 int8 beam", {"int8_vocab_projection": True},
             {"hidden_dim": 1024}, "beam", K))
@@ -3590,6 +3618,12 @@ def phase_lift():
     return out
 
 
+def print_k2_wide(card: str) -> None:
+    print(f"phase 19 K2 topk_project N=5120 H=2048 Vp=163840 K=5 on {card}: "
+          + json.dumps({**phase_k2_wide(), "tolerance": "one bf16 ulp of "
+                        "the row's largest |logit| + 1e-4"}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the "
@@ -3608,6 +3642,9 @@ def main() -> int:
     print(f"phase 1 card: {card} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | kernels "
           f"built in {build_s:.1f} s", flush=True)
+    if "--k2-wide" in sys.argv[1:]:
+        print_k2_wide(card)
+        return 0
 
     k1 = phase_k1()
     print(f"phase 2 K1 beam_core B={B} K={K} T={T} E=H=A={H}: " + json.dumps(
@@ -3701,6 +3738,7 @@ def main() -> int:
           f"{LIFT_SCST} SCST captured steps, greedy val CIDEr on 64 held-out "
           f"videos, on {card}: " + json.dumps(
               {**lift, "bound": f"lift > {LIFT_MIN}"}), flush=True)
+    print_k2_wide(card)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]

@@ -4,7 +4,8 @@ which shapes it takes, from the constants its wrapper raises on, and
 no kernel takes through the model's modules, as the JAX package decodes
 every width through XLA. On CPU-only shape tables (the H100's SMs and
 shared memory for K3), then through ``Captioner`` on the CPU: the shapes
-the kernels refuse (beam 9, the pool at beam 8, hidden 1024) decode through
+the kernels refuse (beam 9, the pool at beam 8, hidden 2080 for K2, 1024
+for K3) decode through
 the module route, with the tokens of the kernels' plain versions forced on
 the same shapes (which have no limits on the CPU).
 """
@@ -37,12 +38,14 @@ def test_k1_table(beam, e, h, a, takes):
 
 @pytest.mark.parametrize("k,h,vp,k2,k2_int8", [
     (5, 512, 16_000, True, True), (8, 512, 12_032, True, True),
-    (9, 512, 16_000, False, False), (6, 1024, 16_000, False, True),
-    (5, 544, 16_000, False, True), (5, 520, 16_000, False, False),
+    (9, 512, 16_000, False, False), (6, 1024, 16_000, True, True),
+    (5, 544, 16_000, True, True), (5, 520, 16_000, False, False),
     (5, 512, 16_004, False, True), (5, 512, 4, False, False),
-    # K2-int8's edge: its block holds H/128 boxes of rows and >= 4 stages
-    (5, 1024, 16_000, False, True), (5, 1152, 16_000, False, True),
-    (5, 1184, 16_000, False, False), (6, 2048, 16_000, False, False)])
+    # K2-int8's edge: its block holds H/128 boxes of rows and >= 4 stages;
+    # K2 streams rows past 512 up to 2,048
+    (5, 1024, 16_000, True, True), (5, 1152, 16_000, True, True),
+    (5, 1184, 16_000, True, False), (6, 2048, 16_000, True, False),
+    (5, 2048, 163_840, True, False), (5, 2080, 16_000, False, False)])
 def test_k2_and_k2_int8_tables(k, h, vp, k2, k2_int8):
     assert topk_project_takes(k, h, vp) is k2
     assert topk_project_int8_takes(k, h, vp) is k2_int8
@@ -134,7 +137,9 @@ def test_every_preset_takes_the_kernels_at_its_widths():
     (["decode.finished_pool=on"], 7,
      {"beam": ("beam_core", "topk_project")}),
     (["decode.finished_pool=on"], 8, {"beam": ("beam_core",)}),
-    (["model.hidden_dim=1024"], 5, {"beam": ("beam_core",), "greedy": ()}),
+    (["model.hidden_dim=1024"], 5,
+     {"beam": ("beam_core", "topk_project"), "greedy": ()}),
+    (["model.hidden_dim=2080"], 5, {"beam": ("beam_core",), "greedy": ()}),
     (["model.hidden_dim=1024", "decode.int8_vocab_projection=true"], 5,
      {"beam": ("beam_core", "topk_project_int8")}),
     (["decode.int8_vocab_projection=true"], 9, {"beam": ()})])
@@ -163,11 +168,12 @@ def _tiny(over):
     (["decode.finished_pool=on"], 8, "beam", "fused_beam_step"),
     (["decode.int8_vocab_projection=true"], 9, "beam",
      "module_beam_step"),
-    (["model.hidden_dim=1024"], 3, "beam", "fused_beam_step"),
+    (["model.hidden_dim=2080"], 3, "beam", "fused_beam_step"),
     (["model.hidden_dim=1024"], 3, "greedy", "_module_rollout")])
 def test_refused_shapes_decode_through_the_modules(monkeypatch, over, beam,
                                                    method, route):
-    """On the CPU, at synthetic_tiny's vocab (hidden 1024 where named):
+    """On the CPU, at synthetic_tiny's vocab (hidden 2080 or 1024 where
+    named):
     the step each refused shape takes, a projection through no kernel, and
     the tokens of the kernels' plain versions forced on the same shape."""
     cap = _tiny(over)
@@ -175,9 +181,12 @@ def test_refused_shapes_decode_through_the_modules(monkeypatch, over, beam,
         np.float32)
     calls = []
     import vidcap_tpu_torch.inference as inference
-    for name in ("fused_beam_step", "module_beam_step"):
-        real = getattr(inference, name)
-        monkeypatch.setattr(inference, name, lambda *a, _r=real, _n=name,
+    import vidcap_tpu_torch.models.model as model_mod
+    # K1's step is the Captioner's; the module step the model's beam surface
+    for mod, name in ((inference, "fused_beam_step"),
+                      (model_mod, "module_beam_step")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name,
                             **k: (calls.append(_n), _r(*a, **k))[1])
     real_roll = Captioner._module_rollout
     monkeypatch.setattr(Captioner, "_module_rollout", lambda self, *a, **k: (
@@ -189,8 +198,9 @@ def test_refused_shapes_decode_through_the_modules(monkeypatch, over, beam,
         assert (w.proj if hasattr(w, "proj") else w).kernel is None
     # the kernels' plain versions on the same shape: the same tokens
     forced = _tiny(over)
-    monkeypatch.setattr(inference, "kernel_decoder", lambda *a, **k: True)
-    monkeypatch.setattr(inference, "projection_kernel", lambda cfg, *a, **k: (
+    for mod in (inference, model_mod):
+        monkeypatch.setattr(mod, "kernel_decoder", lambda *a, **k: True)
+    monkeypatch.setattr(model_mod, "projection_kernel", lambda cfg, *a, **k: (
         "topk_project_int8" if cfg.decode.int8_vocab_projection
         else "topk_project"))
     np.testing.assert_array_equal(

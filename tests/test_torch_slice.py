@@ -63,6 +63,7 @@ def kernel_route(monkeypatch):
     everywhere else. Returns the calls of the route's two entry points; a
     module step on this route fails the test."""
     from vidcap_tpu_torch import inference
+    from vidcap_tpu_torch.models import model as model_mod
     from vidcap_tpu_torch.train import scst
     calls = {"fused_beam_step": 0, "model_rollout": 0}
 
@@ -80,12 +81,15 @@ def kernel_route(monkeypatch):
                             lambda model_cfg, *a, **k: True)
         monkeypatch.setattr(mod, "model_rollout",
                             spy("model_rollout", mod.model_rollout))
-    monkeypatch.setattr(inference, "projection_kernel", lambda cfg, *a, **k: (
+    # the model's beam surface routes the beam (models/model.py)
+    monkeypatch.setattr(model_mod, "kernel_decoder",
+                        lambda model_cfg, *a, **k: True)
+    monkeypatch.setattr(model_mod, "projection_kernel", lambda cfg, *a, **k: (
         "topk_project_int8" if cfg.decode.int8_vocab_projection
         else "topk_project"))
     monkeypatch.setattr(inference, "fused_beam_step",
                         spy("fused_beam_step", inference.fused_beam_step))
-    monkeypatch.setattr(inference, "module_beam_step", refused)
+    monkeypatch.setattr(model_mod, "module_beam_step", refused)
     monkeypatch.setattr(inference.Captioner, "_module_rollout", refused)
     monkeypatch.setattr(scst.ScstStep, "_module_rollouts", refused)
     return calls

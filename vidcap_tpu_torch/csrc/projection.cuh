@@ -26,6 +26,14 @@
 //  - the epilogue reads the accumulator registers directly.
 // Rows past N and columns past Vp arrive as zeros (TMA fill); the epilogue
 // masks them.
+//
+// Past kProjMaxResident (512) of hidden width the block's rows do not fit
+// in shared memory (128 rows x 2,048 deep = 512 KB), so the streamed form
+// (proj_*_stream) brings them through the ring too: each stage holds a
+// 64-deep box of the block's 128 rows beside the four W_out slabs of the
+// same depth (32 KB), six stages, and the consumers' K-loop is the same.
+// The rows are then re-read from L2 once a vocab tile, as W_out is once a
+// row tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,6 +54,9 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kProjATile = kProjRows * kDepthStep * 2;   // 16 KB
 constexpr int kProjBTile = 4 * kSlabBytes;               // 16 KB
 
+constexpr int kProjMaxResident = 512;   // widest H whose rows stay resident
+constexpr int kProjStreamStages = 6;
+
 __host__ __device__ inline int proj_depth_steps(int H) {
   return (H + kDepthStep - 1) / kDepthStep;
 }
@@ -53,6 +64,11 @@ __host__ __device__ inline int proj_depth_steps(int H) {
 inline size_t proj_smem(int H) {
   return (size_t)proj_depth_steps(H) * kProjATile +
          (size_t)kProjStages * kProjBTile + (2 * kProjStages + 1) * 8 + 1024;
+}
+
+inline size_t proj_smem_stream() {
+  return (size_t)kProjStreamStages * (kProjATile + kProjBTile) +
+         (2 * kProjStreamStages + 1) * 8 + 1024;
 }
 
 struct ProjRing {
@@ -127,6 +143,72 @@ __device__ __forceinline__ void proj_consume(const ProjRing& r, int wg,
       mbar_wait(&r.full[s], (it / kProjStages) & 1);
       mma_depth_step(acc, part,
                      smem_u32(r.a + ks * kProjATile + wg * 64 * 128),
+                     smem_u32(r.b + s * kProjBTile));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&r.empty[s]);
+    }
+    epi(acc, tile);
+  }
+}
+
+// The streamed form's shared memory: the stages' row boxes, then their W_out
+// slabs, then the barriers (a_full unused). Every thread calls it.
+__device__ __forceinline__ ProjRing proj_ring_stream(unsigned char* smem_raw) {
+  unsigned char* smem = smem_aligned(smem_raw);
+  ProjRing r;
+  r.a = smem;
+  r.b = smem + kProjStreamStages * kProjATile;
+  r.a_full = nullptr;
+  r.full = reinterpret_cast<uint64_t*>(r.b + kProjStreamStages * kProjBTile);
+  r.empty = r.full + kProjStreamStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kProjStreamStages; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], 8);   // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return r;
+}
+
+// The streamed producer (one thread): for each vocab tile in [tile0,
+// tile1) and each 64 of depth, the rows' box and W_out's slabs in one stage.
+__device__ __forceinline__ void proj_produce_stream(
+    const ProjRing& r, const CUtensorMap* th, const CUtensorMap* tw, int row0,
+    int tile0, int tile1, int H) {
+  const int steps = proj_depth_steps(H);
+  int it = 0;
+  for (int tile = tile0; tile < tile1; ++tile)
+    for (int ks = 0; ks < steps; ++ks, ++it) {
+      const int s = it % kProjStreamStages, round = it / kProjStreamStages;
+      if (round > 0) mbar_wait(&r.empty[s], (round - 1) & 1);
+      mbar_expect_tx(&r.full[s], kProjATile + kProjBTile);
+      tma_load(r.a + s * kProjATile, th, ks * kDepthStep, row0, &r.full[s]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        tma_load(r.b + s * kProjBTile + q * kSlabBytes, tw,
+                 tile * kProjCols + q * kSlabCols, ks * kDepthStep, &r.full[s]);
+    }
+}
+
+// The streamed consumer warpgroup: proj_consume with the rows' box of each
+// depth step taken from its stage.
+template <typename Epi>
+__device__ __forceinline__ void proj_consume_stream(const ProjRing& r, int wg,
+                                                    int tile0, int tile1,
+                                                    int H, Epi& epi) {
+  const int steps = proj_depth_steps(H);
+  const int lane = threadIdx.x % 32;
+  float acc[kAccRegs], part[kAccRegs];
+  int it = 0;
+  for (int tile = tile0; tile < tile1; ++tile) {
+#pragma unroll
+    for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < steps; ++ks, ++it) {
+      const int s = it % kProjStreamStages;
+      mbar_wait(&r.full[s], (it / kProjStreamStages) & 1);
+      mma_depth_step(acc, part, smem_u32(r.a + s * kProjATile + wg * 64 * 128),
                      smem_u32(r.b + s * kProjBTile));
       __syncwarp();
       if (lane == 0) mbar_arrive(&r.empty[s]);

@@ -341,6 +341,38 @@ chunk_kernel(const __grid_constant__ CUtensorMap th,
   carry.flush(row0 + wg * 64, N, chunk, n_chunks, cm, cs, cv, ci);
 }
 
+// chunk_kernel for H > kProjMaxResident: the block's rows stream through
+// the ring beside W_out (projection.cuh, proj_*_stream).
+__global__ void __launch_bounds__(kProjThreads, 1)
+chunk_stream_kernel(const __grid_constant__ CUtensorMap th,
+                    const __grid_constant__ CUtensorMap tw,
+                    const float* __restrict__ b, float* __restrict__ cm,
+                    float* __restrict__ cs, float* __restrict__ cv,
+                    int* __restrict__ ci, int N, int H, int Vp, int K,
+                    int vocab, int n_tiles, int tiles_per_chunk) {
+  extern __shared__ unsigned char smem_raw[];
+  const ProjRing ring = proj_ring_stream(smem_raw);
+  const int row0 = blockIdx.x * kProjRows, chunk = blockIdx.y;
+  const int tile0 = chunk * tiles_per_chunk;
+  const int tile1 = min(tile0 + tiles_per_chunk, n_tiles);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {   // producer warpgroup
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == 256)
+      proj_produce_stream(ring, &th, &tw, row0, tile0, tile1, H);
+    return;
+  }
+  regs_claim<kConsumerRegs>();
+  ChunkCarry carry;
+  carry.b = b;
+  carry.Vp = Vp;
+  carry.vocab = vocab;
+  carry.K = K;
+  carry.init();
+  proj_consume_stream(ring, wg, tile0, tile1, H, carry);
+  carry.flush(row0 + wg * 64, N, chunk, gridDim.y, cm, cs, cv, ci);
+}
+
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const float* __restrict__ cm, const float* __restrict__ cs,
              const float* __restrict__ cv, const int* __restrict__ ci,
@@ -706,9 +738,10 @@ chunk_s8_kernel(const __grid_constant__ CUtensorMap th,
 // [N, n_chunks, K] f32, ci [N, n_chunks, K] i32, where chunk c covers the
 // 128-column vocab tiles c * tiles_per_chunk.. and n_chunks * tiles_per_chunk
 // >= ceil(Vp / 128); out vals [N, K] f32, idx [N, K] i32. Needs H % 32 == 0,
-// H <= 512, Vp % 8 == 0, 1 <= K <= min(8, Vp). Returns the cudaError_t of
-// the launches, or kTensorMapError + CUresult if a TMA map cannot be made
-// (0 on success).
+// Vp % 8 == 0, 1 <= K <= min(8, Vp); H up to kProjMaxResident keeps the
+// rows resident (chunk_kernel), wider H streams them (chunk_stream_kernel).
+// Returns the cudaError_t of the launches, or kTensorMapError + CUresult if a
+// TMA map cannot be made (0 on success).
 extern "C" int vidcap_topk_project(const void* h, const void* w, const void* b,
                                    void* h16, void* cm, void* cs, void* cv,
                                    void* ci, void* vals, void* idx, int N,
@@ -720,17 +753,25 @@ extern "C" int vidcap_topk_project(const void* h, const void* w, const void* b,
   int err = make_tmap(&th, h16, H, N, H, kDepthStep, kProjRows);
   if (!err) err = make_tmap(&tw, w, Vp, H, Vp, kSlabCols, kDepthStep);
   if (err) return err;
-  err = allow_max_smem<chunk_kernel>();
+  const bool streamed = H > kProjMaxResident;
+  err = streamed ? allow_max_smem<chunk_stream_kernel>()
+                 : allow_max_smem<chunk_kernel>();
   if (err) return err;
   const int n8 = N * H / 8;
   cast_kernel<<<(n8 + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<const float*>(h), static_cast<bf16*>(h16), n8);
   const int n_tiles = (Vp + kProjCols - 1) / kProjCols;
-  chunk_kernel<<<dim3((N + kProjRows - 1) / kProjRows, n_chunks),
-                 kProjThreads, proj_smem(H), s>>>(
-      th, tw, static_cast<const float*>(b), static_cast<float*>(cm),
-      static_cast<float*>(cs), static_cast<float*>(cv), static_cast<int*>(ci),
-      N, H, Vp, K, vocab, n_tiles, tiles_per_chunk);
+  const dim3 grid((N + kProjRows - 1) / kProjRows, n_chunks);
+  if (streamed)
+    chunk_stream_kernel<<<grid, kProjThreads, proj_smem_stream(), s>>>(
+        th, tw, static_cast<const float*>(b), static_cast<float*>(cm),
+        static_cast<float*>(cs), static_cast<float*>(cv),
+        static_cast<int*>(ci), N, H, Vp, K, vocab, n_tiles, tiles_per_chunk);
+  else
+    chunk_kernel<<<grid, kProjThreads, proj_smem(H), s>>>(
+        th, tw, static_cast<const float*>(b), static_cast<float*>(cm),
+        static_cast<float*>(cs), static_cast<float*>(cv),
+        static_cast<int*>(ci), N, H, Vp, K, vocab, n_tiles, tiles_per_chunk);
   const int rows_per_block = kThreads / 32;
   merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, kThreads, 0, s>>>(
       static_cast<const float*>(cm), static_cast<const float*>(cs),

@@ -22,6 +22,12 @@ Host arrays reach the card through the Captioner's ring of page-locked
 buffers (``StagingRing``), a chunk's copy under the host's work on the next;
 the features of a bf16 model cross as bf16, which is what the model's
 first operation on them rounds them to.
+
+A language-model decoder (``models/lm_decoder.py::LMCaptionModel``, such as
+Kimi-VL-A3B's) decodes through the same calls: its beam (greedy is its beam
+of one) runs the model's prefill and cached steps, then the head's top-n
+through K2 wherever K2 takes the hidden width and vocab; ``cfg.data`` gives
+the frames and feature width, ``cfg.decode`` the beam's settings.
 """
 from __future__ import annotations
 
@@ -41,13 +47,9 @@ from vidcap_tpu_torch.models.decoding import (BeamWeights,
                                               beam_decode_pool,
                                               fused_beam_step, greedy_decode,
                                               kernel_decoder,
-                                              module_beam_step,
-                                              projection_kernel,
                                               require_full_f32, sample_decode,
-                                              tile_recurrent,
                                               use_finished_pool)
-from vidcap_tpu_torch.models.model import (VidCapModel, create_model,
-                                           init_params)
+from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
                                           resident_mode)
@@ -147,7 +149,7 @@ class Captioner:
     :meth:`decode_batch` run one at a time: the servers call it from one
     thread (``serving.py``)."""
 
-    def __init__(self, cfg: Config, model: VidCapModel,
+    def __init__(self, cfg: Config, model,
                  dataset: CaptionDataset, device: torch.device,
                  seed: Optional[int] = None, mesh=None):
         self.cfg = cfg
@@ -157,7 +159,7 @@ class Captioner:
         self.mesh = mesh
         self.lead = False
         self._sharded: Dict[tuple, object] = {}
-        self.model = model
+        self.model = model   # a VidCapModel or an LMCaptionModel
         self.dataset = dataset
         self.device = device
         self.max_len = cfg.decode.max_len
@@ -320,8 +322,8 @@ class Captioner:
         if torch.is_tensor(x):
             return x.to(self.device, torch.float32)
         x = np.asarray(x, np.float32)
-        dtype = (staging_dtype(self.model.decoder.feat_proj.compute_dtype,
-                               x.ndim) if features else torch.float32)
+        dtype = (staging_dtype(self.model.feature_dtype, x.ndim) if features
+                 else torch.float32)
         if self.device.type != "cuda":
             return torch.as_tensor(x).to(dtype)
         if self._staging is None:
@@ -335,6 +337,11 @@ class Captioner:
                 nbest: int) -> torch.Tensor:
         """The decode of features ``f`` and mask ``m`` on the device: the
         token ids, still on the device."""
+        if self.model.beam_only and method != "beam":
+            if method == "sample":
+                raise NotImplementedError(
+                    "this decoder decodes by beam or greedy")
+            return self._beam(f, m, 1, nbest)   # greedy: the beam of one
         if method == "beam":
             return self._beam(f, m, beam_width, nbest)
         sample = method == "sample"
@@ -392,9 +399,7 @@ class Captioner:
         a row) for a beam of ``beam_width`` under this configuration."""
         n = beam_width + 1 if use_finished_pool(self.cfg.decode) \
             else beam_width
-        return (kernel_decoder(self.cfg.model, "beam", beam_width),
-                projection_kernel(self.cfg, n,
-                                  self.model.decoder.padded_vocab), n)
+        return (*self.model.beam_route(self.cfg, beam_width, n), n)
 
     def kernels(self, method: str, beam_width: Optional[int] = None
                 ) -> tuple:
@@ -403,6 +408,8 @@ class Captioner:
         preset's; the preset's frame count): :func:`kernel_decoder`,
         :func:`projection_kernel`. A shape a kernel refuses runs its step
         through the modules instead (ops/limits.py)."""
+        if self.model.beam_only and method != "beam":   # the beam of one
+            method, beam_width = "beam", 1
         if method != "beam":
             return (("rollout",) if self._k3_takes(
                 method, self.cfg.data.num_frames) else ())
@@ -447,13 +454,13 @@ class Captioner:
         else:
             p = self._vocab_proj
             if p is None:
-                p = VocabProjection.from_model(self.model, kernel, int8)
+                p = self.model.beam_projection(kernel, int8)
             elif p.kernel != kernel:
                 p = dataclasses.replace(p, kernel=kernel)
             self._vocab_proj = p
-            step = module_beam_step(self.model, K, p, n)
+            step = self.model.beam_step(p, K, n)
         B = f.shape[0]
-        state = tile_recurrent(self.model.init_state(f, m), K)
+        state = self.model.init_beam(f, m, K, self.max_len)
         toks, _ = (beam_decode_pool if pool else beam_decode)(
             self._counted(step), state, batch=B, max_len=self.max_len,
             beam_width=K, length_penalty=d.length_penalty,

@@ -86,6 +86,18 @@ class DecoderState:
     values: torch.Tensor      # compute_dtype[B, T, H]
     frame_mask: torch.Tensor  # f32[B, T], 1.0 for real frames
 
+    @property
+    def device(self) -> torch.device:
+        return self.h.device
+
+    def reorder(self, flat_src: torch.Tensor) -> "DecoderState":
+        """The beam's reorder of the B·K rows after pruning: row i takes row
+        ``flat_src[i]``. Only h and c move: keys/values/frame_mask are per
+        video, and a beam never leaves its video's K-row block."""
+        return DecoderState(h=self.h[:, flat_src], c=self.c[:, flat_src],
+                            keys=self.keys, values=self.values,
+                            frame_mask=self.frame_mask)
+
 
 class Dense(nn.Module):
     """Flax ``nn.Dense(dtype=compute_dtype)``: kernel ``[in, out]``."""

@@ -1,10 +1,11 @@
 """Decode strategies of the PyTorch package: greedy, sampled and beam.
 
 Beam search mirrors ``vidcap_tpu/models/decoding.py``: :func:`beam_decode`
-(slot-blocking beams, B×K beams flattened into the batch, state gathered on
-h/c only) and :func:`beam_decode_pool` (the finished-hypothesis pool),
-driven by a step that returns each row's top-n log-probs directly (n = K
-for slot-blocking, K+1 for the pool). :func:`kernel_decoder` and
+(slot-blocking beams, B×K beams flattened into the batch, the state's own
+``reorder`` after pruning: h/c only for the LSTM) and
+:func:`beam_decode_pool` (the finished-hypothesis pool), driven by a step
+that returns each row's top-n log-probs directly (n = K for slot-blocking,
+K+1 for the pool). :func:`kernel_decoder` and
 :func:`projection_kernel` are the one place that decides, from the
 configuration and the shape (ops/limits.py), which step that is. For the
 one-layer bf16 attention decoder at a beam width K1 takes it is
@@ -163,20 +164,6 @@ def _lp_factor(length_penalty: float, lengths: torch.Tensor) -> torch.Tensor:
     return ((5.0 + lengths) / 6.0) ** length_penalty
 
 
-def _make_state_gather(B: int, K: int):
-    """Reorder the B·K rows of the recurrent state after beam pruning. Only
-    h and c move: keys/values/frame_mask are per video, and a beam never
-    leaves its video's K-row block."""
-    del B, K
-
-    def gather_state(st: DecoderState, flat_src: torch.Tensor) -> DecoderState:
-        return DecoderState(h=st.h[:, flat_src], c=st.c[:, flat_src],
-                            keys=st.keys, values=st.values,
-                            frame_mask=st.frame_mask)
-
-    return gather_state
-
-
 def use_finished_pool(decode_cfg) -> bool:
     """The pool runs exactly when slot-blocking could return a different
     winner: under a nonzero length penalty, or when asked for."""
@@ -199,7 +186,9 @@ def beam_decode(step_fn: BeamStep, state: DecoderState, batch: int,
                 early_exit: bool = False, return_all: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched slot-blocking beam search. ``state`` has h/c tiled to B·K
-    rows (:func:`tile_recurrent`).
+    rows (:func:`tile_recurrent`), or is another decoder's beam state
+    (``models/lm_decoder.py::LMState``); after pruning, the state's own
+    ``reorder`` takes the surviving rows.
 
     early_exit=True stops once every beam of every video is finished: a
     finished beam only extends with <pad> at zero cost, so the result equals
@@ -209,8 +198,7 @@ def beam_decode(step_fn: BeamStep, state: DecoderState, batch: int,
     ``return_all=True``: (tokens i32[B, K, L], scores f32[B, K]) sorted
     best-first."""
     K, B = beam_width, batch
-    dev = state.h.device
-    gather_state = _make_state_gather(B, K)
+    dev = state.device
     bidx = torch.arange(B, device=dev)[:, None]
     first_slot = (torch.arange(K, device=dev) == 0)[None, None, :]
     fin_cand = torch.where(first_slot, 0.0, NEG)                  # [1, 1, K]
@@ -241,7 +229,7 @@ def beam_decode(step_fn: BeamStep, state: DecoderState, batch: int,
         alive_seq = alive_seq[bidx, src_beam]
         alive_seq[:, :, t] = new_tok
         finished = finished[bidx, src_beam] | (new_tok == EOS)
-        state = gather_state(state, (bidx * K + src_beam).reshape(B * K))
+        state = state.reorder((bidx * K + src_beam).reshape(B * K))
         prev_tok = new_tok.reshape(B * K).long()
         alive_logp = top_logp
 
@@ -263,7 +251,8 @@ def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
     """Beam search with a finished-hypothesis pool
     (``vidcap_tpu/models/decoding.py::beam_decode_pool``). ``step_fn``
     returns each row's top-(K+1) candidates; ``state`` has h/c tiled to B·K
-    rows (:func:`tile_recurrent`).
+    rows (:func:`tile_recurrent`), or is another decoder's beam state, as
+    :func:`beam_decode` takes it.
 
     A hypothesis whose <eos> ranks within its row's top K+1 moves, scored
     at its finish length, into a fixed [B, K] pool of the best finished
@@ -278,8 +267,7 @@ def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
     best of the pool and the alive beams (normalized at max_len), best
     first, a finished one ahead of an alive one on an exact tie."""
     K, B, C = beam_width, batch, beam_width + 1
-    dev = state.h.device
-    gather_state = _make_state_gather(B, K)
+    dev = state.device
     bidx = torch.arange(B, device=dev)[:, None]
     # the length factor of every finish length 1..max_len, on the device
     factors = _lp_factor(length_penalty,
@@ -326,7 +314,7 @@ def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
         new_tok = idx_k[bidx, src_beam, top_idx % C]              # [B, K]
         alive_seq = alive_seq[bidx, src_beam]
         alive_seq[:, :, t] = new_tok
-        state = gather_state(state, (bidx * K + src_beam).reshape(B * K))
+        state = state.reorder((bidx * K + src_beam).reshape(B * K))
         prev_tok = new_tok.reshape(B * K).long()
         alive_logp = top_logp
 

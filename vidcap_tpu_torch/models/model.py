@@ -17,6 +17,11 @@ from torch import nn
 
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.models import backbone as backbone_mod
+from vidcap_tpu_torch.models.decoding import (VocabProjection,
+                                              kernel_decoder,
+                                              module_beam_step,
+                                              projection_kernel,
+                                              tile_recurrent)
 from vidcap_tpu_torch.models.decoder import (CaptionDecoder, DecoderState,
                                              Dense, Dropout, dtype_of)
 from vidcap_tpu_torch.models.heads import AttributeHead
@@ -28,6 +33,12 @@ def padded_vocab_size(cfg: Config, vocab_size: int) -> int:
 
 
 class VidCapModel(nn.Module):
+    # greedy and sampled decodes have their own loops (and K3); the beam's
+    # surface (``init_beam``, ``beam_route``, ``beam_projection``,
+    # ``beam_step``, ``feature_dtype``) is the one the Captioner calls on
+    # every decoder family
+    beam_only = False
+
     def __init__(self, cfg: Config, vocab_size: int):
         super().__init__()
         self.cfg = cfg
@@ -61,6 +72,33 @@ class VidCapModel(nn.Module):
 
     def step(self, state: DecoderState, token: torch.Tensor):
         return self.decoder.step(state, token)
+
+    @property
+    def feature_dtype(self) -> torch.dtype:
+        """The dtype the first operation on the features rounds them to."""
+        return self.decoder.feat_proj.compute_dtype
+
+    def init_beam(self, inputs: torch.Tensor, frame_mask: torch.Tensor,
+                  beam_width: int, max_len: int) -> DecoderState:
+        """The beam's state: h/c tiled to B·K rows (``max_len`` unused)."""
+        return tile_recurrent(self.init_state(inputs, frame_mask),
+                              beam_width)
+
+    def beam_route(self, cfg: Config, beam_width: int, candidates: int):
+        """(K1 takes the beam, the projection's kernel or None) under
+        ``cfg`` (models/decoding.py)."""
+        return (kernel_decoder(cfg.model, "beam", beam_width),
+                projection_kernel(cfg, candidates,
+                                  self.decoder.padded_vocab))
+
+    def beam_projection(self, kernel: Optional[str], int8: bool
+                        ) -> VocabProjection:
+        return VocabProjection.from_model(self, kernel, int8)
+
+    def beam_step(self, proj: VocabProjection, beam_width: int,
+                  candidates: int):
+        """The beam step through the modules (K1 takes the other route)."""
+        return module_beam_step(self, beam_width, proj, candidates)
 
     def step_beam(self, state: DecoderState, token: torch.Tensor,
                   beam_width: int):

@@ -14,7 +14,9 @@ from __future__ import annotations
 
 MAX_BEAM = 8       # K1: beams a video (a warp's rows of a video's scores)
 MAX_K = 8          # K2, K2-int8: candidates a row (the register top-K)
-MAX_HIDDEN = 512   # K2 keeps a block's rows of bf16(h) in shared memory
+# K2: up to 512 a block keeps its rows of bf16(h) in shared memory; wider
+# rows stream through its ring beside W_out (csrc/projection.cuh)
+MAX_HIDDEN = 2048
 MAX_WIDTH = 512    # K3: hidden and attention widths, a column pair a thread
 # K3's grid: one block per SM, a launch takes up to ROWS rows, a block holds
 # HID hidden columns of the gates; a warp merges a row's partials, 8 a lane
@@ -31,7 +33,8 @@ def beam_core_takes(beam: int, embed: int, hidden: int, attn: int) -> bool:
 
 def topk_project_takes(k: int, hidden: int, vocab: int) -> bool:
     """K2: 1..MAX_K candidates a row, at most the vocab width; the hidden
-    width a multiple of 32 up to MAX_HIDDEN, the vocab width of 8."""
+    width a multiple of 32 up to MAX_HIDDEN (the rows resident up to 512,
+    streamed past it), the vocab width of 8."""
     return (1 <= k <= MAX_K and vocab >= k and hidden % 32 == 0
             and hidden <= MAX_HIDDEN and vocab % 8 == 0)
 

@@ -150,6 +150,11 @@ class _On:
         return False
 
 
+def tracing() -> bool:
+    """Whether spans, counters and the decoder's marks record now."""
+    return bool(_profiler._is_profiler_enabled or _recording)
+
+
 def annotate(name: str, id: Optional[int] = None):
     """A named region, as a context manager: while tracing is on (a
     ``torch.profiler`` session records, or inside :func:`recording`) a
@@ -179,18 +184,35 @@ def spans() -> List[Span]:
 
 
 def clear() -> None:
-    """Empty the store."""
+    """Empty the store and the counters."""
     _store.clear()
+    _counts.clear()
+
+
+_counts: "collections.deque[tuple]" = collections.deque(maxlen=MAX_SPANS)
+
+
+def count(name: str, id: Optional[int], value: torch.Tensor) -> None:
+    """Keep a copy of ``value`` under ``name`` while tracing is on."""
+    if tracing():
+        _counts.append((name, id, value.detach().clone()))
+
+
+def counters(name: str) -> List[tuple]:
+    """(id, numpy array) of each value kept under ``name``, oldest
+    first."""
+    return [(i, v.cpu().numpy()) for n, i, v in list(_counts) if n == name]
 
 
 PHASES = ("rollout", "reward", "loss", "backward", "update", "end")
-_PHASE_INDEX = {name: i for i, name in enumerate(PHASES)}
+LM_MARKS = ("lm_attn", "lm_mlp", "lm_moe", "lm_head")
+_PHASE_INDEX = {name: i for i, name in enumerate(PHASES + LM_MARKS)}
 
 
 def phase(name: str, like: torch.Tensor) -> None:
     """Launch the phase mark ``vidcap_phase_<name>`` (one of
-    :data:`PHASES`) on the current stream of ``like``'s device; on the CPU,
-    nothing. Its library is built like the kernels' (``ops/_build.py``,
+    :data:`PHASES` or :data:`LM_MARKS`) on the current stream of
+    ``like``'s device; on the CPU, nothing. Its library is built like the kernels' (``ops/_build.py``,
     ``MARKS``); the marks are not launch-counted."""
     if not like.is_cuda:
         return
