@@ -88,9 +88,18 @@ decoders no kernel covers through their modules, ``info``). Phases:
                                    19 K2 at Kimi-VL-A3B's head: N=5120,
                                       H=2048 (rows streamed), Vp=163,840,
                                       K=5 vs plain, times
+                                   20 K4 teacher_forced at scst_cider's
+                                      shape (B=32, T=26, L=30, Vp=12,032):
+                                      forward and backward vs plain, the
+                                      times of each against the plain
+                                      version, the module loop and the
+                                      bound
   then the kernels line (one JSON object)
 
-``python3 chip_smoke.py --k2-wide`` runs phases 1 and 19 alone.
+``python3 chip_smoke.py --k2-wide`` runs phases 1 and 19 alone,
+``python3 chip_smoke.py --k4`` phases 1 and 20. Phases 9, 10, 14, 15 and
+18 also count K4's launches in their training steps: 2 an XE step
+(forward, backward), 4 a SCST step (the re-score and the XE anchor).
 
 Phase 1 also requires the native host library (``vidcap_tpu_torch/
 native.py``, built with g++), and phase 14 tables counted by it. Any
@@ -132,7 +141,7 @@ from vidcap_tpu_torch.models.decoding import (VocabProjection, beam_decode,
                                               projection_kernel,
                                               tile_recurrent)
 from vidcap_tpu_torch.models.model import create_model, init_params
-from vidcap_tpu_torch.objectives.xe import shift_right
+from vidcap_tpu_torch.objectives.xe import shift_right, token_logp
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core, beam_core_plain
 from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
@@ -142,6 +151,8 @@ from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
                                           resident_mode, rollout,
                                           rollout_plain, step_plain)
+from vidcap_tpu_torch.ops.teacher_forced import (teacher_forced,
+                                                 teacher_forced_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
 from vidcap_tpu_torch.models.decoding import Rollout
@@ -192,6 +203,12 @@ K3_RUNS = (("greedy", False, 0, 1.0), ("sample_s1_t1", True, 1, 1.0),
 # index, whose order the card may change: 1e-6 relative).
 SCST_TOL, REPEAT_TOL = 1e-5, 1e-6
 SCST_STEPS = 5   # timed steps after one warm-up
+# K4 vs plain at scst_cider's shape (tests/test_torch_cuda.py says why):
+# the logits within two bf16 ulps of the largest |logit|, the loss within
+# TF_LOSS_TOL relative, each leaf's gradient within TF_GRAD_TOL (L2,
+# relative); about 3x the largest errors measured on the card (PERF.md)
+TF_LOSS_TOL, TF_GRAD_TOL = 1e-5, 0.01
+PEAK_F32 = 67e12   # H100 SXM f32 FLOP/s off the tensor cores (data sheet)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1037,7 +1054,8 @@ def phase_scst(row_floor: float):
         if not all(torch.isfinite(v) for v in mi.values()):
             problems.append(f"step {i}: non-finite metrics")
     launches = dict(_build.launch_counts)
-    if launches != counts(rollout=2 * (1 + SCST_STEPS)):
+    if launches != counts(rollout=2 * (1 + SCST_STEPS),
+                          teacher_forced=4 * (1 + SCST_STEPS)):
         problems.append(f"{1 + SCST_STEPS} SCST steps launched {launches}")
     med = {k: float(np.median(v)) for k, v in times.items()}
     out = dict(identical_rows=identical, identical_rows_floor=row_floor,
@@ -1079,8 +1097,9 @@ def phase_cli_train(ds):
                           r"(?:; rollout W_out (\w+))?; kernel launches "
                           r"(\{.*\})")
         for steps, resume, want in (
-                ("3,3", [], [("xe", 3, 2), ("scst", 3, 8)]),
-                ("3,4", ["--resume"], [("xe", 0, 0), ("scst", 1, 2)])):
+                ("3,3", [], [("xe", 3, 2, 6), ("scst", 3, 8, 12)]),
+                ("3,4", ["--resume"], [("xe", 0, 0, 0),
+                                       ("scst", 1, 2, 4)])):
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", "vidcap_tpu_torch", "train",
@@ -1097,8 +1116,8 @@ def phase_cli_train(ds):
                    for st, n, _, mode, lc in line.findall(r.stderr)]
             # (stage, steps, K3's W_out mode, launches) for each stage line
             ok = got == [(st, n, "resident" if st == "scst" and n else None,
-                          counts(rollout=k3))
-                         for st, n, k3 in want]
+                          counts(rollout=k3, teacher_forced=k4))
+                         for st, n, k3, k4 in want]
             if not ok:
                 fail(f"CLI train {steps} {resume}: stage lines {got}, want "
                      f"{want}: {r.stderr[-3000:]}")
@@ -2102,8 +2121,10 @@ def dispatch_cli(ds, tmp: str):
     best = [f for f in os.listdir(os.path.join(tmp, "checkpoints", "best"))
             if f.startswith("ckpt_")]
     per_eval = -(-200 // BG)   # validation: the first 200 videos, B=32
-    want_lines = [("xe", 24, None, counts(rollout=per_eval * len(evals))),
-                  ("scst", 8, "resident", counts(rollout=2 * 8))]
+    want_lines = [("xe", 24, None, counts(rollout=per_eval * len(evals),
+                                          teacher_forced=2 * 24)),
+                  ("scst", 8, "resident", counts(rollout=2 * 8,
+                                                 teacher_forced=4 * 8))]
     a, b = (torch.load(os.path.join(tmp, d, "ckpt_24.pt"), weights_only=True)
             for d in ("checkpoints", "ck2"))
     flat = lambda c: {**c["params"], **{f"{m} {k}": v for m in ("mu", "nu")
@@ -2520,10 +2541,10 @@ def pixel_cli(ds, tmp: str):
     del zero["rollout"]
     problems = []
     if [(a, b) for a, b, _, _ in lines] != [("xe", 2), ("scst", 2)] or \
-            lines[1][3] != {**zero, "rollout": 4}:
+            lines[1][3] != {**zero, "rollout": 4, "teacher_forced": 8}:
         problems.append(f"stage lines {lines}")
     if [(a, b) for a, b, _, _ in lines2] != [("xe", 0), ("scst", 1)] or \
-            lines2[1][3] != {**zero, "rollout": 2}:
+            lines2[1][3] != {**zero, "rollout": 2, "teacher_forced": 4}:
         problems.append(f"resume stage lines {lines2}")
     if [row["step"] for row in rows] != [1, 2, 3, 4, 5]:
         problems.append(f"log rows {[row['step'] for row in rows]}")
@@ -3601,7 +3622,8 @@ def phase_lift():
     cider_xe, cider_scst, reward = lift.build(LIFT_XE, LIFT_SCST, seed=0,
                                               device="cuda")
     launches = dict(_build.launch_counts)
-    want = counts(rollout=2 * LIFT_SCST + 2 * val_batches)
+    want = counts(rollout=2 * LIFT_SCST + 2 * val_batches,
+                  teacher_forced=2 * LIFT_XE + 4 * LIFT_SCST)
     out = dict(val_cider_xe=cider_xe, val_cider_scst=cider_scst,
                lift=cider_scst - cider_xe, final_reward_sample=reward,
                launches=launches, launches_expected=want,
@@ -3616,6 +3638,131 @@ def phase_lift():
     if problems:
         fail("phase 18: " + "; ".join(problems) + " | " + json.dumps(out))
     return out
+
+
+def tf_case(seed: int = 0):
+    """scst_cider's decoder from the seeded init and one teacher-forced
+    batch: (decoder, features f32[32, 26, 1536], inputs and targets
+    i64[32, 30])."""
+    cfg = get_preset("scst_cider")
+    dec = init_params(create_model(cfg, VOCAB_G), seed).cuda().decoder
+    g = np.random.default_rng(seed)
+    cuda = lambda a, **k: torch.tensor(a, device="cuda", **k)
+    return (dec, cuda(g.normal(size=(BG, T, D)), dtype=torch.float32),
+            cuda(g.integers(len(SPECIALS), VOCAB_G, size=(BG, L))),
+            cuda(g.integers(len(SPECIALS), VOCAB_G, size=(BG, L))))
+
+
+def module_loop(dec, state, embs):
+    """``CaptionDecoder.xe_logits``'s loop over the modules, off K4's
+    route."""
+    out = []
+    for t in range(embs.shape[1]):
+        state, logits = dec._step_from_emb(state, embs[:, t], sharded=True)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def tf_graph(dec, feats, toks, fn, backward: bool):
+    """One CUDA graph of ``fn(dec, state, embs)`` on a copy of ``dec`` (its
+    own gradient accumulators), from an encoded state and embeddings that
+    are leaves, with the backward of a fixed cotangent when asked."""
+    dec = copy.deepcopy(dec)
+    with torch.no_grad():
+        st = dec.init_state(feats)
+        embs = dec.embed(toks)
+    leaves = [x.detach().requires_grad_(backward)
+              for x in (embs, st.h, st.c, st.keys, st.values)]
+    state = DecoderState(leaves[1], leaves[2], leaves[3], leaves[4],
+                         st.frame_mask)
+    cot = torch.randn(BG, L, dec.padded_vocab, device="cuda")
+
+    def run():
+        with torch.set_grad_enabled(backward):
+            logits = fn(dec, state, leaves[0])
+            if backward:
+                torch.autograd.grad(logits, leaves + list(dec.parameters()),
+                                    cot, allow_unused=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        run()
+    return graph
+
+
+def tf_compare(dec, feats, toks, tgt, fn):
+    """(logits, loss, the gradients of the features and each parameter) of
+    a token-mean XE through ``fn``."""
+    f = feats.clone().requires_grad_(True)
+    logits = fn(dec, dec.init_state(f), dec.embed(toks))
+    loss = -token_logp(logits, tgt).mean()
+    return (logits.detach(), loss.item(),
+            torch.autograd.grad(loss, [f] + list(dec.parameters())))
+
+
+def phase_k4():
+    """K4 at scst_cider's shape: kernel vs plain (the logits' max |error|,
+    the loss, each leaf's gradient), then the forward and the forward +
+    backward of the pass alone, each one CUDA graph, for the kernels, the
+    plain version and the module loop, beside the bound (the f32 products
+    at the f32 peak, or the bytes)."""
+    dec, feats, toks, tgt = tf_case()
+    _build.reset_counts()
+    lk, sk, gk = tf_compare(dec, feats, toks, tgt, teacher_forced)
+    lp, sp, gp = tf_compare(dec, feats, toks, tgt, teacher_forced_plain)
+    launches = _build.launch_counts["teacher_forced"]
+    names = ["features"] + [n for n, _ in dec.named_parameters()]
+    grad_err = {n: ((a - b).norm() / b.norm()).item()
+                for n, a, b in zip(names, gk, gp)}
+    live = lp > NEG / 2
+    err = (lk - lp)[live].abs().max().item()
+    logit_tol = 2 * bf16_ulp(lp[live].abs().max()).item()
+    out = dict(max_abs_err=err, logit_tol=logit_tol,
+               loss_rel_err=abs(sk - sp) / abs(sp),
+               grad_rel_err_max=max(grad_err.values()), grad_rel_err=grad_err)
+    for name, fn in (("", teacher_forced), ("plain_", teacher_forced_plain),
+                     ("loop_", module_loop)):
+        f = time_ms(tf_graph(dec, feats, toks, fn, False).replay)
+        fb = time_ms(tf_graph(dec, feats, toks, fn, True).replay)
+        out[f"{name}fwd_ms"], out[f"{name}bwd_ms"] = f, fb - f
+    Vp = dec.padded_vocab
+    prods = H * A + (E + 2 * H) * 4 * H + H * Vp
+    ops = 2 * BG * L * (prods + T * (A + H))
+    weights = 4 * prods + 4 * (A + 4 * H + Vp)
+    io = 2 * BG * T * (A + H) + 4 * BG * L * (E + Vp)
+    for part, n_ops, n_bytes in (("fwd", ops, weights + io),
+                                 ("bwd", 2 * ops, 2 * weights + 2 * io)):
+        t_ops, t_bytes = n_ops / PEAK_F32, n_bytes / PEAK_BYTES
+        out[f"bound_{part}_ms"] = max(t_ops, t_bytes) * 1e3
+        out[f"bound_{part}_by"] = "operations" if t_ops >= t_bytes \
+            else "bytes"
+    out["launches"] = launches
+    problems = []
+    if launches != 2:
+        problems.append(f"{launches} launches for one pass and its backward")
+    if not err <= logit_tol:
+        problems.append(f"logits {err} apart")
+    if not out["loss_rel_err"] <= TF_LOSS_TOL:
+        problems.append(f"loss {sk} vs {sp}")
+    if not out["grad_rel_err_max"] <= TF_GRAD_TOL or not all(
+            torch.isfinite(x).all() for x in gk):
+        problems.append(f"gradients {grad_err}")
+    if problems:
+        fail("phase 20: " + "; ".join(problems) + " | " + json.dumps(out))
+    return out
+
+
+def print_k4(card: str) -> dict:
+    k4 = phase_k4()
+    print(f"phase 20 K4 teacher_forced B={BG} T={T} L={L} E=H=A={H} "
+          f"Vp={VG} on {card}: " + json.dumps({**k4, "tolerance": {
+              "logits": "two bf16 ulps of the largest |logit|",
+              "loss": TF_LOSS_TOL, "gradients": TF_GRAD_TOL}}), flush=True)
+    return k4
 
 
 def print_k2_wide(card: str) -> None:
@@ -3644,6 +3791,9 @@ def main() -> int:
           f"built in {build_s:.1f} s", flush=True)
     if "--k2-wide" in sys.argv[1:]:
         print_k2_wide(card)
+        return 0
+    if "--k4" in sys.argv[1:]:
+        print_k4(card)
         return 0
 
     k1 = phase_k1()
@@ -3739,6 +3889,7 @@ def main() -> int:
           f"videos, on {card}: " + json.dumps(
               {**lift, "bound": f"lift > {LIFT_MIN}"}), flush=True)
     print_k2_wide(card)
+    k4 = print_k4(card)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]
@@ -3771,6 +3922,15 @@ def main() -> int:
                        + lift["launches"]["rollout"])
     k28["launches"] = (launched16["topk_project_int8"]
                        + launched17["topk_project_int8"])
+    # K4: phase 20's pass, phase 9's timed steps, phase 14's dispatched
+    # steps, phase 15's composed steps and the lift's
+    k4 = dict(name="teacher_forced", **{k: k4[k] for k in (
+        "max_abs_err", "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms",
+        "loop_fwd_ms", "loop_bwd_ms", "bound_fwd_ms", "bound_bwd_ms")},
+        launches=k4["launches"] + sum(
+            d["teacher_forced"] for d in (
+                scst["launches"], dispatch["launches_b_c"],
+                pixels["steps"]["launches"], lift["launches"])))
     print(json.dumps({"kernels": [dict(k, launches=e2e["launches"][k["name"]]
                                        + offline["train_launches"][k["name"]]
                                        + offline["caption_launches"][k["name"]]
@@ -3778,7 +3938,7 @@ def main() -> int:
                                              for r in served_beam)
                                        + launched16[k["name"]]
                                        + launched17[k["name"]])
-                                  for k in (k1, k2)] + [k28, k3]}),
+                                  for k in (k1, k2)] + [k28, k3, k4]}),
           flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,9 @@ from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
 from vidcap_tpu_torch.models.decoding import Rollout, tile_recurrent
 from vidcap_tpu_torch.models.model import create_model, init_params
-from vidcap_tpu_torch.objectives.xe import shift_right
+from vidcap_tpu_torch.objectives.xe import shift_right, token_logp
+from vidcap_tpu_torch.ops.teacher_forced import (teacher_forced,
+                                                 teacher_forced_plain)
 from vidcap_tpu_torch.train.loop import batch_to_device, batch_to_device_dict
 from vidcap_tpu_torch.train.scst import make_scst_step_body
 from vidcap_tpu_torch.train.state import create_train_state
@@ -270,7 +272,8 @@ def test_captioner_greedy_and_sample_go_through_the_rollout_kernel(dev):
     assert len(greedy) == len(sample) == 12
     assert cap.decode_calls == 4 and cap.decode_steps == 4 * cap.max_len
     assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
-                                    "topk_project_int8": 0, "rollout": 4}
+                                    "topk_project_int8": 0, "rollout": 4,
+                                    "teacher_forced": 0}
     feats = cap.dataset.features[:8]
     a, b, c = (cap.decode_batch(feats, method="sample", seed=s)
                for s in (7, 7, 8))
@@ -290,7 +293,8 @@ def test_captioner_beam_goes_through_both_kernels(dev):
     assert cap.decode_steps >= 2
     assert _build.launch_counts == {"beam_core": cap.decode_steps,
                                     "topk_project": cap.decode_steps,
-                                    "topk_project_int8": 0, "rollout": 0}
+                                    "topk_project_int8": 0, "rollout": 0,
+                                    "teacher_forced": 0}
 
 
 def _staging_captioner(frames=8, dim=64):
@@ -397,7 +401,8 @@ def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
     sample, greedy = step.rollouts(state, batch, seed=5)
     torch.cuda.synchronize()
     assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
-                                    "topk_project_int8": 0, "rollout": 2}
+                                    "topk_project_int8": 0, "rollout": 2,
+                                    "teacher_forced": 0}
     with torch.no_grad():
         st = state.model.init_state(batch["features"])
         w = RolloutWeights.from_model(state.model)
@@ -736,3 +741,90 @@ def test_dropout_draws_new_masks_at_each_replay(dev):
     want = second[("eager", (1, 2))]
     assert abs(second[("captured", (1, 2))] - want) <= 1e-5 * abs(want)
     assert second[("captured", (1, 1))] != second[("captured", (1, 2))]
+
+
+# ------------------------------------------- K4, the teacher-forced pass
+
+# K4 against its plain version at scst_cider's shape (B=32, T=26, L=30,
+# E=H=A=512, Vp=12,032). Both round at the same bf16 points; the kernels sum
+# the scores, ctx and the softmax in another order than cuBLAS and
+# PyTorch's softmax, so a value next to a rounding boundary lands one bf16
+# ulp apart and carries through the recurrence: the logits within two bf16
+# ulps of the largest |logit| (one measured). The loss is a mean over 960
+# rows of log-softmaxes of those logits (equal to f32 precision measured).
+# The gradients' sums (over the rows of each timestep, over timesteps, and
+# the keys' and values' cotangents summed in bf16 over 30 timesteps) run in
+# other orders too: each leaf's |kernel − plain| / |plain| (L2) within
+# TF_GRAD_TOL, about 3x the largest measured (3.1e-3, the feature
+# projection's, through the keys' and values' bf16 sums).
+TF_LOSS_TOL = 1e-5
+TF_GRAD_TOL = 0.01
+
+
+def _tf_inputs(dev, seed=0):
+    cfg = get_preset("scst_cider")
+    model = init_params(create_model(cfg, 12000), seed).to(dev)
+    g = np.random.default_rng(seed)
+    feats = torch.tensor(g.normal(size=(32, 26, cfg.data.feature_dim)),
+                         dtype=torch.float32, device=dev)
+    toks = torch.tensor(g.integers(4, 12000, size=(32, 30)), device=dev)
+    tgt = torch.tensor(g.integers(4, 12000, size=(32, 30)), device=dev)
+    return model.decoder, feats, toks, tgt
+
+
+def _tf_pass(dec, feats, toks, tgt, fn):
+    feats = feats.clone().requires_grad_(True)
+    logits = fn(dec, dec.init_state(feats), dec.embed(toks))
+    loss = -token_logp(logits, tgt).mean()
+    leaves = [feats] + list(dec.parameters())
+    return logits.detach(), loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def test_teacher_forced_matches_plain(dev):
+    """K4's logits, loss and every leaf's gradient against the plain
+    version on the same CUDA tensors; one launch forward, one backward."""
+    dec, feats, toks, tgt = _tf_inputs(dev)
+    _build.reset_counts()
+    lk, sk, gk = _tf_pass(dec, feats, toks, tgt, teacher_forced)
+    assert _build.launch_counts["teacher_forced"] == 2
+    lp, sp, gp = _tf_pass(dec, feats, toks, tgt, teacher_forced_plain)
+    assert _build.launch_counts["teacher_forced"] == 2
+    live = lp > -1e29
+    ulp = torch.exp2(torch.floor(torch.log2(lp[live].abs().max())) - 7)
+    assert (lk - lp)[live].abs().max() <= 2 * ulp
+    assert torch.equal(lk[~live], lp[~live])
+    assert abs(sk.item() - sp.item()) <= TF_LOSS_TOL * abs(sp.item())
+    names = ["features"] + [n for n, _ in dec.named_parameters()]
+    for name, a, b in zip(names, gk, gp):
+        assert torch.isfinite(a).all(), name
+        assert (a - b).norm() <= TF_GRAD_TOL * b.norm(), name
+
+
+def test_teacher_forced_steps_count_its_launches_at_each_replay(dev):
+    """A captured SCST step runs both teacher-forced passes (the re-score
+    and the XE anchor) on K4: 2 launches each (forward, backward), counted
+    at each replay beside K3's 2 rollouts; a captured XE step 2; the XE
+    step with dropout keeps the module loop and launches none."""
+    cfg = get_preset("synthetic_tiny")
+    ds = CaptionDataset.synthetic(cfg.data)
+    for stage, rate, want in (("scst", 0.0, {"rollout": 2,
+                                              "teacher_forced": 4}),
+                              ("xe", 0.0, {"teacher_forced": 2}),
+                              ("xe", 0.5, {})):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, stage=stage, batch_size=32),
+            model=dataclasses.replace(cfg.model, dropout_rate=rate))
+        state = create_train_state(c, init_params(
+            create_model(c, ds.vocab.size), 0).to(dev))
+        body = (make_scst_step_body(c, ds) if stage == "scst"
+                else make_xe_step_body(c))
+        fn = make_step(body, dev)
+        it = DeterministicBatcher(ds, 32, seed=0)
+        _build.reset_counts()
+        for _ in range(3):
+            state, m = fn(state, batch_to_device_dict(next(it)))
+        torch.cuda.synchronize()
+        assert fn.graph is not None
+        assert torch.isfinite(m["loss"])
+        assert _build.launch_counts == {k: 3 * want.get(k, 0)
+                                        for k in _build.KERNELS}, stage

@@ -356,17 +356,34 @@ class CaptionDecoder(nn.Module):
 
     # ------------------------------------------------------------------ XE path
 
+    def teacher_forced_route(self, device, frames: int,
+                             dropout: Optional[Dropout] = None) -> bool:
+        """Whether :meth:`xe_logits` runs on K4 (ops/teacher_forced.py):
+        on a CUDA ``device``, for the decoder the kernels compute (one bf16
+        LSTM layer with attention, ``models/decoding.py::kernel_decoder``)
+        at widths K4 takes over ``frames`` frames, with no vocab seam and no
+        dropout. Every other call runs the loop over the modules."""
+        from vidcap_tpu_torch.models.decoding import kernel_decoder
+        return (torch.device(device).type == "cuda" and dropout is None
+                and self.vocab_shard is None
+                and kernel_decoder(self.cfg, "teacher_forced", frames=frames,
+                                   padded_vocab=self.padded_vocab))
+
     def xe_logits(self, feats: torch.Tensor,
                   frame_mask: Optional[torch.Tensor], inputs: torch.Tensor,
                   dropout: Optional[Dropout] = None) -> torch.Tensor:
         """Teacher-forced logits: inputs int[B, L] (<bos>-shifted tokens) →
         f32[B, L, Vp]. The embeddings of the whole sequence are gathered
-        once, outside the loop over L; differentiable throughout.
+        once, outside the loop over L; differentiable throughout. On
+        :meth:`teacher_forced_route` the loop and its backward run on K4.
         ``dropout`` (the training instance): its two masks are drawn once
         here and reused at every step. Under the vocab seam the logits are
         this rank's columns, f32[B, L, Vp / model ranks]."""
         state = self.init_state(feats, frame_mask)
         embs = self.embed(inputs.long())                   # [B, L, E]
+        if self.teacher_forced_route(feats.device, feats.shape[1], dropout):
+            from vidcap_tpu_torch.ops.teacher_forced import teacher_forced
+            return teacher_forced(self, state, embs)
         keep = None
         if dropout is not None:
             B, dev, c = inputs.shape[0], feats.device, self.cfg

@@ -47,6 +47,7 @@ from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
                                             topk_project_int8)
 from vidcap_tpu_torch.ops.limits import (H100_SMEM, H100_SMS,
                                          beam_core_takes, rollout_takes,
+                                         teacher_forced_takes,
                                          topk_project_int8_takes,
                                          topk_project_takes)
 from vidcap_tpu_torch.ops.rollout import device_limits, gumbel_noise
@@ -342,12 +343,13 @@ def kernel_decoder(model_cfg, method: Optional[str] = None,
     ``method``, when its recurrent kernel takes the shape (ops/limits.py):
     K1 ``beam_width`` beams for "beam", K3 over ``frames`` frames and the
     ``padded_vocab`` on ``device``'s SMs and shared memory (the H100's off
-    the card) for "greedy" and "sample". K1–K3 run such a decoder on the
-    card with no switch back. Every other configuration, and every shape a
-    kernel refuses, decodes through the model's own modules on the caller's
-    device, where the JAX package takes its XLA path (its Pallas kernels
-    cover one-layer attention decoders only, and its beam never runs
-    Pallas)."""
+    the card) for "greedy" and "sample", K4 over ``frames`` frames and the
+    ``padded_vocab`` for "teacher_forced" (``CaptionDecoder.xe_logits``).
+    K1–K4 run such a decoder on the card with no switch back. Every other
+    configuration, and every shape a kernel refuses, decodes through the
+    model's own modules on the caller's device, where the JAX package
+    takes its XLA path (its Pallas kernels cover one-layer attention
+    decoders only, and its beam never runs Pallas)."""
     c = model_cfg
     if not (c.num_lstm_layers == 1 and c.use_attention
             and c.compute_dtype == "bfloat16"):
@@ -357,6 +359,9 @@ def kernel_decoder(model_cfg, method: Optional[str] = None,
     if method == "beam":
         return beam_core_takes(beam_width, c.embed_dim, c.hidden_dim,
                                c.attn_dim)
+    if method == "teacher_forced":
+        return teacher_forced_takes(c.hidden_dim, c.attn_dim, frames,
+                                    padded_vocab)
     device = torch.device(device or "cpu")
     sms, smem = ((H100_SMS, H100_SMEM) if device.type != "cuda"
                  else device_limits(device))

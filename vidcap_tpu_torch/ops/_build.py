@@ -41,7 +41,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vidcap_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("beam_core", "topk_project", "topk_project_int8", "rollout")
+KERNELS = ("beam_core", "topk_project", "topk_project_int8", "rollout",
+           "teacher_forced")
 SOURCES = {"topk_project_int8": "topk_project"}   # kernel → its csrc/*.cu
 MARKS = "phase_marks"    # csrc/phase_marks.cu: empty kernels, not counted
 
@@ -153,17 +154,21 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[src]
 
 
-def entry(name: str, n_ptrs: int, n_ints: int, tail: Sequence = ()):
-    """The C entry point ``vidcap_<name>`` of kernel ``name``, its argument
-    types set once: ``n_ptrs`` pointers, ``n_ints`` ints, then ``tail``
-    (ctypes types), then the stream; returns an int error code."""
-    if name not in _fns:
-        fn = getattr(load(name), f"vidcap_{name}")
+def entry(name: str, n_ptrs: int, n_ints: int, tail: Sequence = (),
+          part: str = ""):
+    """The C entry point ``vidcap_<name>`` of kernel ``name`` (with a
+    ``part``, ``vidcap_<name>_<part>``: one of the several entry points of a
+    kernel built of several launches, K4's), its argument types set once:
+    ``n_ptrs`` pointers, ``n_ints`` ints, then ``tail`` (ctypes types), then
+    the stream; returns an int error code."""
+    symbol = f"{name}_{part}" if part else name
+    if symbol not in _fns:
+        fn = getattr(load(name), f"vidcap_{symbol}")
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + list(tail) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+        _fns[symbol] = fn
+    return _fns[symbol]
 
 
 def require(kernel: str, specs) -> None:

@@ -2,12 +2,13 @@
 the constants its wrapper raises on.
 
 The wrappers (``beam_core``, ``topk_project``, ``topk_project_int8``,
-``rollout``) raise ``ValueError`` for a shape their kernel cannot compute;
-the router (``models/decoding.py::kernel_decoder`` and
-``projection_kernel``) asks these predicates first, so a shape no kernel
-takes decodes through the model's modules instead, as the JAX package
-decodes every width through XLA. Nothing here touches the card: K3's limits
-take the card's SM count and the shared memory a block may opt into
+``rollout``, ``teacher_forced``) raise ``ValueError`` for a shape their
+kernel cannot compute; the router (``models/decoding.py::kernel_decoder``
+and ``projection_kernel``) asks these predicates first, so a shape no
+kernel takes decodes through the model's modules instead (K4's: the
+teacher-forced pass through the module loop), as the JAX package decodes
+every width through XLA. Nothing here touches the card: K3's limits take
+the card's SM count and the shared memory a block may opt into
 (``ops/rollout.py::device_limits``), the H100's by default.
 """
 from __future__ import annotations
@@ -22,6 +23,10 @@ MAX_WIDTH = 512    # K3: hidden and attention widths, a column pair a thread
 # HID hidden columns of the gates; a warp merges a row's partials, 8 a lane
 ROWS, HID, MAX_GRID = 32, 4, 256
 H100_SMS, H100_SMEM = 132, 232_448   # SMs; shared memory a block may opt into
+# K4: its attention kernels keep a row's d ctx, q, bf16(u), three per-frame
+# rows and 4,096 partial sums in the 48 KB of shared memory a block takes
+# without opting in
+TF_MAX_WIDTH, TF_MAX_FRAMES = 2048, 512
 
 
 def beam_core_takes(beam: int, embed: int, hidden: int, attn: int) -> bool:
@@ -69,3 +74,13 @@ def rollout_takes(embed: int, hidden: int, attn: int, vocab: int,
     return (rollout_shape_ok(embed, hidden, attn, vocab, sms)
             and rollout_smem_bytes(False, vocab, embed, hidden, attn, frames,
                                    sms) <= smem)
+
+
+def teacher_forced_takes(hidden: int, attn: int, frames: int,
+                         vocab: int) -> bool:
+    """K4: hidden and attention widths multiples of 8 (16-byte rows of
+    bf16 keys and values) up to TF_MAX_WIDTH, 1..TF_MAX_FRAMES frames, the
+    vocab width a multiple of 4 (the logits kernels' 16-byte columns)."""
+    return (hidden % 8 == 0 and attn % 8 == 0
+            and max(hidden, attn) <= TF_MAX_WIDTH
+            and 1 <= frames <= TF_MAX_FRAMES and vocab % 4 == 0)
