@@ -134,11 +134,11 @@ from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD, SPECIALS, Vocab
 from vidcap_tpu_torch.inference import Captioner
 from vidcap_tpu_torch.models.decoder import NEG, DecoderState
-from vidcap_tpu_torch.models.decoding import (VocabProjection, beam_decode,
-                                              beam_decode_pool,
+from vidcap_tpu_torch.models import decoding
+from vidcap_tpu_torch.models.decoding import (KernelWeights, Route,
+                                              beam_decode, beam_decode_pool,
                                               fused_beam_step,
                                               module_beam_step,
-                                              projection_kernel,
                                               tile_recurrent)
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.objectives.xe import shift_right, token_logp
@@ -148,8 +148,7 @@ from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
                                             int8_logits_plain,
                                             int8_topk_project_plain,
                                             quantize_rows, topk_project_int8)
-from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
-                                          resident_mode, rollout,
+from vidcap_tpu_torch.ops.rollout import (replay_plain, rollout,
                                           rollout_plain, step_plain)
 from vidcap_tpu_torch.ops.teacher_forced import (teacher_forced,
                                                  teacher_forced_plain)
@@ -275,6 +274,13 @@ def plain_beam_step(w, k, n=None):
         return (DecoderState(h[None], c[None], st.keys, st.values,
                              st.frame_mask), logp, idx)
     return step
+
+
+def beam_weights(cap):
+    """K1's weights of ``cap``'s last beam decode, with its projection."""
+    p = cap._vocab_proj
+    return cap._weights.beam(Route("beam_core", p.kernel, p.int8 is not None,
+                                   None))
 
 
 def moved(x, device):
@@ -487,7 +493,7 @@ def compare_paths(cap, trials):
     median row. Every reading is computed before any check fails, and a
     failure prints them all."""
     cfg = cap.cfg
-    w = cap._beam_weights
+    w = beam_weights(cap)
     kstep, pstep = fused_beam_step(w, K), plain_beam_step(w, K)
     cstep = plain_beam_step(moved(w, "cpu"), K)
     worst = {"h_c": 0.0, "logp": 0.0}
@@ -685,7 +691,7 @@ def phase_k3():
     cfg = get_preset("msvd_greedy")
     model = init_params(create_model(cfg, VOCAB_G), cfg.train.seed)
     model = model.cuda().eval()
-    w = RolloutWeights.from_model(model)
+    w = KernelWeights(model.decoder).rollout()
     g = np.random.default_rng(3)
     mask = np.ones((BG, T), np.float32)
     for b, n in enumerate(g.integers(1, T + 1, BG)):
@@ -902,9 +908,9 @@ def scst_dataset(cfg, model, g):
     vocab = vocab_of(VOCAB_G)
     with torch.inference_mode():
         st = model.init_state(torch.tensor(feats, device="cuda"))
-        toks, _, _ = rollout_plain(RolloutWeights.from_model(model), st.keys,
-                                   st.values, st.frame_mask, st.h[0], st.c[0],
-                                   L)
+        toks, _, _ = rollout_plain(KernelWeights(model.decoder).rollout(),
+                                   st.keys, st.values, st.frame_mask,
+                                   st.h[0], st.c[0], L)
     toks = toks.cpu().numpy()
     pool = g.integers(4, VOCAB_G, 300)
     ids = [f"video{i}" for i in range(n)]
@@ -927,7 +933,7 @@ def plain_rollouts(state, batch, seed: int, cfg):
     model, d = state.model, cfg.decode
     with torch.inference_mode():
         st = model.init_state(batch["features"])
-        w = RolloutWeights.from_model(model)
+        w = KernelWeights(model.decoder).rollout()
         args = (w, st.keys, st.values, st.frame_mask, st.h[0].contiguous(),
                 st.c[0].contiguous(), d.max_len)
         return (Rollout(*rollout_plain(*args, True, seed, d.temperature)),
@@ -1344,7 +1350,7 @@ def phase_offline(row_floor: float):
         with torch.inference_mode():
             f_, m_ = (torch.tensor(a, device="cuda") for a in (batch, mask))
             st = tile_recurrent(cap.model.init_state(f_, m_), K)
-            plain, _ = beam_decode(plain_beam_step(cap._beam_weights, K), st,
+            plain, _ = beam_decode(plain_beam_step(beam_weights(cap), K), st,
                                    batch=len(paths),
                                    max_len=cfg.decode.max_len, beam_width=K,
                                    early_exit=cfg.decode.early_exit)
@@ -2344,8 +2350,9 @@ def pixel_rollouts(cfg, init, tables, batch, seed: int):
         feats = model.encode_features(torch.as_tensor(batch["features"],
                                                       device="cuda"))
         st = model.init_state(feats)
-    w = RolloutWeights.from_model(model)
-    resident = resident_mode(w, feats.shape[1], feats.device)
+    w = KernelWeights(model.decoder).rollout()
+    resident = decoding.route(model.decoder, d, "greedy", 1, feats.shape[1],
+                              feats.device).resident
     args = (st.keys, st.values, st.frame_mask, st.h[0].contiguous(),
             st.c[0].contiguous())
     problems = []
@@ -2742,7 +2749,7 @@ def rows_vs_cpu(cap, trials, n_cand: int, pool: bool):
     ``trials``; slot-blocking or pooled. Launches here are comparisons and
     are taken back out of the counts."""
     decode = beam_decode_pool if pool else beam_decode
-    w = cap._beam_weights
+    w = beam_weights(cap)
     kstep = fused_beam_step(w, K, n_cand)
     cstep = plain_beam_step(moved(w, "cpu"), K, n_cand)
     cfg = cap.cfg
@@ -2828,7 +2835,7 @@ def phase_beam_variants(cap, trials, floor: float):
         st = tile_recurrent(cap.model.init_state(
             torch.tensor(trials[0], device="cuda")), K)
         fused = _build.counted(lambda: beam_decode(
-            fused_beam_step(cap8._beam_weights, K), st, batch=B,
+            fused_beam_step(beam_weights(cap8), K), st, batch=B,
             max_len=cfg.decode.max_len, beam_width=K,
             early_exit=True)[0])[0]
     if not np.array_equal(fused.cpu().numpy(), first):
@@ -2911,7 +2918,8 @@ def checked_module_beam(cap, cpu, f):
     clear rows, rows, max |Δ h, c|, max |Δ logp|); its launches are taken
     back out of the counts."""
     kproj = cap._vocab_proj
-    pproj = VocabProjection.from_model(cpu.model, projection_kernel(cpu.cfg))
+    pproj = KernelWeights(cpu.model.decoder).projection(decoding.route(
+        cpu.model.decoder, cpu.cfg.decode, "beam", K, T, "cpu"))
     kstep = module_beam_step(cap.model, K, kproj)
     pdec = cpu.model.decoder
     tally = dict(bad=0, clear=0, rows=0, h_c=0.0, logp=0.0)
@@ -3663,6 +3671,13 @@ def module_loop(dec, state, embs):
     return torch.stack(out, 1)
 
 
+def k4_on(fn):
+    """K4's wrapper ``fn`` (or its plain version) as ``fn(dec, state,
+    embs)``, on the decoder's parameters."""
+    return lambda dec, state, embs: fn(KernelWeights(dec).teacher_forced(),
+                                       dec.vocab_size, state, embs)
+
+
 def tf_graph(dec, feats, toks, fn, backward: bool):
     """One CUDA graph of ``fn(dec, state, embs)`` on a copy of ``dec`` (its
     own gradient accumulators), from an encoded state and embeddings that
@@ -3712,8 +3727,9 @@ def phase_k4():
     at the f32 peak, or the bytes)."""
     dec, feats, toks, tgt = tf_case()
     _build.reset_counts()
-    lk, sk, gk = tf_compare(dec, feats, toks, tgt, teacher_forced)
-    lp, sp, gp = tf_compare(dec, feats, toks, tgt, teacher_forced_plain)
+    lk, sk, gk = tf_compare(dec, feats, toks, tgt, k4_on(teacher_forced))
+    lp, sp, gp = tf_compare(dec, feats, toks, tgt,
+                            k4_on(teacher_forced_plain))
     launches = _build.launch_counts["teacher_forced"]
     names = ["features"] + [n for n, _ in dec.named_parameters()]
     grad_err = {n: ((a - b).norm() / b.norm()).item()
@@ -3724,7 +3740,8 @@ def phase_k4():
     out = dict(max_abs_err=err, logit_tol=logit_tol,
                loss_rel_err=abs(sk - sp) / abs(sp),
                grad_rel_err_max=max(grad_err.values()), grad_rel_err=grad_err)
-    for name, fn in (("", teacher_forced), ("plain_", teacher_forced_plain),
+    for name, fn in (("", k4_on(teacher_forced)),
+                     ("plain_", k4_on(teacher_forced_plain)),
                      ("loop_", module_loop)):
         f = time_ms(tf_graph(dec, feats, toks, fn, False).replay)
         fb = time_ms(tf_graph(dec, feats, toks, fn, True).replay)

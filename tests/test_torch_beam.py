@@ -19,8 +19,8 @@ from vidcap_tpu_torch import config as tconfig
 from vidcap_tpu_torch.convert import from_flax
 from vidcap_tpu_torch.data.vocab import EOS
 from vidcap_tpu_torch.models.decoder import DecoderState
-from vidcap_tpu_torch.models.decoding import (BeamWeights, beam_decode,
-                                              fused_beam_step,
+from vidcap_tpu_torch.models.decoding import (KernelWeights, Route,
+                                              beam_decode, fused_beam_step,
                                               per_row_topk_iterative,
                                               tile_recurrent, topk_stable)
 from vidcap_tpu_torch.models.model import create_model
@@ -81,7 +81,8 @@ def test_beam_decode_matches_jax(f32_pair, early_exit, return_all):
         st, logits = tm.step_beam(st, tok, K)
         return (st, *logits_topk(logits, K))
 
-    fused = fused_beam_step(BeamWeights.from_model(tm), K)
+    fused = fused_beam_step(KernelWeights(tm.decoder).beam(
+        Route("beam_core", "topk_project", False, None)), K)
     for step_fn in (logits_step, fused):
         state = tile_recurrent(tm.init_state(torch.tensor(feats),
                                              torch.tensor(mask)), K)

@@ -24,7 +24,8 @@ from vidcap_tpu_torch.ops.rollout import (RolloutWeights, replay_plain,
                                           rollout, rollout_plain)
 from vidcap_tpu_torch.ops.topk_project import topk_project, topk_project_plain
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
-from vidcap_tpu_torch.models.decoding import Rollout, tile_recurrent
+from vidcap_tpu_torch.models.decoding import (KernelWeights, Rollout,
+                                              tile_recurrent)
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.objectives.xe import shift_right, token_logp
 from vidcap_tpu_torch.ops.teacher_forced import (teacher_forced,
@@ -405,7 +406,7 @@ def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
                                     "teacher_forced": 0}
     with torch.no_grad():
         st = state.model.init_state(batch["features"])
-        w = RolloutWeights.from_model(state.model)
+        w = KernelWeights(state.model.decoder).rollout()
         args = (w, st.keys, st.values, st.frame_mask, st.h[0], st.c[0],
                 cfg.decode.max_len)
         ps = Rollout(*rollout_plain(*args, True, 5, cfg.decode.temperature))
@@ -774,7 +775,8 @@ def _tf_inputs(dev, seed=0):
 
 def _tf_pass(dec, feats, toks, tgt, fn):
     feats = feats.clone().requires_grad_(True)
-    logits = fn(dec, dec.init_state(feats), dec.embed(toks))
+    logits = fn(KernelWeights(dec).teacher_forced(), dec.vocab_size,
+                dec.init_state(feats), dec.embed(toks))
     loss = -token_logp(logits, tgt).mean()
     leaves = [feats] + list(dec.parameters())
     return logits.detach(), loss.detach(), torch.autograd.grad(loss, leaves)

@@ -1,6 +1,6 @@
 """The decoders no kernel covers: two LSTM layers, no attention, and
-``model.compute_dtype=float32``. ``models/decoding.py::kernel_decoder``
-routes them through the model's own modules (the JAX package's XLA path
+``model.compute_dtype=float32``. ``models/decoding.py::route`` routes
+them through the model's own modules (the JAX package's XLA path
 for the same configurations); the one-layer bf16 attention decoder of every
 preset keeps K1–K3. Against the JAX package on the CPU:
 
@@ -46,10 +46,10 @@ from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.data.pipeline import DeterministicBatcher
 from vidcap_tpu_torch.inference import Captioner
 from vidcap_tpu_torch.models import decoding
-from vidcap_tpu_torch.models.decoding import kernel_decoder, sample_decode
+from vidcap_tpu_torch.models.decoding import KernelWeights, sample_decode
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops import _build
-from vidcap_tpu_torch.ops.rollout import RolloutWeights, rollout_plain
+from vidcap_tpu_torch.ops.rollout import rollout_plain
 from vidcap_tpu_torch.train.loop import batch_to_device
 from vidcap_tpu_torch.train.scst import make_scst_step_body
 from vidcap_tpu_torch.train.state import create_train_state
@@ -141,11 +141,18 @@ def test_caption_json_matches_jax_bfloat16(jax_decoders, name, method):
 
 # ------------------------------------------------------------ the router
 
+def _meta_decoder(cfg):
+    with torch.device("meta"):
+        return create_model(cfg, cfg.data.vocab_size).decoder
+
+
 def test_kernel_decoder_holds_for_every_preset_and_no_other():
-    assert all(kernel_decoder(cfg.model) for cfg in PRESETS.values())
+    """The route's first question (``CaptionDecoder.widths``): the
+    decoder the recurrent kernels compute."""
+    assert all(_meta_decoder(cfg).widths.lstm for cfg in PRESETS.values())
     for over in DECODERS.values():
         cfg = apply_overrides(get_preset("msrvtt_attn_beam5"), over)
-        assert not kernel_decoder(cfg.model)
+        assert not _meta_decoder(cfg).widths.lstm
 
 
 def _tiny(over, seed=0):
@@ -192,7 +199,7 @@ def test_router_picks_the_module_step_and_the_projection(
     cap.decode_batch(feats, method="beam", beam_width=3)
     proj = beam_kernels[0] if beam_kernels else "logits_topk"
     assert set(calls) == {"step_beam_hidden", proj}
-    assert cap._beam_weights is None and cap._rollout_weights is None
+    assert cap._weights._cell is None and cap._weights._rollout is None
     assert _build.launch_counts == before
 
 
@@ -217,14 +224,18 @@ def test_kernel_decoder_keeps_the_kernels_wrappers(monkeypatch):
 
 
 def test_the_kernels_weights_keep_refusing_other_decoders():
+    """K1's, K3's and K4's tensors of ``KernelWeights``; the projection,
+    which every decoder's beam takes, is cast."""
+    r = decoding.Route("beam_core", "topk_project", False, None)
     for over in DECODERS.values():
         if over == F32:
             continue   # on the CPU f32 weights are K1's plain version's
-        model = _tiny(over).model
-        with pytest.raises(NotImplementedError, match="kernel_decoder"):
-            decoding.BeamWeights.from_model(model)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            RolloutWeights.from_model(model)
+        w = KernelWeights(_tiny(over).model.decoder)
+        for variant in (lambda: w.beam(r), w.rollout, w.teacher_forced):
+            with pytest.raises(NotImplementedError,
+                               match="route; ROADMAP Queue 1 item 5"):
+                variant()
+        assert w.projection(r).kernel == "topk_project"
 
 
 # ------------------------------------------------------------ sampled
@@ -242,7 +253,7 @@ def test_sample_decode_equals_k3_plain_one_layer(seed, temperature):
     feats = torch.tensor(g.normal(size=(6, 8, 64)), dtype=torch.float32)
     with torch.no_grad():
         st = cap.model.init_state(feats)
-        w = RolloutWeights.from_model(cap.model)
+        w = KernelWeights(cap.model.decoder).rollout()
         tk, lk, mk = rollout_plain(w, st.keys, st.values, st.frame_mask,
                                    st.h[0], st.c[0], cap.max_len,
                                    sample=True, seed=seed,

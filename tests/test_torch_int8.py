@@ -198,7 +198,7 @@ def test_int8_beam_identical_to_jax_float32_on_the_kernel_route(
     np.testing.assert_array_equal(
         cap.decode_batch(feats, beam_width=beam, nbest=nbest), want)
     assert kernel_route["fused_beam_step"] == 1
-    assert cap._beam_weights.proj.kernel == "topk_project_int8"
+    assert cap._vocab_proj.kernel == "topk_project_int8"
 
 
 def test_exported_int8_artifact_equals_jax_artifact(int8_pair, jax_side,

@@ -25,7 +25,8 @@ from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.data.vocab import BOS
 from vidcap_tpu_torch.inference import Captioner
 from vidcap_tpu_torch.models import lm_decoder as lm
-from vidcap_tpu_torch.models.decoding import beam_decode
+from vidcap_tpu_torch.models import decoding
+from vidcap_tpu_torch.models.decoding import KernelWeights, beam_decode
 from vidcap_tpu_torch.ops.limits import MAX_HIDDEN, topk_project_takes
 from vidcap_tpu_torch.serving import BatchingCaptioner
 
@@ -99,6 +100,12 @@ def test_param_table_names_the_model():
         dataclasses.asdict(TINY))}
 
 
+def _head(m):
+    """The head as the beam's projection, through no kernel."""
+    return KernelWeights(m).projection(decoding.Route(None, None, False,
+                                                      None))
+
+
 @pytest.mark.parametrize("padded", [False, True], ids=["frames", "padded"])
 def test_cached_decode_equals_the_reference(padded):
     """The prefill then cached steps (fed <bos> and the tokens) give, at
@@ -107,7 +114,7 @@ def test_cached_decode_equals_the_reference(padded):
     reference's best leads its second by more than FLIP_TOL."""
     m = _model()
     feats, mask, toks = _inputs(4, 6, padded=padded)
-    v, i = _teacher_forced_topk(m, lm.lm_projection(m, None), feats, mask,
+    v, i = _teacher_forced_topk(m, _head(m), feats, mask,
                                   toks, 5)
     lp = _ref_logp(m, feats, mask, toks)
     assert _within((lp.gather(2, i.long()) - v).abs())
@@ -124,7 +131,7 @@ def test_absorbed_decode_equals_the_expanded_form():
     where the expanded form rounds k)."""
     m = _model()
     feats, mask, toks = _inputs(3, 5)
-    proj = lm.lm_projection(m, None)
+    proj = _head(m)
     v, i = _teacher_forced_topk(m, proj, feats, mask, toks, 5)
     T, L = TINY.num_frames, toks.shape[1]
     suffix = torch.cat([torch.full((3, 1), BOS), toks[:, :-1]], 1)
@@ -231,7 +238,7 @@ def test_lineage_reorder_equals_a_copied_cache():
     m = _model()
     feats, mask, _ = _inputs(2, 1)
     K, L = 3, 6
-    proj = lm.lm_projection(m, None)
+    proj = _head(m)
     step = lm.lm_beam_step(m, proj, K)
     st = m.init_beam(feats, mask, K, L)
     a = beam_decode(step, st, batch=2, max_len=L, beam_width=K,
@@ -290,9 +297,11 @@ def test_head_routes_to_k2_exactly_where_the_limits_say(hidden, vocab):
     m = lm.create_lm_model(c, device="meta")
     takes = topk_project_takes(5, hidden, vocab)
     assert takes is (hidden <= MAX_HIDDEN)
-    assert lm.head_kernel(m, 5) == ("topk_project" if takes else None)
     cfg = apply_overrides(get_preset("msrvtt_attn_beam5"),
                           [f"data.vocab_size={vocab}"])
+    assert decoding.route(m, cfg.decode, "beam", 5, cfg.data.num_frames,
+                          "cpu").projection == ("topk_project" if takes
+                                                else None)
     ds = CaptionDataset.synthetic(cfg.data, num_videos=2)
     cap = Captioner(cfg, m, ds, torch.device("cpu"))
     assert cap.kernels("beam", 5) == (("topk_project",) if takes else ())

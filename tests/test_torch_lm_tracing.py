@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from vidcap_tpu_torch.models import lm_decoder as lm
+from vidcap_tpu_torch.models.decoding import KernelWeights, Route
 from vidcap_tpu_torch.utils import profiling
 
 CFG = lm.LMDecoderConfig(
@@ -43,7 +44,8 @@ def _beam(tracing: bool):
     m = lm.init_lm_params(lm.create_lm_model(CFG), seed=0)
     feats = torch.randn(B, CFG.num_frames, CFG.feature_dim,
                         generator=torch.Generator().manual_seed(1))
-    step = lm.lm_beam_step(m, lm.lm_projection(m, None), K)
+    step = lm.lm_beam_step(m, KernelWeights(m).projection(
+        Route(None, None, False, None)), K)
 
     def run():
         st = m.init_beam(feats, torch.ones(B, CFG.num_frames), K, STEPS)

@@ -29,12 +29,13 @@ from vidcap_tpu_torch.convert import from_flax
 from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.data.vocab import EOS, PAD
 from vidcap_tpu_torch.inference import Captioner, NoDeviceError
-from vidcap_tpu_torch.models.decoding import greedy_decode, sample_decode
+from vidcap_tpu_torch.models import decoding
+from vidcap_tpu_torch.models.decoding import (KernelWeights, greedy_decode,
+                                              model_rollout, sample_decode)
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.rollout import (RolloutWeights, gumbel_noise,
-                                          model_rollout, replay_plain, rollout,
-                                          rollout_plain)
+                                          replay_plain, rollout, rollout_plain)
 
 SEED = 3          # the sampling seed of both Captioners
 EOS_RAISE = 1.0   # added to b_out[<eos>]: some rows end before max_len
@@ -144,7 +145,7 @@ def test_greedy_caption_json_identical_to_jax_float32_on_the_kernel_route(
     cap = _captioner(weights, over)
     assert cap.caption_dataset(method="greedy") == caps["xla_greedy"]
     assert kernel_route["model_rollout"] == 2
-    assert cap._rollout_weights is not None
+    assert cap._weights._rollout is not None
 
 
 def test_cli_greedy_caption_equals_jax_float32(jax_rollouts, tmp_path):
@@ -187,8 +188,14 @@ def test_sample_bfloat16_same_seed_matches_jax_k3(jax_rollouts):
         feats = a[f"feats{i}"]
         toks = cap.decode_batch(feats, method="sample")
         assert _same_rows(toks, a[f"k3_sample{i}"]).mean() >= 0.9
-        r = model_rollout(cap.model, torch.tensor(feats), None, cap.max_len,
-                          sample=True, seed=(SEED * 1000003 + i + 1) % 2**31)
+        route = decoding.route(cap.model.decoder, cap.cfg.decode, "sample",
+                               1, feats.shape[1], "cpu")
+        r = model_rollout(cap.model, route,
+                          KernelWeights(cap.model.decoder).rollout(),
+                          torch.tensor(feats), None, cap.max_len,
+                          cap.model.step, sample=True,
+                          seed=(SEED * 1000003 + i + 1) % 2**31,
+                          temperature=1.0, row0=0, early_exit=False)
         np.testing.assert_array_equal(r.tokens.numpy(), toks)
         same = _same_rows(toks, a[f"rollout{i}_tokens"])
         assert same.mean() >= 0.9
@@ -212,8 +219,8 @@ def test_rollout_plain_matches_pallas_rollout_sampled(jax_rollouts):
     median stays within 1e-5). Some rows end before max_len and some do
     not, on both sides."""
     _, weights, over, a = jax_rollouts["bfloat16"]
-    w = _raised(RolloutWeights.from_model(_captioner(weights, over).model),
-                EOS_RAISE)
+    w = _raised(KernelWeights(_captioner(weights, over).model.decoder)
+                .rollout(), EOS_RAISE)
     t = lambda k, dt=torch.float32: torch.tensor(a["eos_" + k]).to(dt)
     toks, logp, mask = rollout_plain(
         w, t("keys", torch.bfloat16), t("values", torch.bfloat16),
@@ -285,7 +292,7 @@ def test_finish_semantics_with_raised_eos(sample, raise_by):
     logp 0 follow it; logp ≤ 0 before. Some rows end, some do not."""
     cfg, model, feats = _tiny_port()
     st = model.init_state(feats)
-    w = _raised(RolloutWeights.from_model(model), raise_by)
+    w = _raised(KernelWeights(model.decoder).rollout(), raise_by)
     toks, logp, mask = rollout_plain(w, st.keys, st.values, st.frame_mask,
                                      st.h[0], st.c[0], cfg.decode.max_len,
                                      sample=sample, seed=5)
@@ -326,7 +333,7 @@ def test_generic_loops_match_jax_greedy_and_k3_float32():
                                                 method=JaxModel.step),
                           js, 8, L)
     st = tm.init_state(torch.tensor(feats))
-    w = RolloutWeights.from_model(tm)
+    w = KernelWeights(tm.decoder).rollout()
     k3 = rollout_plain(w, st.keys, st.values, st.frame_mask, st.h[0],
                        st.c[0], L)
     for early_exit in (False, True):
@@ -353,7 +360,7 @@ def test_rollout_wrapper_runs_plain_on_cpu():
     route refuses decoders K3 does not run."""
     cfg, model, feats = _tiny_port()
     st = model.init_state(feats)
-    w = RolloutWeights.from_model(model)
+    w = KernelWeights(model.decoder).rollout()
     args = (w, st.keys, st.values, st.frame_mask, st.h[0], st.c[0], 5)
     before = dict(_build.launch_counts)
     got = rollout(*args, sample=True, seed=2, temperature=0.7)
@@ -372,7 +379,7 @@ def test_rollout_wrapper_runs_plain_on_cpu():
         rollout(*args, sample=True, temperature=0.0)
     two = create_model(apply_overrides(cfg, ["model.num_lstm_layers=2"]), 43)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        RolloutWeights.from_model(two)
+        KernelWeights(two.decoder).rollout()
 
 
 def test_greedy_and_sample_refuse_to_run_on_cpu_unasked(tmp_path):

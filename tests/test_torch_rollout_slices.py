@@ -15,11 +15,12 @@ import pytest
 import torch
 
 from vidcap_tpu_torch.models.decoder import NEG
+from vidcap_tpu_torch.models.decoding import KernelWeights
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.config import get_preset
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.rollout import (H100_SMEM, H100_SMS,
-                                          RolloutWeights, rollout,
+                                          rollout,
                                           rollout_fits_resident, rollout_plain,
                                           rollout_smem_bytes, select_plain,
                                           select_sliced_plain,
@@ -136,7 +137,7 @@ def test_rollout_on_cpu_runs_plain_in_either_mode(resident):
                          dtype=torch.float32)
     with torch.no_grad():
         st = model.init_state(feats)
-    w = RolloutWeights.from_model(model)
+    w = KernelWeights(model.decoder).rollout()
     args = (w, st.keys, st.values, st.frame_mask, st.h[0], st.c[0], 6)
     before = dict(_build.launch_counts)
     got = rollout(*args, sample=True, seed=4, temperature=0.7,

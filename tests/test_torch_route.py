@@ -1,8 +1,7 @@
 """The route by the kernels' limits (``ops/limits.py``): each kernel says
 which shapes it takes, from the constants its wrapper raises on, and
-``models/decoding.py::kernel_decoder`` / ``projection_kernel`` send a shape
-no kernel takes through the model's modules, as the JAX package decodes
-every width through XLA. On CPU-only shape tables (the H100's SMs and
+``models/decoding.py::route`` sends a shape no kernel takes through the
+model's modules, as the JAX package decodes every width through XLA. On CPU-only shape tables (the H100's SMs and
 shared memory for K3), then through ``Captioner`` on the CPU: the shapes
 the kernels refuse (beam 9, the pool at beam 8, hidden 2080 for K2, 1024
 for K3) decode through
@@ -16,8 +15,8 @@ import torch
 from vidcap_tpu_torch.config import PRESETS, apply_overrides, get_preset
 from vidcap_tpu_torch.data.loader import CaptionDataset
 from vidcap_tpu_torch.inference import Captioner
+from test_torch_slice import force_kernel_route
 from vidcap_tpu_torch.models import decoding
-from vidcap_tpu_torch.models.decoding import kernel_decoder, projection_kernel
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops import limits
 from vidcap_tpu_torch.ops.int8_proj import (MIN_STAGES, s8_smem_bytes,
@@ -120,15 +119,17 @@ def test_every_preset_takes_the_kernels_at_its_widths():
     """The presets' decoders at their widths, beam widths, frames and
     vocab: K1, K2 and K3 take them all, so their routes do not change."""
     for cfg in PRESETS.values():
-        m, d = cfg.model, cfg.decode
-        vp = cfg.data.padded_vocab
-        assert kernel_decoder(m)
-        assert kernel_decoder(m, "beam", d.beam_width)
-        assert kernel_decoder(m, "greedy", frames=cfg.data.num_frames,
-                              padded_vocab=vp)
-        n = d.beam_width + 1 if decoding.use_finished_pool(d) \
-            else d.beam_width
-        assert projection_kernel(cfg, n, vp) == projection_kernel(cfg)
+        d, T = cfg.decode, cfg.data.num_frames
+        with torch.device("meta"):
+            dec = create_model(cfg, cfg.data.vocab_size).decoder
+        assert dec.widths.lstm
+        beam = decoding.route(dec, d, "beam", d.beam_width, T, "cpu")
+        assert beam.recurrent == "beam_core"
+        assert decoding.route(dec, d, "greedy", 1, T, "cpu").recurrent \
+            == "rollout"
+        assert beam.projection == ("topk_project_int8"
+                                   if d.int8_vocab_projection
+                                   else "topk_project")
 
 
 @pytest.mark.parametrize("over,beam,want", [
@@ -169,7 +170,7 @@ def _tiny(over):
     (["decode.int8_vocab_projection=true"], 9, "beam",
      "module_beam_step"),
     (["model.hidden_dim=2080"], 3, "beam", "fused_beam_step"),
-    (["model.hidden_dim=1024"], 3, "greedy", "_module_rollout")])
+    (["model.hidden_dim=1024"], 3, "greedy", "greedy_decode")])
 def test_refused_shapes_decode_through_the_modules(monkeypatch, over, beam,
                                                    method, route):
     """On the CPU, at synthetic_tiny's vocab (hidden 2080 or 1024 where
@@ -182,27 +183,21 @@ def test_refused_shapes_decode_through_the_modules(monkeypatch, over, beam,
     calls = []
     import vidcap_tpu_torch.inference as inference
     import vidcap_tpu_torch.models.model as model_mod
-    # K1's step is the Captioner's; the module step the model's beam surface
+    # K1's step is the Captioner's; the module step the model's beam
+    # surface; the greedy loop the rollout's (models/decoding.py)
     for mod, name in ((inference, "fused_beam_step"),
-                      (model_mod, "module_beam_step")):
+                      (model_mod, "module_beam_step"),
+                      (decoding, "greedy_decode")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name,
                             **k: (calls.append(_n), _r(*a, **k))[1])
-    real_roll = Captioner._module_rollout
-    monkeypatch.setattr(Captioner, "_module_rollout", lambda self, *a, **k: (
-        calls.append("_module_rollout"), real_roll(self, *a, **k))[1])
     got = cap.decode_batch(feats, method=method, beam_width=beam)
     assert calls == [route]
     if method == "beam":
-        w = cap._beam_weights or cap._vocab_proj
-        assert (w.proj if hasattr(w, "proj") else w).kernel is None
+        assert cap._vocab_proj.kernel is None
     # the kernels' plain versions on the same shape: the same tokens
     forced = _tiny(over)
-    for mod in (inference, model_mod):
-        monkeypatch.setattr(mod, "kernel_decoder", lambda *a, **k: True)
-    monkeypatch.setattr(model_mod, "projection_kernel", lambda cfg, *a, **k: (
-        "topk_project_int8" if cfg.decode.int8_vocab_projection
-        else "topk_project"))
+    force_kernel_route(monkeypatch)
     np.testing.assert_array_equal(
         forced.decode_batch(feats, method=method, beam_width=beam), got)
 

@@ -287,14 +287,17 @@ def test_warmup_casts_weights_before_the_first_request(jax_side, method,
     cap = port_captioner(cfg, jax_side[1])
     server = CaptionServer(cfg, cap, batch_size=4, method=method,
                            beam_width=3)
-    assert getattr(cap, weights) is None
+    # the method's tensors in the Captioner's one KernelWeights: K3's, or
+    # K1's (Wq, u, Wg, bg)
+    part = {"_rollout_weights": "_rollout", "_beam_weights": "_cell"}[weights]
+    assert getattr(cap._weights, part) is None
     server.warmup()
-    cast = getattr(cap, weights)
+    cast = getattr(cap._weights, part)
     assert cast is not None and cap.decode_calls == 1
     T, D = cfg.data.num_frames, cfg.data.feature_dim
     server._flush(["a"], [np.zeros((T, D), np.float32)], [time.perf_counter()],
                   io.StringIO())
-    assert getattr(cap, weights) is cast and cap.decode_calls == 2
+    assert getattr(cap._weights, part) is cast and cap.decode_calls == 2
 
 
 def test_serve_sharded_is_refused(tmp_path, cfg, jax_side, monkeypatch,

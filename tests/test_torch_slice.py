@@ -49,20 +49,40 @@ with open(out + "/caps.json", "w") as f:
 """
 
 
+def force_kernel_route(monkeypatch):
+    """Route every decoder and shape, f32 too, as the route routes the
+    kernel decoder (``models/decoding.py::route``): K1 with K2 (K2-int8
+    with the int8 flag) for the beam, K3 for greedy and sampled decodes;
+    the teacher-forced pass keeps its own route."""
+    from vidcap_tpu_torch.models import decoding
+    real = decoding.route
+
+    def forced(dec, decode, method, *a, **k):
+        if method == "teacher_forced":
+            return real(dec, decode, method, *a, **k)
+        if method == "beam":
+            int8 = decode.int8_vocab_projection
+            return decoding.Route("beam_core", "topk_project_int8" if int8
+                                  else "topk_project", int8, None)
+        return decoding.Route("rollout", None, False, True)
+    monkeypatch.setattr(decoding, "route", forced)
+
+
 @pytest.fixture
 def kernel_route(monkeypatch):
-    """Route every decoder, f32 too, as the router routes the kernel
-    decoder: the Captioner's beam through ``fused_beam_step`` over
-    ``BeamWeights`` with the projection through K2's wrapper (K2-int8's
-    with the int8 flag), its greedy and sampled decodes and SCST's
-    rollouts through ``model_rollout`` over ``RolloutWeights``. On CPU
-    tensors the wrappers run their kernels' plain versions, so an f32
-    decode on this route is held exactly against the JAX package through
-    the kernel path's wiring (tiling, early exit, nbest, the weights cast
-    once). ``models/decoding.py::kernel_decoder`` keeps f32 off this route
-    everywhere else. Returns the calls of the route's two entry points; a
-    module step on this route fails the test."""
+    """Route every decoder, f32 too, as the route routes the kernel
+    decoder (:func:`force_kernel_route`): the Captioner's beam through
+    ``fused_beam_step`` over ``KernelWeights.beam`` with the projection
+    through K2's wrapper (K2-int8's with the int8 flag), its greedy and
+    sampled decodes and SCST's rollouts through ``model_rollout`` over
+    ``KernelWeights.rollout``. On CPU tensors the wrappers run their
+    kernels' plain versions, so an f32 decode on this route is held exactly
+    against the JAX package through the kernel path's wiring (tiling, early
+    exit, nbest, the weights cast once). ``models/decoding.py::route`` keeps
+    f32 off this route everywhere else. Returns the calls of the route's
+    two entry points; a module step on this route fails the test."""
     from vidcap_tpu_torch import inference
+    from vidcap_tpu_torch.models import decoding
     from vidcap_tpu_torch.models import model as model_mod
     from vidcap_tpu_torch.train import scst
     calls = {"fused_beam_step": 0, "model_rollout": 0}
@@ -76,22 +96,15 @@ def kernel_route(monkeypatch):
     def refused(*a, **kw):
         raise AssertionError("a module step ran on the kernel route")
 
+    force_kernel_route(monkeypatch)
     for mod in (inference, scst):
-        monkeypatch.setattr(mod, "kernel_decoder",
-                            lambda model_cfg, *a, **k: True)
         monkeypatch.setattr(mod, "model_rollout",
                             spy("model_rollout", mod.model_rollout))
-    # the model's beam surface routes the beam (models/model.py)
-    monkeypatch.setattr(model_mod, "kernel_decoder",
-                        lambda model_cfg, *a, **k: True)
-    monkeypatch.setattr(model_mod, "projection_kernel", lambda cfg, *a, **k: (
-        "topk_project_int8" if cfg.decode.int8_vocab_projection
-        else "topk_project"))
     monkeypatch.setattr(inference, "fused_beam_step",
                         spy("fused_beam_step", inference.fused_beam_step))
     monkeypatch.setattr(model_mod, "module_beam_step", refused)
-    monkeypatch.setattr(inference.Captioner, "_module_rollout", refused)
-    monkeypatch.setattr(scst.ScstStep, "_module_rollouts", refused)
+    for loop in ("greedy_decode", "sample_decode"):
+        monkeypatch.setattr(decoding, loop, refused)
     return calls
 
 
@@ -190,6 +203,30 @@ def test_port_imports_nothing_of_jax():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in _BANNED, f"{path} imports {mod}"
+
+
+_ABOVE_OPS = tuple(f"vidcap_tpu_torch.{m}" for m in (
+    "models", "train", "inference", "serving", "parallel"))
+
+
+def test_ops_import_nothing_above_them():
+    """The kernels' wrappers take tensors: no module under ``ops/`` imports
+    the layers that call them, not even inside a function."""
+    files = glob.glob(os.path.join(REPO, "vidcap_tpu_torch", "ops", "*.py"))
+    assert len(files) > 5
+    for path in files:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            for name in names:
+                assert not (name + ".").startswith(
+                    tuple(m + "." for m in _ABOVE_OPS)), \
+                    f"{path} imports {name}"
 
 
 def test_entry_points_refuse_to_run_on_cpu_unasked(tmp_path):

@@ -9,9 +9,15 @@ import pytest
 import torch
 
 from vidcap_tpu_torch.config import ModelConfig
+from vidcap_tpu_torch.models import decoding
 from vidcap_tpu_torch.models.decoder import CaptionDecoder, Dropout
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops import teacher_forced as tf
+
+
+def _params(dec):
+    """K4's parameters of ``dec`` and its vocab size."""
+    return decoding.KernelWeights(dec).teacher_forced(), dec.vocab_size
 
 
 def _decoder(B, T, L, E, H, A, V, Vp, D, seed, **over):
@@ -48,7 +54,7 @@ def test_plain_equals_the_module_loop_bit_for_bit(B, T, L, E, H, A, V, Vp,
     loop = dec.xe_logits(feats, mask, toks)
     g_loop = torch.autograd.grad(loop, leaves, cot)
     state = dec.init_state(feats, mask)
-    plain = tf.teacher_forced_plain(dec, state, dec.embed(toks))
+    plain = tf.teacher_forced_plain(*_params(dec), state, dec.embed(toks))
     g_plain = torch.autograd.grad(plain, leaves, cot)
     assert torch.equal(loop, plain)
     names = ["features"] + [n for n, _ in dec.named_parameters()]
@@ -63,7 +69,8 @@ def test_plain_rounds_each_timesteps_weight_gradient():
     state = dec.init_state(feats, mask)
     params = list(dec.parameters())
     ok = torch.autograd.grad(tf.teacher_forced_plain(
-        dec, state, dec.embed(toks)), params, cot, retain_graph=False)
+        *_params(dec), state, dec.embed(toks)), params, cot,
+        retain_graph=False)
 
     def rounded_once(x, y):
         return sum(x[t].t().mm(y[t]) for t in reversed(range(x.shape[0])))
@@ -72,7 +79,7 @@ def test_plain_rounds_each_timesteps_weight_gradient():
         mp.setattr(tf._Plain, "wgrad", staticmethod(rounded_once))
         state = dec.init_state(feats, mask)
         bad = torch.autograd.grad(tf.teacher_forced_plain(
-            dec, state, dec.embed(toks)), params, cot)
+            *_params(dec), state, dec.embed(toks)), params, cot)
     assert any(not torch.equal(a, b) for a, b in zip(ok, bad))
 
 
@@ -103,8 +110,9 @@ def test_route_takes_the_kernel_only_where_it_computes_the_call(case):
         dropout = Dropout(0.5, 1)
     elif extra == "frames":
         frames = tf.TF_MAX_FRAMES + 1
-    assert dec.teacher_forced_route(torch.device(device), frames,
-                                    dropout) is want
+    r = decoding.route(dec, None, "teacher_forced", 1, frames,
+                       torch.device(device), dropout)
+    assert (r.recurrent == "teacher_forced") is want
 
 
 @pytest.mark.parametrize("over", [{}, {"num_lstm_layers": 2}])
@@ -128,5 +136,5 @@ def test_cpu_tensors_run_the_module_loop(over, monkeypatch):
     if not over:
         state = dec.init_state(feats)
         with pytest.raises(ValueError, match="CUDA"):
-            tf.teacher_forced(dec, state, dec.embed(torch.zeros(
+            tf.teacher_forced(*_params(dec), state, dec.embed(torch.zeros(
                 2, 4, dtype=torch.long)))

@@ -3,15 +3,9 @@ sampled or beam.
 
 Runs on the card unless the caller asks for the CPU (``device="cpu"``). With
 no card and no such request it raises; it never carries on on the CPU.
-For the one-layer bf16 attention decoder (``models/decoding.py::
-kernel_decoder``) greedy and sampled decode run through K3
-(``ops/rollout.py``), beam through K1 and K2 (or K2's int8 variant with
-``decode.int8_vocab_projection``), wherever the kernel takes the shape
-(``ops/limits.py``: the beam width, the candidates a row, the widths, K3's
-SMs and shared memory). Every other decoder, and every shape a kernel
-refuses, runs its recurrent step through the model's modules on the same
-device, as the JAX package runs such decoders through XLA, and its beam's
-projection through K2 or K2-int8 wherever one takes it. With a mesh
+Each decode asks the route (``models/decoding.py::route``) once which
+kernels run it, and takes their weights from one :class:`~vidcap_tpu_torch.
+models.decoding.KernelWeights`, cast on the first decode. With a mesh
 (``Captioner(mesh=...)``, parallel/) greedy and beam split each batch over
 the data axis; sampling stays on the rank. The beam takes the
 finished-hypothesis pool (``beam_decode_pool``) where ``use_finished_pool``
@@ -31,7 +25,6 @@ the frames and feature width, ``cfg.decode`` the beam's settings.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -42,17 +35,13 @@ import torch
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.convert import load_weights
 from vidcap_tpu_torch.data.loader import CaptionDataset
-from vidcap_tpu_torch.models.decoding import (BeamWeights,
-                                              VocabProjection, beam_decode,
-                                              beam_decode_pool,
-                                              fused_beam_step, greedy_decode,
-                                              kernel_decoder,
-                                              require_full_f32, sample_decode,
+from vidcap_tpu_torch.models import decoding
+from vidcap_tpu_torch.models.decoding import (KernelWeights, VocabProjection,
+                                              beam_decode, beam_decode_pool,
+                                              fused_beam_step, model_rollout,
                                               use_finished_pool)
 from vidcap_tpu_torch.models.model import create_model, init_params
 from vidcap_tpu_torch.ops import _build
-from vidcap_tpu_torch.ops.rollout import (RolloutWeights, model_rollout,
-                                          resident_mode)
 from vidcap_tpu_torch.parallel import sharding
 from vidcap_tpu_torch.utils import profiling
 
@@ -165,9 +154,7 @@ class Captioner:
         self.max_len = cfg.decode.max_len
         self.seed = seed              # None → wall-clock-seeded sampling
         self._sample_calls = 0        # makes successive sample seeds differ
-        self._beam_weights: Optional[BeamWeights] = None
-        self._vocab_proj: Optional[VocabProjection] = None   # other decoders
-        self._rollout_weights: Optional[RolloutWeights] = None
+        self._weights = KernelWeights(model.decoder)
         # K3's W_out mode of the last greedy/sample decode: True resident in
         # shared memory, False streamed from L2 (ops/rollout.py)
         self.rollout_resident: Optional[bool] = None
@@ -239,7 +226,13 @@ class Captioner:
     def reload_weights(self) -> None:
         """Drop the kernels' cast weights: the next decode casts the
         parameters as they are then."""
-        self._beam_weights = self._rollout_weights = self._vocab_proj = None
+        self._weights = KernelWeights(self.model.decoder)
+
+    @property
+    def _vocab_proj(self) -> Optional[VocabProjection]:
+        """The projection of the last beam, set before its first step (the
+        language model's head on its beam)."""
+        return self._weights.proj
 
     def _sample_seed(self, seed: Optional[int]) -> int:
         """The caller's seed; else one derived from ``self.seed`` and a
@@ -347,20 +340,21 @@ class Captioner:
         sample = method == "sample"
         seed_t = (torch.tensor(self._sample_seed(seed), dtype=torch.int64,
                                device=self.device) if sample else 0)
-        if not self._k3_takes(method, f.shape[1]):
-            return self._module_rollout(f, m, sample, seed_t, temperature)
-        if self._rollout_weights is None:
-            self._rollout_weights = RolloutWeights.from_model(self.model)
-        self.rollout_resident = resident_mode(self._rollout_weights,
-                                              f.shape[1], self.device)
-        r = model_rollout(self.model, f, m, self.max_len, sample=sample,
-                          seed=seed_t,
-                          temperature=temperature if sample else 1.0,
-                          weights=self._rollout_weights,
-                          resident_wout=self.rollout_resident)
+        r = decoding.route(self.model.decoder, self.cfg.decode, method, 1,
+                           f.shape[1], self.device)
+        w = None
+        if r.recurrent:
+            w = self._weights.rollout()
+            self.rollout_resident = r.resident
+        ro = model_rollout(self.model, r, w, f, m, self.max_len,
+                           self._counted(self.model.decoder.step),
+                           sample=sample, seed=seed_t,
+                           temperature=temperature, row0=0,
+                           early_exit=self.cfg.decode.early_exit)
         self.decode_calls += 1
-        self.decode_steps += self.max_len
-        return r.tokens
+        if r.recurrent:
+            self.decode_steps += self.max_len
+        return ro.tokens
 
     def _counted(self, step):
         def counted_step(st, tok):
@@ -368,55 +362,18 @@ class Captioner:
             return step(st, tok)
         return counted_step
 
-    def _module_rollout(self, f: torch.Tensor, m: torch.Tensor, sample: bool,
-                        seed: torch.Tensor, temperature: float
-                        ) -> torch.Tensor:
-        """Greedy or sampled decode of a decoder no kernel covers: the
-        loops of ``models/decoding.py`` over ``CaptionDecoder.step`` (the
-        JAX package's XLA path); the sampled noise is K3's counter hash."""
-        require_full_f32(self.model, f.device)
-        state = self.model.init_state(f, m)
-        step = self._counted(self.model.decoder.step)
-        if sample:
-            r = sample_decode(step, state, f.shape[0], self.max_len, seed,
-                              temperature)
-        else:
-            r = greedy_decode(step, state, f.shape[0], self.max_len,
-                              early_exit=self.cfg.decode.early_exit,
-                              with_logp=False)
-        self.decode_calls += 1
-        return r.tokens
-
-    def _k3_takes(self, method: str, frames: int) -> bool:
-        """Whether greedy/sampled decode of ``frames`` frames runs on K3
-        (:func:`kernel_decoder` with this card's limits)."""
-        return kernel_decoder(self.cfg.model, method, frames=frames,
-                              padded_vocab=self.model.decoder.padded_vocab,
-                              device=self.device)
-
-    def _beam_route(self, beam_width: int):
-        """(K1 takes the beam, the projection's kernel or None, candidates
-        a row) for a beam of ``beam_width`` under this configuration."""
-        n = beam_width + 1 if use_finished_pool(self.cfg.decode) \
-            else beam_width
-        return (*self.model.beam_route(self.cfg, beam_width, n), n)
-
     def kernels(self, method: str, beam_width: Optional[int] = None
                 ) -> tuple:
         """The kernels ``method`` launches on the card for this model,
         decode configuration and shape (``beam_width``, default the
-        preset's; the preset's frame count): :func:`kernel_decoder`,
-        :func:`projection_kernel`. A shape a kernel refuses runs its step
-        through the modules instead (ops/limits.py)."""
+        preset's; the preset's frame count): the route's
+        (``models/decoding.py::route``)."""
         if self.model.beam_only and method != "beam":   # the beam of one
             method, beam_width = "beam", 1
-        if method != "beam":
-            return (("rollout",) if self._k3_takes(
-                method, self.cfg.data.num_frames) else ())
-        recurrent, proj, _ = self._beam_route(
-            beam_width or self.cfg.decode.beam_width)
-        return (("beam_core",) if recurrent else ()) + ((proj,) if proj
-                                                         else ())
+        return decoding.route(
+            self.model.decoder, self.cfg.decode, method,
+            beam_width or self.cfg.decode.beam_width,
+            self.cfg.data.num_frames, self.device).kernels
 
     def warmup(self, method: str, batch_size: int, beam_width: int = 5
                ) -> None:
@@ -440,25 +397,12 @@ class Captioner:
             raise ValueError(f"nbest={nbest} must be in [1, beam_width={K}] "
                              "— the beam only carries K hypotheses")
         pool = use_finished_pool(d)
-        recurrent, kernel, n = self._beam_route(K)   # n: candidates a row
-        int8 = d.int8_vocab_projection
-        if recurrent:
-            w = self._beam_weights
-            if w is None:
-                w = BeamWeights.from_model(self.model, kernel, int8)
-            elif w.proj.kernel != kernel:   # the same weights, cast once
-                w = dataclasses.replace(w, proj=dataclasses.replace(
-                    w.proj, kernel=kernel))
-            self._beam_weights = w
-            step = fused_beam_step(w, K, n)
-        else:
-            p = self._vocab_proj
-            if p is None:
-                p = self.model.beam_projection(kernel, int8)
-            elif p.kernel != kernel:
-                p = dataclasses.replace(p, kernel=kernel)
-            self._vocab_proj = p
-            step = self.model.beam_step(p, K, n)
+        n = K + 1 if pool else K   # candidates a row
+        r = decoding.route(self.model.decoder, d, "beam", K, f.shape[1],
+                           self.device)
+        w = self._weights
+        step = (fused_beam_step(w.beam(r), K, n) if r.recurrent
+                else self.model.beam_step(w.projection(r), K, n))
         B = f.shape[0]
         state = self.model.init_beam(f, m, K, self.max_len)
         toks, _ = (beam_decode_pool if pool else beam_decode)(

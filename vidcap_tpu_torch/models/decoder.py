@@ -27,18 +27,15 @@ import torch
 from torch import nn
 
 from vidcap_tpu_torch.config import ModelConfig
-
-NEG = -1e30
+from vidcap_tpu_torch.models import decoding
+from vidcap_tpu_torch.ops import teacher_forced as k4
+from vidcap_tpu_torch.ops.cell import NEG, attention_beam, lstm_update, rnd
+from vidcap_tpu_torch.ops.rollout import counter_uniform
 
 
 def dtype_of(name: str) -> torch.dtype:
     """Config string → torch dtype ("bfloat16" | "float32")."""
     return torch.bfloat16 if name == "bfloat16" else torch.float32
-
-
-def rnd(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Round ``x`` to ``dtype`` and return it as float32 (no-op for f32)."""
-    return x.to(dtype).float() if dtype != torch.float32 else x.float()
 
 
 # the counter hash's "step" of each dropout site: [emb; ctx] before the LSTM
@@ -67,7 +64,6 @@ class Dropout:
     def mask(self, rows: int, width: int, site: int, device
              ) -> torch.Tensor:
         """bool[rows, width]: True where the value is kept."""
-        from vidcap_tpu_torch.ops.rollout import counter_uniform
         return counter_uniform(rows, width, self.seed, DROPOUT_SITES[site],
                                device, self.row0) < 1.0 - self.rate
 
@@ -131,28 +127,6 @@ class Embed(nn.Module):
         if self.shard is not None:
             return self.shard.lookup(self.embedding, token)
         return self.embedding[token]
-
-
-def lstm_update(gates: torch.Tensor, c: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 gates [N, 4H] (i, f, g, o) and c [N, H] → (h', c')."""
-    i, f, g, o = gates.chunk(4, dim=-1)
-    new_c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
-    return torch.sigmoid(o) * torch.tanh(new_c), new_c
-
-
-def attention_beam(q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
-                   frame_mask: torch.Tensor, u: torch.Tensor,
-                   cd: torch.dtype) -> torch.Tensor:
-    """Per-video attention shared by K beams. q f32[B, K, A] (already rounded
-    to ``cd``); keys [B, T, A], values [B, T, H]; frame_mask f32[B, T] →
-    ctx f32[B, K, H]."""
-    s = rnd(torch.tanh(rnd(keys.float()[:, None] + q[:, :, None], cd)), cd)
-    scores = torch.einsum("bkta,a->bkt", s, rnd(u, cd))
-    scores = torch.where(frame_mask[:, None, :] > 0, scores,
-                         torch.full_like(scores, NEG))
-    attn = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkt,btd->bkd", rnd(attn, cd), values.float())
 
 
 class LSTMCell(nn.Module):
@@ -233,6 +207,17 @@ class CaptionDecoder(nn.Module):
         # the vocab seam (parallel/sharding.py::place_state): embed and
         # out_proj hold this rank's share of the vocab
         self.vocab_shard = None
+
+    @property
+    def widths(self) -> decoding.Widths:
+        """What the route reads of this decoder (``models/decoding.py``)."""
+        c = self.cfg
+        bf16 = c.compute_dtype == "bfloat16"
+        return decoding.Widths(
+            lstm=c.num_lstm_layers == 1 and c.use_attention and bf16,
+            embed=c.embed_dim, hidden=c.hidden_dim, attn=c.attn_dim,
+            vocab=self.padded_vocab, bf16=bf16, int8=True,
+            seam=self.vocab_shard is not None)
 
     @property
     def cells(self):
@@ -356,34 +341,24 @@ class CaptionDecoder(nn.Module):
 
     # ------------------------------------------------------------------ XE path
 
-    def teacher_forced_route(self, device, frames: int,
-                             dropout: Optional[Dropout] = None) -> bool:
-        """Whether :meth:`xe_logits` runs on K4 (ops/teacher_forced.py):
-        on a CUDA ``device``, for the decoder the kernels compute (one bf16
-        LSTM layer with attention, ``models/decoding.py::kernel_decoder``)
-        at widths K4 takes over ``frames`` frames, with no vocab seam and no
-        dropout. Every other call runs the loop over the modules."""
-        from vidcap_tpu_torch.models.decoding import kernel_decoder
-        return (torch.device(device).type == "cuda" and dropout is None
-                and self.vocab_shard is None
-                and kernel_decoder(self.cfg, "teacher_forced", frames=frames,
-                                   padded_vocab=self.padded_vocab))
-
     def xe_logits(self, feats: torch.Tensor,
                   frame_mask: Optional[torch.Tensor], inputs: torch.Tensor,
                   dropout: Optional[Dropout] = None) -> torch.Tensor:
         """Teacher-forced logits: inputs int[B, L] (<bos>-shifted tokens) →
         f32[B, L, Vp]. The embeddings of the whole sequence are gathered
-        once, outside the loop over L; differentiable throughout. On
-        :meth:`teacher_forced_route` the loop and its backward run on K4.
+        once, outside the loop over L; differentiable throughout. Where the
+        route (``models/decoding.py::route``) says so, the loop and its
+        backward run on K4 (ops/teacher_forced.py).
         ``dropout`` (the training instance): its two masks are drawn once
         here and reused at every step. Under the vocab seam the logits are
         this rank's columns, f32[B, L, Vp / model ranks]."""
         state = self.init_state(feats, frame_mask)
         embs = self.embed(inputs.long())                   # [B, L, E]
-        if self.teacher_forced_route(feats.device, feats.shape[1], dropout):
-            from vidcap_tpu_torch.ops.teacher_forced import teacher_forced
-            return teacher_forced(self, state, embs)
+        if decoding.route(self, None, "teacher_forced", 1, feats.shape[1],
+                          feats.device, dropout).recurrent:
+            return k4.teacher_forced(
+                decoding.KernelWeights(self).teacher_forced(),
+                self.vocab_size, state, embs)
         keep = None
         if dropout is not None:
             B, dev, c = inputs.shape[0], feats.device, self.cfg

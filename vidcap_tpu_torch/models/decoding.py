@@ -1,32 +1,27 @@
-"""Decode strategies of the PyTorch package: greedy, sampled and beam.
+"""Decode strategies of the PyTorch package: greedy, sampled and beam, and
+the one place that decides which kernels run them.
 
 Beam search mirrors ``vidcap_tpu/models/decoding.py``: :func:`beam_decode`
 (slot-blocking beams, B×K beams flattened into the batch, the state's own
 ``reorder`` after pruning: h/c only for the LSTM) and
 :func:`beam_decode_pool` (the finished-hypothesis pool), driven by a step
 that returns each row's top-n log-probs directly (n = K for slot-blocking,
-K+1 for the pool). :func:`kernel_decoder` and
-:func:`projection_kernel` are the one place that decides, from the
-configuration and the shape (ops/limits.py), which step that is. For the
-one-layer bf16 attention decoder at a beam width K1 takes it is
-:func:`fused_beam_step`: K1 ``beam_core`` then K2 ``topk_project`` (or K2's
-int8 variant) where it takes the candidates and widths, with no switch back
-to the plain versions. For every other decoder or shape it is
-:func:`module_beam_step`: the recurrent step through the model's own
-modules, as the JAX package runs such decoders through XLA, then the same
-projection kernels wherever one computes the logits
-(:class:`VocabProjection`; none where the kernel refuses the shape).
+K+1 for the pool).
+
+:func:`route` decides, once a call, from the decoder, the configuration and
+the shape (ops/limits.py), what a call launches; :class:`KernelWeights`
+reads the decoder's parameters for the kernels and casts them once. The
+beam step is :func:`fused_beam_step` (K1 ``beam_core``, then the
+projection) where the route takes K1, else the model's own (the LSTM's
+:func:`module_beam_step`); either projects through :class:`VocabProjection`
+on the route's kernel. :func:`model_rollout` runs one greedy or sampled
+rollout, on K3 or by :func:`greedy_decode` and :func:`sample_decode`, the
+generic loops over a logits step (``model.step``), as in the JAX package.
 
 Ties go to the smallest index in the per-row top-K
 (:func:`per_row_topk_iterative`, the plain K2's) and in the K·K top-K
 (:func:`topk_stable`, one stable sort where the JAX package calls
 ``lax.top_k``); ``torch.topk`` promises no tie order.
-
-:func:`greedy_decode` and :func:`sample_decode` are the generic loops over a
-logits step (``model.step``), as in the JAX package. Serving does not use
-them for the decoder K3 runs: ``Captioner`` runs its greedy and sampled
-decode through K3 (``ops/rollout.py::model_rollout``), and every other
-decoder's through these loops over ``CaptionDecoder.step``.
 
 With early exit, each loop reads its finish test on the host once a step,
 inside a ``beam.exit_check`` span (``utils/profiling.py``; ``id`` the
@@ -40,8 +35,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD
-from vidcap_tpu_torch.models.decoder import NEG, DecoderState
 from vidcap_tpu_torch.ops.beam_core import beam_core
+from vidcap_tpu_torch.ops.cell import NEG
 from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
                                             int8_topk_project_plain,
                                             topk_project_int8)
@@ -50,18 +45,20 @@ from vidcap_tpu_torch.ops.limits import (H100_SMEM, H100_SMS,
                                          teacher_forced_takes,
                                          topk_project_int8_takes,
                                          topk_project_takes)
-from vidcap_tpu_torch.ops.rollout import device_limits, gumbel_noise
+from vidcap_tpu_torch.ops.rollout import (RolloutWeights, device_limits,
+                                          device_seed, gumbel_noise, rollout,
+                                          rollout_fits_resident)
 from vidcap_tpu_torch.ops.topk_project import (  # noqa: F401 (re-export)
     MAX_K, logits_topk, masked_logits, per_row_topk_iterative, topk_project)
 from vidcap_tpu_torch.utils import profiling
 
 # step(state, prev_tok i64[B·K]) → (state, logp f32[B·K, n], idx i32[B·K, n])
 # with n = K (beam_decode) or K + 1 (beam_decode_pool) candidates a row
-BeamStep = Callable[[DecoderState, torch.Tensor],
-                    Tuple[DecoderState, torch.Tensor, torch.Tensor]]
+BeamStep = Callable[["DecoderState", torch.Tensor],
+                    Tuple["DecoderState", torch.Tensor, torch.Tensor]]
 # step(state, prev_tok i64[B]) → (state, logits f32[B, V])
-LogitsStep = Callable[[DecoderState, torch.Tensor],
-                      Tuple[DecoderState, torch.Tensor]]
+LogitsStep = Callable[["DecoderState", torch.Tensor],
+                      Tuple["DecoderState", torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -173,16 +170,15 @@ def use_finished_pool(decode_cfg) -> bool:
                             and decode_cfg.length_penalty != 0.0)
 
 
-def tile_recurrent(state: DecoderState, beam_width: int) -> DecoderState:
+def tile_recurrent(state, beam_width: int):
     """Beam-tile only h and c (→ [layers, B·K, H]); attention tensors stay
     per video for the shared-keys beam step."""
-    return DecoderState(h=state.h.repeat_interleave(beam_width, dim=1),
-                        c=state.c.repeat_interleave(beam_width, dim=1),
-                        keys=state.keys, values=state.values,
-                        frame_mask=state.frame_mask)
+    return dataclasses.replace(
+        state, h=state.h.repeat_interleave(beam_width, dim=1),
+        c=state.c.repeat_interleave(beam_width, dim=1))
 
 
-def beam_decode(step_fn: BeamStep, state: DecoderState, batch: int,
+def beam_decode(step_fn: BeamStep, state, batch: int,
                 max_len: int, beam_width: int, length_penalty: float = 0.0,
                 early_exit: bool = False, return_all: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -244,7 +240,7 @@ def beam_decode(step_fn: BeamStep, state: DecoderState, batch: int,
     return alive_seq[rows, best], scores[rows, best]
 
 
-def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
+def beam_decode_pool(step_fn: BeamStep, state, batch: int,
                      max_len: int, beam_width: int,
                      length_penalty: float = 0.0, early_exit: bool = False,
                      return_all: bool = False
@@ -335,93 +331,111 @@ def beam_decode_pool(step_fn: BeamStep, state: DecoderState, batch: int,
     return toks, torch.where(use_fin, fin_best, alive_best)
 
 
-def kernel_decoder(model_cfg, method: Optional[str] = None,
-                   beam_width: int = 1, frames: int = 1,
-                   padded_vocab: Optional[int] = None, device=None) -> bool:
-    """True for the decoder the kernels compute, one LSTM layer with
-    attention in bf16 (``model_cfg``: the ``model`` section), and, given a
-    ``method``, when its recurrent kernel takes the shape (ops/limits.py):
-    K1 ``beam_width`` beams for "beam", K3 over ``frames`` frames and the
-    ``padded_vocab`` on ``device``'s SMs and shared memory (the H100's off
-    the card) for "greedy" and "sample", K4 over ``frames`` frames and the
-    ``padded_vocab`` for "teacher_forced" (``CaptionDecoder.xe_logits``).
-    K1–K4 run such a decoder on the card with no switch back. Every other
-    configuration, and every shape a kernel refuses, decodes through the
-    model's own modules on the caller's device, where the JAX package
-    takes its XLA path (its Pallas kernels cover one-layer attention
-    decoders only, and its beam never runs Pallas)."""
-    c = model_cfg
-    if not (c.num_lstm_layers == 1 and c.use_attention
-            and c.compute_dtype == "bfloat16"):
-        return False
-    if method is None:
-        return True
+@dataclasses.dataclass(frozen=True)
+class Widths:
+    """What :func:`route` reads of a decoder (its ``widths``): whether it is
+    the decoder the recurrent kernels compute, one bf16 LSTM layer with
+    attention (``lstm``); its embedding, hidden and attention widths and its
+    projection's vocab columns; whether its projection weights are bf16;
+    whether it has the int8 projection; whether it holds a rank's share of
+    the vocab (the vocab seam, ``parallel/sharding.py::VocabShard``)."""
+
+    lstm: bool
+    embed: int
+    hidden: int
+    attn: int
+    vocab: int
+    bf16: bool
+    int8: bool
+    seam: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """What one call launches (:func:`route`): its recurrent kernel
+    ("beam_core", "rollout" or "teacher_forced"), or None where the model's
+    modules compute the step; the beam's projection kernel ("topk_project"
+    or "topk_project_int8"), or None where PyTorch computes it; whether that
+    projection is the int8 one; and K3's W_out mode, True resident in shared
+    memory, False streamed from L2 (None without K3)."""
+
+    recurrent: Optional[str]
+    projection: Optional[str]
+    int8: bool
+    resident: Optional[bool]
+
+    @property
+    def kernels(self) -> Tuple[str, ...]:
+        return tuple(k for k in (self.recurrent, self.projection) if k)
+
+
+def route(dec, decode, method: str, beam_width: int, frames: int, device,
+          dropout=None) -> Route:
+    """The one place that decides which kernels a call of decoder ``dec``
+    (a model's ``decoder``) launches, once a call: ``method`` "beam",
+    "greedy", "sample" or "teacher_forced" (``CaptionDecoder.xe_logits``,
+    with its ``dropout``) under the decode configuration ``decode``, at
+    ``beam_width`` beams (candidates a row: one more with the finished
+    pool) over ``frames`` frames on ``device``.
+
+    K1 (beam), K3 (greedy and sampled) and K4 (teacher-forced) run the one
+    bf16 LSTM layer with attention wherever the kernel takes the shape
+    (ops/limits.py): K3 on ``device``'s SMs and shared memory (the H100's
+    off the card), K4 on the card only, with no dropout and no vocab seam.
+    They run it with no switch back. Every other decoder, and every shape a
+    kernel refuses, runs its step through the model's modules on the same
+    device, where the JAX package takes its XLA path (its Pallas kernels
+    cover one-layer attention decoders only, and its beam never runs
+    Pallas). The beam's projection runs on K2-int8 with
+    ``decode.int8_vocab_projection`` where the decoder has the int8
+    projection, else on K2 for bf16 weights, wherever the kernel takes the
+    candidates and widths."""
+    w = dec.widths
+    device = torch.device(device)
     if method == "beam":
-        return beam_core_takes(beam_width, c.embed_dim, c.hidden_dim,
-                               c.attn_dim)
+        n = beam_width + 1 if use_finished_pool(decode) else beam_width
+        int8 = decode.int8_vocab_projection and w.int8
+        kernel, takes = (("topk_project_int8", topk_project_int8_takes)
+                         if int8 else ("topk_project", topk_project_takes))
+        proj = kernel if (int8 or w.bf16) and takes(n, w.hidden, w.vocab) \
+            else None
+        k1 = w.lstm and beam_core_takes(beam_width, w.embed, w.hidden, w.attn)
+        return Route("beam_core" if k1 else None, proj, int8, None)
     if method == "teacher_forced":
-        return teacher_forced_takes(c.hidden_dim, c.attn_dim, frames,
-                                    padded_vocab)
-    device = torch.device(device or "cpu")
+        k4 = (w.lstm and device.type == "cuda" and dropout is None
+              and not w.seam
+              and teacher_forced_takes(w.hidden, w.attn, frames, w.vocab))
+        return Route("teacher_forced" if k4 else None, None, False, None)
+    none = Route(None, None, False, None)
+    if not w.lstm:
+        return none
     sms, smem = ((H100_SMS, H100_SMEM) if device.type != "cuda"
                  else device_limits(device))
-    return rollout_takes(c.embed_dim, c.hidden_dim, c.attn_dim, padded_vocab,
-                         frames, sms, smem)
-
-
-def projection_kernel(cfg, candidates: Optional[int] = None,
-                      padded_vocab: Optional[int] = None) -> Optional[str]:
-    """The kernel that computes the beam's projection and top-n on the card
-    for the configuration ``cfg``: K2's int8 variant with the int8 flag, K2
-    for bf16 weights, none for f32 weights (:class:`VocabProjection`); given
-    ``candidates`` a row and the ``padded_vocab``, none where that kernel
-    does not take the shape (ops/limits.py)."""
-    H = cfg.model.hidden_dim
-    if cfg.decode.int8_vocab_projection:
-        kernel, takes = "topk_project_int8", topk_project_int8_takes
-    elif cfg.model.compute_dtype == "bfloat16":
-        kernel, takes = "topk_project", topk_project_takes
-    else:
-        return None
-    if candidates is not None and not takes(candidates, H, padded_vocab):
-        return None
-    return kernel
+    if not rollout_takes(w.embed, w.hidden, w.attn, w.vocab, frames, sms,
+                         smem):
+        return none
+    return Route("rollout", None, False, device.type != "cuda"
+                 or rollout_fits_resident(w.vocab, w.embed, w.hidden, w.attn,
+                                          frames, sms, smem))
 
 
 @dataclasses.dataclass
 class VocabProjection:
     """The beam step's vocab projection, per-row top-n and lse, from the
-    top hidden state, through ``kernel`` (:func:`projection_kernel` of the
-    configuration and shape, decided once here): K2's int8 variant on the
-    quantized weights (``decode.int8_vocab_projection``, any compute dtype:
-    the int8 product does not depend on it); K2 on the weights in the
-    compute dtype (``logits_topk`` of ``CaptionDecoder.logits``, exactly,
-    for bf16); or, with none, the same arithmetic in PyTorch, which no
-    kernel computes: K2-int8's plain version on the quantized weights, else
-    ``logits_topk`` of the logits in the compute dtype (the JAX package
-    computes them in XLA)."""
+    top hidden state, through ``kernel`` (the route's ``projection``): K2's
+    int8 variant on the quantized weights (``decode.int8_vocab_projection``,
+    any compute dtype: the int8 product does not depend on it); K2 on the
+    weights in the compute dtype (``logits_topk`` of
+    ``CaptionDecoder.logits``, exactly, for bf16); or, with none, the same
+    arithmetic in PyTorch, which no kernel computes: K2-int8's plain version
+    on the quantized weights, else ``logits_topk`` of the logits in the
+    compute dtype (the JAX package computes them in XLA)."""
 
     kernel: Optional[str]
     vocab_size: int
     w_out: Optional[torch.Tensor] = None   # compute dtype [H, Vp]; not int8
     b_out: Optional[torch.Tensor] = None   # f32 [Vp]; not int8
     int8: Optional[Int8Projection] = None   # int8 only
-
-    @classmethod
-    def from_model(cls, model, kernel: Optional[str] = "topk_project",
-                   int8: Optional[bool] = None) -> "VocabProjection":
-        """Quantize (int8: the flag, by default whether ``kernel`` is
-        K2-int8) or cast the decoder's out_proj once."""
-        dec = model.decoder
-        if int8 is None:
-            int8 = kernel == "topk_project_int8"
-        if int8:
-            return cls(kernel, dec.vocab_size, int8=Int8Projection.from_dense(
-                dec.out_proj, dec.vocab_size))
-        return cls(kernel, dec.vocab_size,
-                   w_out=dec.out_proj.kernel.detach().to(
-                       dec.compute_dtype).contiguous(),
-                   b_out=dec.out_proj.bias.detach().contiguous())
 
     def topk(self, h: torch.Tensor, n: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -438,10 +452,10 @@ class VocabProjection:
 
 @dataclasses.dataclass
 class BeamWeights:
-    """K1's weights in the kernel's layout, cast once: wq [H, A] and
-    wg [E+2H, 4H] in the compute dtype (bf16 on the card); u, bg and the
-    embedding table in f32; and the projection (:class:`VocabProjection`,
-    K2 or K2-int8)."""
+    """K1's weights in the kernel's layout (:meth:`KernelWeights.beam`): wq
+    [H, A] and wg [E+2H, 4H] in the compute dtype (bf16 on the card); u, bg
+    and the embedding table in f32; and the projection
+    (:class:`VocabProjection`, K2 or K2-int8)."""
 
     embedding: torch.Tensor
     wq: torch.Tensor
@@ -450,32 +464,106 @@ class BeamWeights:
     bg: torch.Tensor
     proj: VocabProjection
 
-    @classmethod
-    def from_model(cls, model, proj_kernel: Optional[str] = "topk_project",
-                   int8: Optional[bool] = None) -> "BeamWeights":
-        """``proj_kernel``: :func:`projection_kernel` of the configuration
-        and shape; ``int8``: the flag (:class:`VocabProjection`)."""
-        dec = model.decoder
+
+class KernelWeights:
+    """The tensors the kernels take of decoder ``dec`` (a model's
+    ``decoder``), read from its parameters here alone, each cast once, on
+    the first call that asks for it: the beam's projection
+    (:meth:`projection`, any decoder), and of the one bf16 LSTM layer with
+    attention K1's (:meth:`beam`, the embedding in f32), K3's
+    (:meth:`rollout`, the embedding in the compute dtype; Wq, u, Wg and bg
+    shared with K1, W_out and b_out with the projection) and K4's parameters
+    as they are (:meth:`teacher_forced`: autograd needs them). ``full``:
+    (embedding, out_proj kernel, bias) of the whole vocab where ``dec``
+    holds a rank's share of it (the vocab seam,
+    ``parallel/sharding.py::VocabShard.full``). A ``Captioner`` keeps one
+    until its parameters change; the SCST step builds one a step."""
+
+    def __init__(self, dec, full=None):
+        self.dec = dec
+        self.full = full
+        self.proj: Optional[VocabProjection] = None   # the last one handed out
+        self._cell = None   # (Wq, u, Wg, bg)
+        self._head = None   # (W_out, b_out)
+        self._rollout: Optional[RolloutWeights] = None
+
+    def _one_layer(self):
+        """The decoder, if the kernels compute it; raises for every other
+        (f32 only for CUDA tensors: on the CPU the plain versions take f32
+        weights)."""
+        dec = self.dec
         c = dec.cfg
-        if c.num_lstm_layers != 1 or not c.use_attention:
+        if (c.num_lstm_layers != 1 or not c.use_attention
+                or (dec.out_proj.kernel.is_cuda
+                    and dec.compute_dtype != torch.bfloat16)):
             raise NotImplementedError(
-                "K1 (beam_core) runs only the 1-layer attention decoder (got "
-                f"num_lstm_layers={c.num_lstm_layers}, use_attention="
-                f"{c.use_attention}); the Captioner decodes other decoders "
-                "through module_beam_step (models/decoding.py::"
-                "kernel_decoder; ROADMAP Queue 1 item 5)")
-        cd = dec.compute_dtype
-        if dec.out_proj.kernel.is_cuda and cd != torch.bfloat16:
-            raise NotImplementedError(
-                "K1 (beam_core) computes in bf16; the Captioner decodes "
-                "model.compute_dtype=float32 through module_beam_step "
-                "(models/decoding.py::kernel_decoder; ROADMAP Queue 1 item 5)")
-        d = lambda p: p.detach().contiguous()
-        return cls(embedding=d(dec.embed.embedding),
-                   wq=d(dec.attention.query.kernel.to(cd)),
-                   u=d(dec.attention.u), wg=d(dec.lstm0.w.to(cd)),
-                   bg=d(dec.lstm0.b),
-                   proj=VocabProjection.from_model(model, proj_kernel, int8))
+                "K1, K3 and K4 compute one bf16 LSTM layer with attention "
+                f"(got num_lstm_layers={c.num_lstm_layers}, use_attention="
+                f"{c.use_attention}, compute_dtype={c.compute_dtype}); every "
+                "other decoder decodes through its modules (models/"
+                "decoding.py::route; ROADMAP Queue 1 item 5)")
+        return dec
+
+    def _cast(self, p: torch.Tensor) -> torch.Tensor:
+        return p.detach().to(self.dec.compute_dtype).contiguous()
+
+    def _cell_weights(self):
+        if self._cell is None:
+            dec = self._one_layer()
+            f32 = lambda p: p.detach().float().contiguous()
+            self._cell = (self._cast(dec.attention.query.kernel),
+                          f32(dec.attention.u), self._cast(dec.lstm0.w),
+                          f32(dec.lstm0.b))
+        return self._cell
+
+    def _head_weights(self):
+        if self._head is None:
+            out = self.dec.out_proj
+            w, b = self.full[1:] if self.full else (out.kernel, out.bias)
+            self._head = (self._cast(w), torch.zeros(w.shape[1],
+                                                     device=w.device)
+                          if b is None else b.detach().float().contiguous())
+        return self._head
+
+    def projection(self, r: Route) -> VocabProjection:
+        """The beam's projection through ``r.projection``: quantized
+        (``r.int8``) or cast once; a later route changes its kernel, not its
+        weights."""
+        p, dec = self.proj, self.dec
+        if p is None or (p.int8 is not None) != r.int8:
+            p = (VocabProjection(r.projection, dec.vocab_size,
+                                 int8=Int8Projection.from_dense(
+                                     dec.out_proj, dec.vocab_size))
+                 if r.int8 else
+                 VocabProjection(r.projection, dec.vocab_size,
+                                 *self._head_weights()))
+        elif p.kernel != r.projection:
+            p = dataclasses.replace(p, kernel=r.projection)
+        self.proj = p
+        return p
+
+    def beam(self, r: Route) -> BeamWeights:
+        """K1's weights, with the projection of ``r``."""
+        cell = self._cell_weights()
+        return BeamWeights(self.dec.embed.embedding.detach().contiguous(),
+                           *cell, self.projection(r))
+
+    def rollout(self) -> RolloutWeights:
+        if self._rollout is None:
+            dec = self._one_layer()
+            emb = self._cast(self.full[0] if self.full
+                             else dec.embed.embedding)
+            self._rollout = RolloutWeights(emb, *self._cell_weights(),
+                                           *self._head_weights(),
+                                           dec.vocab_size)
+        return self._rollout
+
+    def teacher_forced(self) -> Tuple[torch.Tensor, ...]:
+        """(Wq, u, W, b, W_out, b_out), the parameters themselves."""
+        dec = self._one_layer()
+        a, out = dec.attention, dec.out_proj
+        return (a.query.kernel, a.u, dec.lstm0.w, dec.lstm0.b, out.kernel,
+                out.bias)
 
 
 def fused_beam_step(w: BeamWeights, beam_width: int,
@@ -489,15 +577,13 @@ def fused_beam_step(w: BeamWeights, beam_width: int,
     K = beam_width
     n = candidates or K
 
-    def step(state: DecoderState, tok: torch.Tensor):
+    def step(state, tok: torch.Tensor):
         emb = w.embedding[tok]
         h, c = beam_core(emb, state.h[0], state.c[0], state.keys,
                          state.values, state.frame_mask, w.wq, w.u, w.wg,
                          w.bg, K)
         logp, idx = w.proj.topk(h, n)
-        return (DecoderState(h=h[None], c=c[None], keys=state.keys,
-                             values=state.values,
-                             frame_mask=state.frame_mask), logp, idx)
+        return dataclasses.replace(state, h=h[None], c=c[None]), logp, idx
 
     return step
 
@@ -525,9 +611,43 @@ def module_beam_step(model, beam_width: int, proj: VocabProjection,
     dec = model.decoder
     require_full_f32(model, dec.out_proj.kernel.device)
 
-    def step(state: DecoderState, tok: torch.Tensor):
+    def step(state, tok: torch.Tensor):
         state, h = dec.step_beam_hidden(state, tok, K)
         logp, idx = proj.topk(h, n)
         return state, logp, idx
 
     return step
+
+
+@torch.no_grad()
+def model_rollout(model, r: Route, w: Optional[RolloutWeights], feats,
+                  frame_mask, max_len: int, step: LogitsStep, *,
+                  sample: bool, seed, temperature: float, row0: int,
+                  early_exit: bool) -> Rollout:
+    """One greedy or sampled (``sample``) rollout of ``model`` from the
+    features ``feats`` (``model.init_state``) on route ``r``: by K3
+    (``ops/rollout.py::rollout``: forward only, one launch a 32 rows on the
+    card, its plain version on the CPU) over its weights ``w``
+    (:meth:`KernelWeights.rollout`) in ``r``'s W_out mode; else by
+    :func:`sample_decode` or :func:`greedy_decode` over ``step`` (the
+    model's ``step``, or a caller's wrapper of it), the greedy one reading
+    its finish test on the host once a step with ``early_exit``. ``seed``
+    (sampled only): an int or an int64 tensor on the device, read there;
+    ``row0``: the noise hash's row of the first row (a data-parallel rank's
+    offset in the global batch). Both routes draw K3's counter-hash noise
+    (``ops/rollout.py::gumbel_noise``)."""
+    state = model.init_state(feats, frame_mask)
+    if r.recurrent:
+        toks, logp, mask = rollout(
+            w, state.keys, state.values, state.frame_mask,
+            state.h[0].contiguous(), state.c[0].contiguous(), max_len,
+            sample, seed, temperature if sample else 1.0, r.resident, row0)
+        return Rollout(tokens=toks, logp=logp, mask=mask)
+    require_full_f32(model, feats.device)
+    B = feats.shape[0]
+    if sample:
+        return sample_decode(step, state, B, max_len,
+                             device_seed(seed, feats.device), temperature,
+                             row0)
+    return greedy_decode(step, state, B, max_len, early_exit=early_exit,
+                         with_logp=False)

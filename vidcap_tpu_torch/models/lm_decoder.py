@@ -52,14 +52,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vidcap_tpu_torch.models.decoding import VocabProjection
-from vidcap_tpu_torch.ops.limits import topk_project_takes
+from vidcap_tpu_torch.models.decoding import VocabProjection, Widths
 from vidcap_tpu_torch.utils import profiling
 
 NEG = -1e30
@@ -434,7 +434,7 @@ class LMCaptionModel(nn.Module):
     has too."""
 
     beam_only = True
-    feature_dtype = BF16
+    feature_dtype = compute_dtype = BF16
 
     def __init__(self, cfg: LMDecoderConfig = KIMI_VL_A3B, device=None):
         super().__init__()
@@ -512,13 +512,26 @@ class LMCaptionModel(nn.Module):
         return dataclasses.replace(state, t=t + 1), out
 
 
-    def beam_route(self, cfg, beam_width: int, candidates: int):
-        """(no recurrent kernel, K2 where it takes the head or None)."""
-        return False, head_kernel(self, candidates)
+    @property
+    def decoder(self) -> "LMCaptionModel":
+        """What the route and the kernels' weights read
+        (``models/decoding.py``): the model itself."""
+        return self
 
-    def beam_projection(self, kernel: Optional[str], int8: bool
-                        ) -> VocabProjection:
-        return lm_projection(self, kernel)
+    @property
+    def widths(self) -> Widths:
+        """No recurrent kernel; K2 where it takes the head's hidden width
+        and vocab (the int8 projection is the LSTM decoder's alone)."""
+        c = self.cfg
+        return Widths(lstm=False, embed=c.hidden_size, hidden=c.hidden_size,
+                      attn=0, vocab=c.vocab_size, bf16=True, int8=False,
+                      seam=False)
+
+    @property
+    def out_proj(self):
+        """The head as the beam's projection weights: ``lm_head`` bf16[H,
+        V], no bias."""
+        return types.SimpleNamespace(kernel=self.lm_head, bias=None)
 
     def beam_step(self, proj: VocabProjection, beam_width: int,
                   candidates: int):
@@ -579,25 +592,7 @@ def load_lm_weights(model: LMCaptionModel, tensors, share: bool = True
     return model
 
 
-# ------------------------------------------------------ beam step and head
-
-def lm_projection(model: LMCaptionModel, kernel: Optional[str]
-                  ) -> VocabProjection:
-    """The head as the beam's :class:`~vidcap_tpu_torch.models.decoding.
-    VocabProjection`: ``lm_head`` bf16[H, V] with a zero bias, through
-    ``kernel`` (K2, or None for the same arithmetic in PyTorch)."""
-    return VocabProjection(kernel, model.vocab_size,
-                           w_out=model.lm_head.detach(),
-                           b_out=torch.zeros(model.vocab_size,
-                                             device=model.lm_head.device))
-
-
-def head_kernel(model: LMCaptionModel, candidates: int) -> Optional[str]:
-    """K2 where it takes the head's shape (ops/limits.py), else None."""
-    c = model.cfg
-    return ("topk_project" if topk_project_takes(
-        candidates, c.hidden_size, c.vocab_size) else None)
-
+# ------------------------------------------------------------- beam step
 
 def lm_beam_step(model: LMCaptionModel, proj, candidates: int):
     """The beam step (``models/decoding.py::BeamStep``): the cached

@@ -18,9 +18,7 @@ from torch import nn
 from vidcap_tpu_torch.config import Config
 from vidcap_tpu_torch.models import backbone as backbone_mod
 from vidcap_tpu_torch.models.decoding import (VocabProjection,
-                                              kernel_decoder,
                                               module_beam_step,
-                                              projection_kernel,
                                               tile_recurrent)
 from vidcap_tpu_torch.models.decoder import (CaptionDecoder, DecoderState,
                                              Dense, Dropout, dtype_of)
@@ -34,9 +32,8 @@ def padded_vocab_size(cfg: Config, vocab_size: int) -> int:
 
 class VidCapModel(nn.Module):
     # greedy and sampled decodes have their own loops (and K3); the beam's
-    # surface (``init_beam``, ``beam_route``, ``beam_projection``,
-    # ``beam_step``, ``feature_dtype``) is the one the Captioner calls on
-    # every decoder family
+    # surface (``decoder``, ``init_beam``, ``beam_step``, ``feature_dtype``)
+    # is the one the Captioner calls on every decoder family
     beam_only = False
 
     def __init__(self, cfg: Config, vocab_size: int):
@@ -83,17 +80,6 @@ class VidCapModel(nn.Module):
         """The beam's state: h/c tiled to B·K rows (``max_len`` unused)."""
         return tile_recurrent(self.init_state(inputs, frame_mask),
                               beam_width)
-
-    def beam_route(self, cfg: Config, beam_width: int, candidates: int):
-        """(K1 takes the beam, the projection's kernel or None) under
-        ``cfg`` (models/decoding.py)."""
-        return (kernel_decoder(cfg.model, "beam", beam_width),
-                projection_kernel(cfg, candidates,
-                                  self.decoder.padded_vocab))
-
-    def beam_projection(self, kernel: Optional[str], int8: bool
-                        ) -> VocabProjection:
-        return VocabProjection.from_model(self, kernel, int8)
 
     def beam_step(self, proj: VocabProjection, beam_width: int,
                   candidates: int):

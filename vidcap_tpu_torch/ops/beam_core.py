@@ -19,8 +19,8 @@ from typing import Tuple
 
 import torch
 
-from vidcap_tpu_torch.models.decoder import attention_beam, lstm_update, rnd
 from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.ops.cell import attention_beam, lstm_update, rnd
 from vidcap_tpu_torch.ops.limits import MAX_BEAM, beam_core_takes
 
 

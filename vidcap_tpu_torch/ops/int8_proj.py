@@ -38,8 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from vidcap_tpu_torch.models.decoder import NEG
 from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.ops.cell import NEG
 from vidcap_tpu_torch.ops.limits import H100_SMEM, topk_project_int8_takes
 from vidcap_tpu_torch.ops.topk_project import (MAX_K, _sm_count,
                                                chunk_layout, logits_topk,

@@ -3,11 +3,10 @@ the constants its wrapper raises on.
 
 The wrappers (``beam_core``, ``topk_project``, ``topk_project_int8``,
 ``rollout``, ``teacher_forced``) raise ``ValueError`` for a shape their
-kernel cannot compute; the router (``models/decoding.py::kernel_decoder``
-and ``projection_kernel``) asks these predicates first, so a shape no
-kernel takes decodes through the model's modules instead (K4's: the
-teacher-forced pass through the module loop), as the JAX package decodes
-every width through XLA. Nothing here touches the card: K3's limits take
+kernel cannot compute; the route (``models/decoding.py::route``) asks these
+predicates first, so a shape no kernel takes decodes through the model's
+modules instead (K4's: the teacher-forced pass through the module loop),
+as the JAX package decodes every width through XLA. Nothing here touches the card: K3's limits take
 the card's SM count and the shared memory a block may opt into
 (``ops/rollout.py::device_limits``), the H100's by default.
 """

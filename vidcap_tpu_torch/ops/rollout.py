@@ -19,23 +19,23 @@ run. The sampling seed is an int or an int64 tensor; the kernel reads it
 from device memory at launch, so a captured launch samples with the seed
 written into its buffer before each replay. :func:`rollout` launches the
 kernel for CUDA tensors and runs :func:`rollout_plain` for CPU tensors; it
-never falls back from one to the other. On the card the kernel keeps W_out in shared memory for the whole
-rollout (``resident_wout=True``) or streams it from L2 each step
-(``False``), as ``pallas_rollout`` does; :func:`resident_mode` is the
-choice ``model_rollout`` and ``Captioner`` make.
+never falls back from one to the other. On the card the kernel keeps W_out
+in shared memory for the whole rollout (``resident_wout=True``) or streams
+it from L2 each step (``False``), as ``pallas_rollout`` does; the route
+(``models/decoding.py::route``) chooses.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from vidcap_tpu_torch.data.vocab import BOS, EOS, PAD
-from vidcap_tpu_torch.models.decoder import NEG
 from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.beam_core import beam_core_plain
+from vidcap_tpu_torch.ops.cell import NEG
 from vidcap_tpu_torch.ops.limits import (  # noqa: F401 (H100_*: re-export)
     H100_SMEM, H100_SMS, HID, MAX_GRID, MAX_WIDTH, ROWS, rollout_shape_ok)
 from vidcap_tpu_torch.ops.topk_project import masked_logits
@@ -45,9 +45,10 @@ _U32 = 0xFFFFFFFF
 
 @dataclasses.dataclass
 class RolloutWeights:
-    """The rollout's weights in the kernel's layout, cast once: emb [Vp, E],
-    wq [H, A], wg [E+2H, 4H], w_out [H, Vp] in the compute dtype (bf16 on
-    the card, as K3 always computes); u, bg, b_out in f32."""
+    """The rollout's weights in the kernel's layout: emb [Vp, E], wq [H, A],
+    wg [E+2H, 4H], w_out [H, Vp] in the compute dtype (bf16 on the card, as
+    K3 always computes); u, bg, b_out in f32 (``models/decoding.py::
+    KernelWeights`` casts them from a decoder)."""
 
     emb: torch.Tensor
     wq: torch.Tensor
@@ -57,36 +58,6 @@ class RolloutWeights:
     w_out: torch.Tensor
     b_out: torch.Tensor
     vocab_size: int
-
-    @classmethod
-    def from_model(cls, model, full=None) -> "RolloutWeights":
-        """``full``: (embedding, out_proj kernel, bias) of the whole vocab
-        where the model holds a rank's share of it (the vocab seam,
-        parallel/sharding.py::VocabShard.full)."""
-        dec = model.decoder
-        c = dec.cfg
-        if c.num_lstm_layers != 1 or not c.use_attention:
-            raise NotImplementedError(
-                "K3 (the rollout kernel) runs only the 1-layer attention "
-                f"decoder (got num_lstm_layers={c.num_lstm_layers}, "
-                f"use_attention={c.use_attention}); the Captioner and SCST "
-                "decode other decoders through the model's own step "
-                "(models/decoding.py::kernel_decoder; ROADMAP Queue 1 item 5)")
-        cd = dec.compute_dtype
-        if dec.out_proj.kernel.is_cuda and cd != torch.bfloat16:
-            raise NotImplementedError(
-                "K3 (the rollout kernel) computes in bf16; the Captioner and "
-                "SCST decode model.compute_dtype=float32 through the model's "
-                "own step (models/decoding.py::kernel_decoder; ROADMAP Queue 1 "
-                "item 5)")
-        d = lambda p: p.detach().to(cd).contiguous()
-        f = lambda p: p.detach().float().contiguous()
-        emb, w_out, b_out = full or (dec.embed.embedding, dec.out_proj.kernel,
-                                     dec.out_proj.bias)
-        return cls(emb=d(emb), wq=d(dec.attention.query.kernel),
-                   u=f(dec.attention.u), wg=d(dec.lstm0.w), bg=f(dec.lstm0.b),
-                   w_out=d(w_out), b_out=f(b_out),
-                   vocab_size=dec.vocab_size)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -266,7 +237,7 @@ def rollout_fits_resident(vp: int, e: int, h: int, a: int, t: int,
                           smem_per_block: int = H100_SMEM) -> bool:
     """Whether the kernel can keep W_out resident in shared memory on a card
     of ``blocks`` SMs that lets a block take ``smem_per_block`` bytes (the
-    H100's by default): the choice ``model_rollout`` and ``Captioner`` make.
+    H100's by default): the route's choice (``models/decoding.py::route``).
     When it does not, W_out streams from L2 each step (``resident_wout=
     False``), as the reference's ``pallas_rollout(resident_wout=False)``."""
     return rollout_smem_bytes(True, vp, e, h, a, t, blocks) <= smem_per_block
@@ -287,18 +258,6 @@ def device_limits(dev: torch.device) -> Tuple[int, int]:
                          "rollout")
         _limits[idx] = (sms.value, smem.value)
     return _limits[idx]
-
-
-def resident_mode(w: RolloutWeights, frames: int, device) -> bool:
-    """The W_out mode of a rollout of these weights over ``frames`` frames
-    on ``device``: resident when it fits (:func:`rollout_fits_resident`),
-    else streamed. True on the CPU, whose plain version has no mode."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return True
-    sms, smem = device_limits(device)
-    (H, A), (Vp, E) = w.wq.shape, w.emb.shape
-    return rollout_fits_resident(Vp, E, H, A, frames, sms, smem)
 
 
 def select_sliced_plain(clean, sample: bool, seed, step: int,
@@ -440,28 +399,3 @@ def rollout(w: RolloutWeights, keys, values, frame_mask, h0, c0,
         _build.check(err, "rollout")
         _build.count_launch("rollout")
     return out_tok, out_logp, out_mask
-
-
-@torch.no_grad()
-def model_rollout(model, feats, frame_mask, max_len: int,
-                  sample: bool = False, seed=0,
-                  temperature: float = 1.0,
-                  weights: Optional[RolloutWeights] = None,
-                  resident_wout: Optional[bool] = None, row0: int = 0):
-    """The model's ``init_state`` (feature/key projections, h0/c0), then
-    :func:`rollout`. ``weights``: :meth:`RolloutWeights.from_model` of this
-    model, cast once by the caller, or None to cast them here.
-    ``resident_wout``: None takes :func:`resident_mode` (resident where it
-    fits, else streamed). ``row0``: as :func:`rollout`. Returns a
-    ``models.decoding.Rollout``."""
-    from vidcap_tpu_torch.models.decoding import Rollout
-    state = model.init_state(feats, frame_mask)
-    w = weights if weights is not None else RolloutWeights.from_model(model)
-    if resident_wout is None:
-        resident_wout = resident_mode(w, state.keys.shape[1],
-                                      state.keys.device)
-    toks, logp, mask = rollout(
-        w, state.keys, state.values, state.frame_mask, state.h[0].contiguous(),
-        state.c[0].contiguous(), max_len, sample, seed, temperature,
-        resident_wout, row0)
-    return Rollout(tokens=toks, logp=logp, mask=mask)

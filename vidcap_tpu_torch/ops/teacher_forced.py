@@ -3,9 +3,10 @@ forward and backward, as Hopper kernels (csrc/teacher_forced.cu).
 
 Replaces no Pallas kernel: the JAX package leaves the scan body of its
 teacher-forced pass (``vidcap_tpu/models/decoder.py:313``) and its gradient
-to XLA. ``CaptionDecoder.xe_logits`` takes this route on the card (its
-``teacher_forced_route``); every other call keeps the module loop. The
-function is the loop's, with every rounding point where the loop has it:
+to XLA. ``CaptionDecoder.xe_logits`` runs it on the card where the route
+(``models/decoding.py::route``) says so; every other call keeps the module
+loop. The function is the loop's, with every rounding point where the loop
+has it:
 
     q = bf16(bf16(h)·bf16(Wq)); s = bf16(tanh(bf16(keys + q)))
     attn = softmax_T(Σ_A s·bf16(u), masked frames −1e30)
@@ -43,8 +44,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from vidcap_tpu_torch.models.decoder import NEG, lstm_update, rnd
 from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.ops.cell import NEG, lstm_update, rnd
 from vidcap_tpu_torch.ops.limits import (TF_MAX_FRAMES, TF_MAX_WIDTH,
                                          teacher_forced_takes)
 
@@ -371,32 +372,33 @@ class _TeacherForced(torch.autograd.Function):
         return (None, None) + grads
 
 
-def _inputs(dec, state, embs):
-    a = dec.attention
+def _inputs(params, state, embs):
     return (embs, state.keys, state.values, state.frame_mask, state.h[0],
-            state.c[0], a.query.kernel, a.u, dec.lstm0.w, dec.lstm0.b,
-            dec.out_proj.kernel, dec.out_proj.bias)
+            state.c[0], *params)
 
 
-def teacher_forced_plain(dec, state, embs: torch.Tensor) -> torch.Tensor:
+def teacher_forced_plain(params, vocab_size: int, state, embs: torch.Tensor
+                         ) -> torch.Tensor:
     """The plain version, on any device: the teacher-forced logits f32[B, L,
-    Vp] of decoder ``dec`` (one bf16 LSTM layer with attention) from
-    ``state`` (``dec.init_state``) and the inputs' embeddings f32[B, L, E],
-    differentiable, as ``CaptionDecoder.xe_logits``'s loop computes
-    them."""
-    return _TeacherForced.apply(_Plain, dec.vocab_size,
-                                *_inputs(dec, state, embs))
+    Vp] of one bf16 LSTM layer with attention, whose parameters ``params``
+    are (Wq, u, W, b, W_out, b_out) (``models/decoding.py::KernelWeights.
+    teacher_forced``), from ``state`` (``CaptionDecoder.init_state``) and
+    the inputs' embeddings f32[B, L, E], differentiable, as
+    ``CaptionDecoder.xe_logits``'s loop computes them."""
+    return _TeacherForced.apply(_Plain, vocab_size,
+                                *_inputs(params, state, embs))
 
 
-def teacher_forced(dec, state, embs: torch.Tensor) -> torch.Tensor:
+def teacher_forced(params, vocab_size: int, state, embs: torch.Tensor
+                   ) -> torch.Tensor:
     """:func:`teacher_forced_plain` on the kernels, for CUDA tensors; raises
     ValueError for what the kernels do not take (``ops/limits.py::
     teacher_forced_takes``, CPU tensors included)."""
-    xs = _inputs(dec, state, embs)
+    xs = _inputs(params, state, embs)
     B, L, E = embs.shape
     _, T, A = state.keys.shape
     H = state.h.shape[-1]
-    Vp = dec.out_proj.kernel.shape[1]
+    Vp = params[4].shape[1]
     if L < 1 or not teacher_forced_takes(H, A, T, Vp):
         raise ValueError(f"{KERNEL}: hidden {H} and attention {A} widths "
                          f"must be multiples of 8 up to {TF_MAX_WIDTH}, the "
@@ -408,4 +410,4 @@ def teacher_forced(dec, state, embs: torch.Tensor) -> torch.Tensor:
         "b", "w_out", "b_out"), (f32, BF16, BF16) + (f32,) * 9, (
         (B, L, E), (B, T, A), (B, T, H), (B, T), (B, H), (B, H), (H, A), (A,),
         (E + 2 * H, 4 * H), (4 * H,), (H, Vp), (Vp,))))
-    return _TeacherForced.apply(_Kernels, dec.vocab_size, *xs)
+    return _TeacherForced.apply(_Kernels, vocab_size, *xs)

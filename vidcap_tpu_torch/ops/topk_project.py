@@ -24,8 +24,8 @@ from typing import Tuple
 
 import torch
 
-from vidcap_tpu_torch.models.decoder import NEG, rnd
 from vidcap_tpu_torch.ops import _build
+from vidcap_tpu_torch.ops.cell import NEG, rnd
 from vidcap_tpu_torch.ops.limits import (MAX_HIDDEN, MAX_K,
                                          topk_project_takes)
 

@@ -2,21 +2,18 @@
 CIDEr reward, the policy-gradient loss from a teacher-forced re-score, the
 XE anchor and the attribute BCE, and the update.
 
-The rollouts take the route the port's ``Captioner`` takes
-(``models/decoding.py::kernel_decoder``). For the one-layer bf16 attention
-decoder it is the JAX package's kernel branch (``model.use_pallas_decoder``,
-``vidcap_tpu/train/scst.py:93-103``): both rollouts are forward-only calls
-of ``ops/rollout.py::model_rollout``, which launches K3 (csrc/rollout.cu)
-for CUDA tensors and runs its plain version only for CPU tensors, whatever
-``train.scst_fused_rollouts`` says. Every other decoder (more LSTM layers,
-no attention, f32) rolls out through ``sample_decode`` and
-``greedy_decode`` over ``CaptionDecoder.step`` with no early exit, where the
-JAX package runs its XLA rollouts (``dual_rollout`` or the separate scans);
-the sampled noise is K3's counter hash (JAX's threefry cannot be matched)
-and its seed a device int64, as K3 reads it. The gradient comes from one
-differentiable teacher-forced re-score of the sampled tokens, the same
-recurrence on the same fixed tokens, so it equals backpropagation through
-the sampling loop.
+The rollouts are two forward-only calls of
+``models/decoding.py::model_rollout`` on the route the port's ``Captioner``
+takes (``models/decoding.py::route``), whatever
+``train.scst_fused_rollouts`` says: K3 for the one-layer bf16 attention
+decoder, as the JAX package's kernel branch (``model.use_pallas_decoder``,
+``vidcap_tpu/train/scst.py:93-103``), else the module loops with no early
+exit, where the JAX package runs its XLA rollouts (``dual_rollout`` or the
+separate scans). The sampled noise is K3's counter hash (JAX's threefry
+cannot be matched) and its seed a device int64, as K3 reads it. The
+gradient comes from one differentiable teacher-forced re-score of the
+sampled tokens, the same recurrence on the same fixed tokens, so it equals
+backpropagation through the sampling loop.
 
 The step encodes its inputs once (``model.encode_features``: the IRv2
 backbone on pixels with ``model.use_backbone``, the identity on features),
@@ -40,9 +37,9 @@ from typing import Optional, Tuple
 import torch
 
 from vidcap_tpu_torch.config import Config
-from vidcap_tpu_torch.models.decoding import (Rollout, greedy_decode,
-                                              kernel_decoder,
-                                              require_full_f32, sample_decode)
+from vidcap_tpu_torch.models import decoding
+from vidcap_tpu_torch.models.decoding import (KernelWeights, Rollout,
+                                              model_rollout)
 from vidcap_tpu_torch.objectives.multitask import attribute_bce_loss
 from vidcap_tpu_torch.objectives.reward import scst_reward
 from vidcap_tpu_torch.objectives.reward_tables import (RewardTables,
@@ -50,8 +47,6 @@ from vidcap_tpu_torch.objectives.reward_tables import (RewardTables,
 from vidcap_tpu_torch.objectives.scst import scst_loss
 from vidcap_tpu_torch.objectives.xe import (masked_xe_loss, shift_right,
                                             token_logp)
-from vidcap_tpu_torch.ops.rollout import (RolloutWeights, device_seed,
-                                          model_rollout, resident_mode)
 from vidcap_tpu_torch.parallel.mesh import ONE_RANK
 from vidcap_tpu_torch.train.state import TrainState
 from vidcap_tpu_torch.train.steps import (Batch, Grads, Metrics,
@@ -107,37 +102,20 @@ class ScstStep:
             seed = seed.to(feats.device)
         # a rank's rows draw the noise one process draws for them
         row0 = self.dp.row0(feats.shape[0])
-        if not kernel_decoder(self.cfg.model, "sample", frames=feats.shape[1],
-                              padded_vocab=model.decoder.padded_vocab,
-                              device=feats.device):
-            return self._module_rollouts(model, feats, seed, row0)
-        vocab = self.dp.vocab
-        w = RolloutWeights.from_model(
-            model, full=vocab.full(model) if vocab is not None else None)
-        self.rollout_resident = resident_mode(w, feats.shape[1], feats.device)
-        sample = model_rollout(model, feats, None, d.max_len, sample=True,
-                               seed=seed, temperature=d.temperature,
-                               weights=w, resident_wout=self.rollout_resident,
-                               row0=row0)
-        greedy = model_rollout(model, feats, None, d.max_len, weights=w,
-                               resident_wout=self.rollout_resident)
-        return sample, greedy
-
-    @torch.no_grad()
-    def _module_rollouts(self, model, feats: torch.Tensor, seed,
-                         row0: int = 0) -> Tuple[Rollout, Rollout]:
-        """(sampled, greedy) of a decoder or shape no kernel covers, through
-        the model's own step; no host read (the seed stays on the
-        device)."""
-        d = self.cfg.decode
-        require_full_f32(model, feats.device)
-        state = model.init_state(feats)
-        B, step = feats.shape[0], model.decoder.step
-        sample = sample_decode(step, state, B, d.max_len,
-                               device_seed(seed, feats.device), d.temperature,
-                               row0)
-        greedy = greedy_decode(step, state, B, d.max_len, with_logp=False)
-        return sample, greedy
+        r = decoding.route(model.decoder, d, "sample", 1, feats.shape[1],
+                           feats.device)
+        w = None
+        if r.recurrent:
+            vocab = self.dp.vocab
+            w = KernelWeights(model.decoder, vocab.full(model)
+                              if vocab is not None else None).rollout()
+            self.rollout_resident = r.resident
+        roll = lambda **k: model_rollout(model, r, w, feats, None, d.max_len,
+                                         model.decoder.step, early_exit=False,
+                                         **k)
+        return (roll(sample=True, seed=seed, temperature=d.temperature,
+                     row0=row0),
+                roll(sample=False, seed=0, temperature=1.0, row0=0))
 
     def rewards(self, batch: Batch, sample: Rollout, greedy: Rollout
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
