@@ -94,12 +94,24 @@ decoders no kernel covers through their modules, ``info``). Phases:
                                       times of each against the plain
                                       version, the module loop and the
                                       bound
+                                   21 K5 moe at Kimi-VL-A3B's experts
+                                      (k 6 of 64, H 2,048, I 1,408) on
+                                      5,120 and 26,624 rows: dispatch,
+                                      silu_mul and combine vs plain, their
+                                      times and byte bounds; one expert
+                                      layer on K5 and on the plain path
+                                   22 Kimi-VL-A3B's decoder cut to 4
+                                      layers, beam 5 of 1,024 videos
+                                      through Captioner: K5's launches a
+                                      layer and step, the route's list;
+                                      the decode with K5 off
   then the kernels line (one JSON object)
 
 ``python3 chip_smoke.py --k2-wide`` runs phases 1 and 19 alone,
-``python3 chip_smoke.py --k4`` phases 1 and 20. Phases 9, 10, 14, 15 and
-18 also count K4's launches in their training steps: 2 an XE step
-(forward, backward), 4 a SCST step (the re-score and the XE anchor).
+``python3 chip_smoke.py --k4`` phases 1 and 20, ``--k5`` phases 1, 21
+and 22. Phases 9, 10, 14, 15 and 18 also count K4's launches in their
+training steps: 2 an XE step (forward, backward), 4 a SCST step (the
+re-score and the XE anchor).
 
 Phase 1 also requires the native host library (``vidcap_tpu_torch/
 native.py``, built with g++), and phase 14 tables counted by it. Any
@@ -3782,6 +3794,209 @@ def print_k4(card: str) -> dict:
     return k4
 
 
+MOE_K, MOE_E, MOE_H, MOE_I = 6, 64, 2048, 1408   # Kimi-VL-A3B's experts
+MOE_ROWS = (("decode", 5120), ("prefill", 26_624))  # 1,024 videos, beam 5
+
+
+def moe_case(n: int, seed: int):
+    """A router-like draw of ``n`` tokens at Kimi-VL-A3B's widths (top-6 of
+    skewed scores), its weights, and random bf16 rows for each stage."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    scores = torch.rand(n, MOE_E, generator=g, device="cuda") \
+        + torch.linspace(0, 0.3, MOE_E, device="cuda")
+    sel = scores.topk(MOE_K, -1).indices
+    w = torch.rand(n, MOE_K, generator=g, device="cuda") * 2.446
+    x, shared, h = (torch.randn(n, MOE_H, generator=g, **bf)
+                    for _ in range(3))
+    y = torch.randn(n * MOE_K, MOE_H, generator=g, **bf)
+    gate_up = torch.randn(n * MOE_K, 2 * MOE_I, generator=g, **bf) * 3
+    return sel, w, x, y, gate_up, shared, h
+
+
+def moe_layer_ms(n: int):
+    """One Kimi-VL-A3B expert layer (router, dispatch, grouped products,
+    shared experts, combine with the residual) on ``n`` rows with random
+    weights: (K5's ms, the plain composition's ms)."""
+    from vidcap_tpu_torch.models import lm_decoder as lm
+    layer = lm.LMLayer(lm.KIMI_VL_A3B, 1, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * 0.02)
+    x = torch.randn(n, MOE_H, generator=g, device="cuda").bfloat16()
+    h = torch.randn(n, MOE_H, generator=g, device="cuda").bfloat16()
+    run = lambda: layer.mlp(x, 1, h)
+    with torch.no_grad():
+        k5 = time_ms(run, iters=5)
+        with k5_off():
+            plain = time_ms(run, iters=5)
+    return k5, plain
+
+
+class k5_off:
+    """Within it, K5's gate (``models/decoding.py::moe_kernels``, as the
+    LM's modules look it up) takes nothing: the dispatch, every
+    ``silu_mul`` and the combine run their plain versions."""
+
+    def __enter__(self):
+        from vidcap_tpu_torch.models import lm_decoder as lm
+        self.lm, self.gate = lm, lm.moe_kernels
+        lm.moe_kernels = lambda *a: ()
+
+    def __exit__(self, *exc):
+        self.lm.moe_kernels = self.gate
+
+
+def phase_k5():
+    """K5 at Kimi-VL-A3B's expert widths (k 6 of 64, H 2,048, I 1,408) on
+    the decode's 5,120 rows and the prefill's 26,624: each kernel against
+    its plain version (the dispatch exactly, silu_mul bit for bit, the
+    combine within one bf16 ulp of its chain's largest magnitude), each
+    one's time, the plain version's and the byte bound; then a whole expert
+    layer on K5 and on the plain composition."""
+    from vidcap_tpu_torch.ops import moe
+    out, problems = {}, []
+    _build.reset_counts()
+    for name, n in MOE_ROWS:
+        sel, w, x, y, gate_up, shared, h = moe_case(n, 21)
+        d, p = moe.moe_dispatch(sel, x, MOE_E), moe.moe_dispatch_plain(
+            sel, x, MOE_E)
+        act, act_p = moe.silu_mul(gate_up), moe.silu_mul_plain(gate_up)
+        got = moe.moe_combine(y, d, w, shared, h)
+        want = moe.moe_combine_plain(y, p, w, shared, h)
+        inner = moe.moe_combine_plain(y, p, w, shared)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in (
+            (d.order, p.order), (d.counts, p.counts), (d.offs, p.offs),
+            (d.x, p.x)))
+        ulp = bf16_ulp(torch.maximum(want.float().abs(), inner.float().abs()))
+        over = ((got.float() - want.float()).abs() > ulp).sum().item()
+        m = n * MOE_K
+        bytes_ = {"dispatch": 8 * m + 2 * n * MOE_H + 2 * m * MOE_H + 12 * m,
+                  "silu_mul": 2 * m * 3 * MOE_I,
+                  "combine": 2 * m * MOE_H + 8 * m + 3 * 2 * n * MOE_H}
+        row = dict(
+            dispatch_exact=exact, silu_mul_bitwise=torch.equal(act, act_p),
+            combine_over_one_ulp=over,
+            combine_max_abs_err=(got.float() - want.float()).abs().max()
+            .item())
+        for part, fn, plain in (
+                ("dispatch", lambda: moe.moe_dispatch(sel, x, MOE_E),
+                 lambda: moe.moe_dispatch_plain(sel, x, MOE_E)),
+                ("silu_mul", lambda: moe.silu_mul(gate_up),
+                 lambda: moe.silu_mul_plain(gate_up)),
+                ("combine", lambda: moe.moe_combine(y, d, w, shared, h),
+                 lambda: moe.moe_combine_plain(y, p, w, shared, h))):
+            row[f"{part}_ms"] = time_ms(fn)
+            row[f"{part}_plain_ms"] = time_ms(plain)
+            row[f"{part}_bound_ms"] = bytes_[part] / PEAK_BYTES * 1e3
+        for key in ("ms", "plain_ms", "bound_ms"):
+            row[f"total_{key}"] = sum(row[f"{part}_{key}"] for part in (
+                "dispatch", "silu_mul", "combine"))
+        out[name] = row
+        if not (exact and row["silu_mul_bitwise"] and over == 0):
+            problems.append(f"{name}: {row}")
+    out["layer_ms"], out["layer_plain_ms"] = moe_layer_ms(MOE_ROWS[0][1])
+    if problems:
+        fail("phase 21: " + "; ".join(problems))
+    return out
+
+
+KIMI_LAYERS = 4       # Kimi-VL-A3B cut to its dense layer and 3 expert layers
+KIMI_B = 1024         # videos a decode, beam 5: the Kimi cell's batch
+
+
+def phase_kimi_decode():
+    """Kimi-VL-A3B's decoder at its published widths, cut to KIMI_LAYERS
+    layers, with random weights, decodes KIMI_B videos of random features
+    by beam 5 through ``Captioner.decode_batch``, the launch counts set to
+    0 just before: each expert layer launches one ``moe_dispatch`` and one
+    ``moe_combine`` a step and in the prefill, ``silu_mul`` runs twice there
+    (routed and shared experts) and once in each dense layer, and the K5
+    kernels launched are those the route lists (``Captioner.kernels``, what
+    its warmup builds). Then the same decode with K5 off: both decodes'
+    times and the rows whose tokens agree."""
+    from vidcap_tpu_torch.config import apply_overrides
+    from vidcap_tpu_torch.models import lm_decoder as lm
+    c = dataclasses.replace(lm.KIMI_VL_A3B, num_hidden_layers=KIMI_LAYERS)
+    V, Tk, Dk = c.vocab_size, c.num_frames, c.feature_dim
+    cfg = apply_overrides(get_preset("msrvtt_attn_beam5"), [
+        f"data.feature_dim={Dk}", f"data.num_frames={Tk}",
+        f"data.vocab_size={V}", "decode.max_len=30", "decode.beam_width=5"])
+    model = lm.create_lm_model(c, device="cuda").eval()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith("e_score_correction_bias"):
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        * 0.01)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        * 0.02)
+    words = ["<pad>", "<bos>", "<eos>", "<unk>"] + [f"w{i}"
+                                                    for i in range(4, V)]
+    ds = CaptionDataset(np.zeros((1, Tk, Dk), np.float32), ["v0"],
+                        {"v0": [words[4]]}, cfg.data,
+                        vocab=Vocab({w: i for i, w in enumerate(words)},
+                                    words))
+    cap = Captioner(cfg, model, ds, torch.device("cuda"))
+    feats = np.random.default_rng(22).normal(size=(KIMI_B, Tk, Dk)).astype(
+        np.float32)
+    cap.warmup("beam", KIMI_B, 5)
+
+    def decode():
+        steps0 = cap.decode_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = cap.decode_batch(feats, method="beam", beam_width=5)
+        return toks, cap.decode_steps - steps0, (time.perf_counter() - t0)
+
+    _build.reset_counts()
+    toks, steps, k5_s = decode()
+    launches = {k: _build.launch_counts[k] for k in _build.MOE}
+    with k5_off():
+        decode()
+        plain, _, plain_s = decode()
+    moe_layers = sum(not layer.dense for layer in model.layers)
+    dense = KIMI_LAYERS - moe_layers
+    passes = steps + 1                     # the steps and the prefill
+    want = {"moe_dispatch": moe_layers * passes,
+            "silu_mul": (2 * moe_layers + dense) * passes,
+            "moe_combine": moe_layers * passes}
+    listed = [k for k in cap.kernels("beam", 5) if k in _build.MOE]
+    out = dict(layers=KIMI_LAYERS, expert_layers=moe_layers, steps=steps,
+               launches=launches, expected=want, route_k5=listed,
+               decode_s=k5_s, plain_decode_s=plain_s,
+               rows_equal_to_plain=float((toks == plain).all(1).mean()))
+    if launches != want or listed != [k for k in _build.MOE
+                                      if launches[k]]:
+        fail(f"phase 22: {out}")
+    del cap, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_k5(card: str) -> dict:
+    """Phases 21 and 22; K5's launches are phase 22's, the main path's."""
+    k5 = phase_k5()
+    print(f"phase 21 K5 moe k={MOE_K} E={MOE_E} H={MOE_H} I={MOE_I}, N="
+          + "/".join(str(n) for _, n in MOE_ROWS) + f" on {card}: "
+          + json.dumps({**k5, "tolerance": {
+              "dispatch": "exact", "silu_mul": "bit for bit",
+              "combine": "one bf16 ulp of the chain's largest |value|"}}),
+          flush=True)
+    dec = phase_kimi_decode()
+    print(f"phase 22 Kimi-VL-A3B decoder cut to {KIMI_LAYERS} layers, beam 5"
+          f" of B={KIMI_B} through Captioner on {card}: " + json.dumps(dec),
+          flush=True)
+    return {**k5, "launches": dec["launches"]}
+
+
 def print_k2_wide(card: str) -> None:
     print(f"phase 19 K2 topk_project N=5120 H=2048 Vp=163840 K=5 on {card}: "
           + json.dumps({**phase_k2_wide(), "tolerance": "one bf16 ulp of "
@@ -3811,6 +4026,9 @@ def main() -> int:
         return 0
     if "--k4" in sys.argv[1:]:
         print_k4(card)
+        return 0
+    if "--k5" in sys.argv[1:]:
+        print_k5(card)
         return 0
 
     k1 = phase_k1()
@@ -3907,6 +4125,7 @@ def main() -> int:
               {**lift, "bound": f"lift > {LIFT_MIN}"}), flush=True)
     print_k2_wide(card)
     k4 = print_k4(card)
+    k5 = print_k5(card)
     served_beam = [serving["stdin"], serving["http"],
                    export["caption --from-export split"],
                    export["caption --from-export --inputs"]]
@@ -3940,7 +4159,8 @@ def main() -> int:
     k28["launches"] = (launched16["topk_project_int8"]
                        + launched17["topk_project_int8"])
     # K4: phase 20's pass, phase 9's timed steps, phase 14's dispatched
-    # steps, phase 15's composed steps and the lift's
+    # steps, phase 15's composed steps and the lift's; K5: phase 22's
+    # decode through the Captioner
     k4 = dict(name="teacher_forced", **{k: k4[k] for k in (
         "max_abs_err", "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms",
         "loop_fwd_ms", "loop_bwd_ms", "bound_fwd_ms", "bound_bwd_ms")},
@@ -3955,7 +4175,13 @@ def main() -> int:
                                              for r in served_beam)
                                        + launched16[k["name"]]
                                        + launched17[k["name"]])
-                                  for k in (k1, k2)] + [k28, k3, k4]}),
+                                  for k in (k1, k2)] + [k28, k3, k4, dict(
+                                      name="moe", **{
+                                          f"{r}_{k}": k5[r][f"total_{k}"]
+                                          for r, _ in MOE_ROWS
+                                          for k in ("ms", "plain_ms",
+                                                    "bound_ms")},
+                                      launches=k5["launches"])]}),
           flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

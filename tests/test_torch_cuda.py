@@ -274,7 +274,8 @@ def test_captioner_greedy_and_sample_go_through_the_rollout_kernel(dev):
     assert cap.decode_calls == 4 and cap.decode_steps == 4 * cap.max_len
     assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
                                     "topk_project_int8": 0, "rollout": 4,
-                                    "teacher_forced": 0}
+                                    "teacher_forced": 0, "moe_dispatch": 0,
+                                    "silu_mul": 0, "moe_combine": 0}
     feats = cap.dataset.features[:8]
     a, b, c = (cap.decode_batch(feats, method="sample", seed=s)
                for s in (7, 7, 8))
@@ -295,7 +296,8 @@ def test_captioner_beam_goes_through_both_kernels(dev):
     assert _build.launch_counts == {"beam_core": cap.decode_steps,
                                     "topk_project": cap.decode_steps,
                                     "topk_project_int8": 0, "rollout": 0,
-                                    "teacher_forced": 0}
+                                    "teacher_forced": 0, "moe_dispatch": 0,
+                                    "silu_mul": 0, "moe_combine": 0}
 
 
 def _staging_captioner(frames=8, dim=64):
@@ -403,7 +405,8 @@ def test_scst_step_rollouts_go_through_the_rollout_kernel(dev):
     torch.cuda.synchronize()
     assert _build.launch_counts == {"beam_core": 0, "topk_project": 0,
                                     "topk_project_int8": 0, "rollout": 2,
-                                    "teacher_forced": 0}
+                                    "teacher_forced": 0, "moe_dispatch": 0,
+                                    "silu_mul": 0, "moe_combine": 0}
     with torch.no_grad():
         st = state.model.init_state(batch["features"])
         w = KernelWeights(state.model.decoder).rollout()
@@ -830,3 +833,169 @@ def test_teacher_forced_steps_count_its_launches_at_each_replay(dev):
         assert torch.isfinite(m["loss"])
         assert _build.launch_counts == {k: 3 * want.get(k, 0)
                                         for k in _build.KERNELS}, stage
+
+
+# K5 (ops/moe.py): the expert layer's dispatch, activation and combine at
+# Kimi-VL-A3B's widths (k 6 of 64 experts, hidden 2,048, activations 1,408)
+# over the decode's 5,120 rows and the prefill's 26,624, and at the tiny LM's
+# widths of tests/test_torch_lm_decoder.py (k 2 of 8, hidden 64,
+# activations 32); then the corner cases of the sort.
+KIMI_MOE = dict(k=6, E=64, H=2048, I=1408)
+TINY_MOE = dict(k=2, E=8, H=64, I=32)
+
+
+def _moe_inputs(dev, N, k, E, H, I, seed=0, one_expert=False):
+    """A router-like draw (top-k of skewed scores, so some experts get many
+    tokens), its weights, and random bf16 rows for each stage."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    scores = torch.rand(N, E, generator=g, device=dev) + torch.linspace(
+        0, 0.3, E, device=dev)
+    sel = scores.topk(k, -1).indices
+    if one_expert:
+        sel = torch.full_like(sel, E - 1)
+    w = torch.rand(N, k, generator=g, device=dev) * 2.446
+    x, shared, h = (torch.randn(N, H, generator=g, **bf) for _ in range(3))
+    y = torch.randn(N * k, H, generator=g, **bf)
+    gate_up = torch.randn(N * k, 2 * I, generator=g, **bf) * 3
+    return sel, w, x, y, gate_up, shared, h
+
+
+def _moe_check(dev, N, k, E, H, I, **kw):
+    from vidcap_tpu_torch.ops import moe
+    sel, w, x, y, gate_up, shared, h = _moe_inputs(dev, N, k, E, H, I, **kw)
+    before = dict(_build.launch_counts)
+    d = moe.moe_dispatch(sel, x, E)
+    p = moe.moe_dispatch_plain(sel, x, E)
+    act = moe.silu_mul(gate_up)
+    out = moe.moe_combine(y, d, w, shared, h)
+    torch.cuda.synchronize()
+    assert {n: _build.launch_counts[n] - before[n] for n in _build.MOE} == \
+        {"moe_dispatch": 1, "silu_mul": 1, "moe_combine": 1}
+    # the dispatch: exactly the plain version's
+    assert torch.equal(d.order, p.order) and torch.equal(d.counts, p.counts)
+    assert torch.equal(d.offs, p.offs) and torch.equal(d.x, p.x)
+    assert d.counts.dtype == p.counts.dtype and d.offs.dtype == torch.int32
+    assert torch.equal(d.slots.long(), torch.argsort(p.order))
+    # the activation: bit for bit
+    assert torch.equal(act, moe.silu_mul_plain(gate_up))
+    # the combine: one bf16 ulp at the largest magnitude of its chain
+    want = moe.moe_combine_plain(y, p, w, shared, h)
+    inner = moe.moe_combine_plain(y, p, w, shared)
+    tol = _bf16_ulp(torch.maximum(want.float().abs(), inner.float().abs()))
+    assert ((out.float() - want.float()).abs() <= tol).all()
+    return d
+
+
+@pytest.mark.parametrize("N,widths", [(5120, KIMI_MOE), (26_624, KIMI_MOE),
+                                      (40, TINY_MOE)],
+                         ids=["decode", "prefill", "tiny"])
+def test_moe_kernels_match_plain(dev, N, widths):
+    """Dispatch exactly, silu_mul bit for bit, combine within one bf16 ulp
+    of the plain versions; one launch counted each."""
+    d = _moe_check(dev, N, **widths)
+    assert (d.counts > 0).all()
+
+
+@pytest.mark.parametrize("N,k,E,one_expert", [
+    (40, 2, 64, False),   # 80 pairs over 64 experts: some get none
+    (3000, 6, 64, True),  # every pair on one expert (3 sort blocks)
+    (1, 6, 64, False),    # one token
+    (700, 1, 8, False),   # k = 1
+    (700, 5, 64, False),  # k = 5 (a cfg replaced at the call)
+    (300, 8, 256, False)])
+def test_moe_dispatch_corner_cases(dev, N, k, E, one_expert):
+    d = _moe_check(dev, N, k, E, 64, 32, one_expert=one_expert)
+    assert int(d.counts.sum()) == N * k
+    if one_expert:
+        assert int(d.counts[-1]) == N * k
+
+
+def _tiny_lm(dev, dense=1):
+    """The tiny LM, its first ``dense`` of 3 layers dense."""
+    from vidcap_tpu_torch.models import lm_decoder as lm
+    cfg = lm.LMDecoderConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=96,
+        moe_intermediate_size=32, num_hidden_layers=3, num_attention_heads=4,
+        n_shared_experts=1, n_routed_experts=8, kv_lora_rank=32,
+        qk_rope_head_dim=16, v_head_dim=16, qk_nope_head_dim=16,
+        num_experts_per_tok=2, first_k_dense_replace=dense, feature_dim=48,
+        num_frames=6)
+    return lm.init_lm_params(lm.create_lm_model(cfg), seed=0).to(dev)
+
+
+def test_moe_forward_reads_nothing_on_the_host(dev):
+    """An expert layer on K5 (router, dispatch, grouped products, shared
+    experts, combine with the residual) under the sync debug mode "error":
+    no host read; it equals the plain composition, ``silu_mul`` included
+    (the combine's one ulp aside, to 2^-7 of the largest |value|)."""
+    from vidcap_tpu_torch.models import lm_decoder as lm
+    layer = _tiny_lm(dev).layers[1]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(50, 64, generator=g, device=dev).bfloat16()
+    h = torch.randn(50, 64, generator=g, device=dev).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got = layer.mlp(x, 1, h)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    before = dict(_build.launch_counts)
+    with torch.no_grad():
+        orig = lm.moe_kernels
+        lm.moe_kernels = lambda *a: ()
+        try:
+            plain = layer.mlp(x, 1, h)
+        finally:
+            lm.moe_kernels = orig
+    assert _build.launch_counts == before
+    assert (got.float() - plain.float()).abs().max() <= \
+        2 ** -7 * plain.float().abs().max()
+
+
+def test_lm_decode_counts_one_dispatch_and_combine_a_layer_and_step(dev):
+    """Beam 3 of the tiny LM through ``Captioner`` on the card: each
+    expert layer of each step and of each prefill launches one
+    ``moe_dispatch`` and one ``moe_combine``, and ``silu_mul`` runs for
+    the routed and shared experts and the dense layer; the route lists
+    K5's three beside K2."""
+    cfg = apply_overrides(get_preset("synthetic_tiny"), [
+        "data.feature_dim=48", "data.num_frames=6", "data.vocab_size=512",
+        "decode.max_len=5"])
+    model = _tiny_lm(dev).eval()
+    cap = Captioner(cfg, model, CaptionDataset.synthetic(cfg.data,
+                                                          num_videos=2), dev)
+    assert cap.kernels("beam", 3) == ("topk_project",) + _build.MOE
+    feats = np.random.default_rng(5).normal(size=(4, 6, 48)).astype(
+        np.float32)
+    _build.reset_counts()
+    steps0 = cap.decode_steps
+    cap.decode_batch(feats, method="beam", beam_width=3)
+    torch.cuda.synchronize()
+    passes = cap.decode_steps - steps0 + 1          # the steps, the prefill
+    moe_layers = sum(not l.dense for l in model.layers)
+    assert _build.launch_counts["moe_dispatch"] == moe_layers * passes
+    assert _build.launch_counts["moe_combine"] == moe_layers * passes
+    assert _build.launch_counts["silu_mul"] == (2 * moe_layers + 1) * passes
+
+
+@pytest.mark.parametrize("dense", [1, 3], ids=["experts", "dense_only"])
+def test_the_route_lists_the_k5_kernels_a_decode_launches(dev, dense):
+    """The kernels ``Captioner`` builds in its warmup (the route's) are the
+    K5 kernels a beam decode of the tiny LM launches on the card: all three
+    with expert layers, ``silu_mul`` alone without them."""
+    cfg = apply_overrides(get_preset("synthetic_tiny"), [
+        "data.feature_dim=48", "data.num_frames=6", "data.vocab_size=512",
+        "decode.max_len=4"])
+    cap = Captioner(cfg, _tiny_lm(dev, dense).eval(), CaptionDataset
+                    .synthetic(cfg.data, num_videos=2), dev)
+    feats = np.random.default_rng(6).normal(size=(3, 6, 48)).astype(
+        np.float32)
+    _build.reset_counts()
+    cap.decode_batch(feats, method="beam", beam_width=3)
+    torch.cuda.synchronize()
+    launched = tuple(n for n in _build.MOE if _build.launch_counts[n])
+    listed = tuple(n for n in cap.kernels("beam", 3) if n in _build.MOE)
+    assert launched == listed == (_build.MOE if dense == 1
+                                  else ("silu_mul",))

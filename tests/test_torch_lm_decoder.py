@@ -153,8 +153,9 @@ def test_absorbed_decode_equals_the_expanded_form():
 def test_grouped_experts_equal_the_loop(padded):
     """An expert layer's grouped products (tokens permuted by expert, the
     offsets on the device) equal the reference's loop over the experts on
-    the same input, to a bf16 rounding of the output (2^-8 relative); with
-    ``padded`` most tokens route to one expert, so some experts get none."""
+    the same input, to a bf16 rounding of the output (2^-8 relative), the
+    residual zero; with ``padded`` most tokens route to one expert, so some
+    experts get none."""
     m = _model()
     moe = m.layers[1].mlp
     x = torch.randn(40, TINY.hidden_size, generator=torch.Generator()
@@ -163,7 +164,7 @@ def test_grouped_experts_equal_the_loop(padded):
         with torch.no_grad():
             moe.gate.e_score_correction_bias[0] = 10.0
     with torch.no_grad():
-        got = moe(x).float()
+        got = moe(x, 1, torch.zeros_like(x)).float()
     L = {n.replace("mlp.", ""): p.detach().float()
          for n, p in m.layers[1].named_parameters() if n.startswith("mlp.")}
     want, _ = ref.experts(x.float(), L, dataclasses.asdict(TINY))
@@ -322,3 +323,135 @@ def test_the_reference_stands_alone_and_the_benchmark_holds_a_copy():
     assert tops <= {"__future__", "math", "typing", "torch"}
     assert open(os.path.join(root, "benchmark", "reference",
                              "kimi_vl_lm.py")).read() == src
+
+
+def _inline_moe(moe, x):
+    """The expert layer as ``MoE.forward`` composed it inline before its
+    passes became named functions (``ops/moe.py``): argsort, bincount,
+    cumsum, the gather, the grouped products, the argsort back, the
+    batched product, the shared experts' sum. Returns (its output, its
+    order, counts, offsets and permuted rows)."""
+    from torch.nn import functional as F
+    N, H = x.shape
+    k, E = moe.cfg.num_experts_per_tok, moe.cfg.n_routed_experts
+    sel, w = moe.gate(x)
+    flat = sel.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=E)
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    xs = x[order // k]
+    ex = moe.experts
+    gu = lm.grouped_mm(xs, ex.gate_up_proj, offs)
+    g, u = gu.chunk(2, dim=-1)
+    y = lm.grouped_mm(F.silu(g) * u, ex.down_proj, offs)
+    y = y[torch.argsort(order)].view(N, k, H)
+    routed = torch.bmm(w.to(x.dtype)[:, None, :], y)[:, 0]
+    return routed + moe.shared_experts(x), (order, counts, offs, xs)
+
+
+def _moe_case(case):
+    """An expert layer of the tiny model and its input for ``case``."""
+    m = _model()
+    moe = m.layers[1].mlp
+    N = 1 if case == "one_token" else 40
+    x = torch.randn(N, TINY.hidden_size, generator=torch.Generator()
+                    .manual_seed(7)).to(torch.bfloat16)
+    with torch.no_grad():
+        if case == "one_expert":        # every token's first choice
+            moe.gate.e_score_correction_bias[3] = 10.0
+        elif case == "none_on_some":    # two experts dominate, some get none
+            moe.gate.e_score_correction_bias[:2] = 10.0
+    if case in ("k1", "k5"):   # the cfg replaced, as the harness's fault does
+        k = 1 if case == "k1" else 5
+        for mod in m.modules():
+            if isinstance(mod, (lm.MoE, lm.Router)):
+                mod.cfg = dataclasses.replace(mod.cfg, num_experts_per_tok=k)
+    return m, moe, x
+
+
+MOE_CASES = ["spread", "none_on_some", "one_expert", "one_token", "k1", "k5"]
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_plain_moe_passes_equal_the_inline_composition(case):
+    """The named plain dispatch, activation and combine (``ops/moe.py``)
+    give exactly what the inline code gave: the order, counts, offsets and
+    permuted rows, the activation, the layer's output; ``MoE.forward``
+    with the residual gives exactly h + that output (``mlp_part``'s old
+    composition)."""
+    from vidcap_tpu_torch.ops import moe as k5
+    m, moe, x = _moe_case(case)
+    k = moe.cfg.num_experts_per_tok
+    with torch.no_grad():
+        want, (order, counts, offs, xs) = _inline_moe(moe, x)
+        sel, w = moe.gate(x)
+        d = k5.moe_dispatch_plain(sel, x, TINY.n_routed_experts)
+        ex = moe.experts
+        y = lm.grouped_mm(k5.silu_mul_plain(lm.grouped_mm(
+            d.x, ex.gate_up_proj, d.offs)), ex.down_proj, d.offs)
+        got = k5.moe_combine_plain(y, d, w, moe.shared_experts(x))
+        h = torch.randn(x.shape, generator=torch.Generator().manual_seed(8)
+                        ).to(torch.bfloat16)
+        with_h = moe(x, 1, h)
+    assert sel.shape == (x.shape[0], k)
+    for a, b in ((d.order, order), (d.counts, counts), (d.offs, offs),
+                 (d.x, xs), (got, want), (with_h, h + want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(d.counts.sum()) == x.shape[0] * k
+    if case == "none_on_some":
+        assert (d.counts == 0).any()
+    if case == "one_expert":
+        assert int(d.counts[3]) == x.shape[0]
+    gu = torch.randn(30, 2 * TINY.moe_intermediate_size).to(torch.bfloat16)
+    g, u = gu.chunk(2, dim=-1)
+    assert torch.equal(k5.silu_mul_plain(gu),
+                       torch.nn.functional.silu(g) * u)
+    assert torch.equal(lm.silu_mul(gu), k5.silu_mul_plain(gu))
+
+
+@pytest.mark.parametrize("case", ["spread", "k5"])
+def test_mlp_part_keeps_the_residual_composition(case):
+    """An expert layer's ``mlp_part`` hands h to the experts and equals the
+    old h + MoE(norm(h)) exactly, on a [B, T, H] prefill-shaped input; the
+    router's forward hook still sees (experts i64[N, k], weights
+    f32[N, k])."""
+    m, moe, _ = _moe_case(case)
+    layer = m.layers[1]
+    h = torch.randn(3, 5, TINY.hidden_size, generator=torch.Generator()
+                    .manual_seed(9)).to(torch.bfloat16)
+    seen = []
+    hook = moe.gate.register_forward_hook(
+        lambda mod, inp, out: seen.append(out))
+    try:
+        with torch.no_grad():
+            got = layer.mlp_part(h)
+            x = layer.post_attention_layernorm(h).reshape(-1, h.shape[-1])
+            want = h + _inline_moe(moe, x)[0].view(h.shape)
+    finally:
+        hook.remove()
+    assert torch.equal(got, want)
+    sel, w = seen[0]
+    k = moe.cfg.num_experts_per_tok
+    assert sel.dtype == torch.int64 and sel.shape == (15, k)
+    assert w.dtype == torch.float32 and w.shape == (15, k)
+
+
+def test_the_route_reports_k5_on_the_card_only():
+    """On the meta device: Kimi-VL-A3B's decoder lists K5's three kernels
+    beside K2 on the card, none on the CPU; a shape ``moe_takes`` refuses
+    (257 experts) and a model without expert layers list ``silu_mul``
+    alone, which their MLPs still launch."""
+    from vidcap_tpu_torch.ops import _build
+    cfg = apply_overrides(get_preset("msrvtt_attn_beam5"),
+                          ["data.vocab_size=163840"])
+    for c, card in ((lm.KIMI_VL_A3B, _build.MOE),
+                    (dataclasses.replace(lm.KIMI_VL_A3B,
+                                         n_routed_experts=257),
+                     ("silu_mul",)),
+                    (dataclasses.replace(lm.KIMI_VL_A3B,
+                                         first_k_dense_replace=27),
+                     ("silu_mul",))):
+        m = lm.create_lm_model(c, device="meta")
+        for dev, want in (("cuda", card), ("cpu", ())):
+            r = decoding.route(m, cfg.decode, "beam", 5, 26, dev)
+            assert r.kernels == ("topk_project",) + want

@@ -301,11 +301,13 @@ def test_launch_counts_by_k_follow_the_rule_of_the_counts():
         _build.count_launch("topk_project_int8", 5)))
     assert _build.launch_counts == {"beam_core": 1, "topk_project": 1,
                                     "topk_project_int8": 0, "rollout": 0,
-                                    "teacher_forced": 0}
+                                    "teacher_forced": 0, "moe_dispatch": 0,
+                                    "silu_mul": 0, "moe_combine": 0}
     assert _build.launches_by_k == {("topk_project", 6): 1}
     assert delta == {"beam_core": 0, "topk_project": 1,
                      "topk_project_int8": 1, "rollout": 0,
-                     "teacher_forced": 0,
+                     "teacher_forced": 0, "moe_dispatch": 0, "silu_mul": 0,
+                     "moe_combine": 0,
                      ("topk_project", 6): 1, ("topk_project_int8", 5): 1}
     _build.add_counts(delta)
     assert _build.launch_counts["topk_project"] == 2

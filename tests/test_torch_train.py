@@ -381,7 +381,8 @@ def test_cli_train_staged_and_resume(tmp_path, capsys, monkeypatch):
     assert all(np.isfinite(v) for r in rows for v in r.values()
                if isinstance(v, float))
     none = ('{"beam_core": 0, "topk_project": 0, "topk_project_int8": 0, '
-            '"rollout": 0, "teacher_forced": 0}')
+            '"rollout": 0, "teacher_forced": 0, "moe_dispatch": 0, '
+            '"silu_mul": 0, "moe_combine": 0}')
     for stage in ("xe", "scst"):
         assert f"[vidcap] {stage}: 2 steps on cpu; kernel launches {none}" \
             in err

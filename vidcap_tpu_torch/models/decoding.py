@@ -40,8 +40,10 @@ from vidcap_tpu_torch.ops.cell import NEG
 from vidcap_tpu_torch.ops.int8_proj import (Int8Projection,
                                             int8_topk_project_plain,
                                             topk_project_int8)
+from vidcap_tpu_torch.ops import _build
 from vidcap_tpu_torch.ops.limits import (H100_SMEM, H100_SMS,
-                                         beam_core_takes, rollout_takes,
+                                         beam_core_takes, moe_takes,
+                                         rollout_takes, silu_mul_takes,
                                          teacher_forced_takes,
                                          topk_project_int8_takes,
                                          topk_project_takes)
@@ -338,7 +340,9 @@ class Widths:
     attention (``lstm``); its embedding, hidden and attention widths and its
     projection's vocab columns; whether its projection weights are bf16;
     whether it has the int8 projection; whether it holds a rank's share of
-    the vocab (the vocab seam, ``parallel/sharding.py::VocabShard``)."""
+    the vocab (the vocab seam, ``parallel/sharding.py::VocabShard``); and
+    its SiLU MLPs (``mlps``), each as (its activation's width, and for
+    routed experts (experts a token, routed experts), else None)."""
 
     lstm: bool
     embed: int
@@ -348,6 +352,7 @@ class Widths:
     bf16: bool
     int8: bool
     seam: bool
+    mlps: Tuple[Tuple[int, Optional[Tuple[int, int]]], ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,17 +361,40 @@ class Route:
     ("beam_core", "rollout" or "teacher_forced"), or None where the model's
     modules compute the step; the beam's projection kernel ("topk_project"
     or "topk_project_int8"), or None where PyTorch computes it; whether that
-    projection is the int8 one; and K3's W_out mode, True resident in shared
-    memory, False streamed from L2 (None without K3)."""
+    projection is the int8 one; K3's W_out mode, True resident in shared
+    memory, False streamed from L2 (None without K3); and the K5 kernels
+    (``ops/moe.py``) the decoder's MLPs launch (``moe``,
+    :func:`moe_kernels`)."""
 
     recurrent: Optional[str]
     projection: Optional[str]
     int8: bool
     resident: Optional[bool]
+    moe: Tuple[str, ...] = ()
 
     @property
     def kernels(self) -> Tuple[str, ...]:
-        return tuple(k for k in (self.recurrent, self.projection) if k)
+        return tuple(k for k in (self.recurrent, self.projection) if k) \
+            + self.moe
+
+
+def moe_kernels(device, inter: int,
+                routed: Optional[Tuple[int, int, int]] = None
+                ) -> Tuple[str, ...]:
+    """K5's kernels that a SiLU MLP with activations ``inter`` columns wide
+    launches on ``device``: none off the card; on it ``silu_mul`` wherever
+    ``ops/limits.py`` takes the width, and for routed experts (``routed``:
+    experts a token, experts, hidden width) ``moe_dispatch`` and
+    ``moe_combine`` wherever it takes those. The one rule for K5:
+    :func:`route` lists what it gives over a decoder's MLPs, and
+    ``models/lm_decoder.py``'s modules ask it at each call, of their
+    input's device and the configuration then."""
+    if torch.device(device).type != "cuda":
+        return ()
+    act = ("silu_mul",) if silu_mul_takes(inter) else ()
+    if routed is None or not moe_takes(*routed):
+        return act
+    return ("moe_dispatch",) + act + ("moe_combine",)
 
 
 def route(dec, decode, method: str, beam_width: int, frames: int, device,
@@ -389,7 +417,10 @@ def route(dec, decode, method: str, beam_width: int, frames: int, device,
     Pallas). The beam's projection runs on K2-int8 with
     ``decode.int8_vocab_projection`` where the decoder has the int8
     projection, else on K2 for bf16 weights, wherever the kernel takes the
-    candidates and widths."""
+    candidates and widths. A decoder with SiLU MLPs runs their
+    activation, and its routed experts' dispatch and combine, on K5 wherever
+    :func:`moe_kernels` says so, its modules asking the same rule at each
+    call."""
     w = dec.widths
     device = torch.device(device)
     if method == "beam":
@@ -400,7 +431,10 @@ def route(dec, decode, method: str, beam_width: int, frames: int, device,
         proj = kernel if (int8 or w.bf16) and takes(n, w.hidden, w.vocab) \
             else None
         k1 = w.lstm and beam_core_takes(beam_width, w.embed, w.hidden, w.attn)
-        return Route("beam_core" if k1 else None, proj, int8, None)
+        k5 = {n for inter, routed in w.mlps for n in moe_kernels(
+            device, inter, routed and (*routed, w.hidden))}
+        return Route("beam_core" if k1 else None, proj, int8, None,
+                     tuple(n for n in _build.MOE if n in k5))
     if method == "teacher_forced":
         k4 = (w.lstm and device.type == "cuda" and dropout is None
               and not w.seam

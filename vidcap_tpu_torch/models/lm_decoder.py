@@ -15,10 +15,16 @@ mixture of experts:
   (``noaux_tc`` with one group), weights the selected scores normalized
   and scaled by ``routed_scaling_factor``;
 * the routed products are grouped GEMMs over the experts
-  (``torch._grouped_mm``): the tokens are permuted by expert on the device
-  and the group offsets stay there, so no step reads a count on the host;
-  each token's outputs, weighted by its weights rounded to bf16, are summed
-  in f32 (one batched product);
+  (``torch._grouped_mm``) between a dispatch, which sorts the tokens'
+  (token, expert) pairs by expert and counts each expert's tokens and the
+  group ends, and a combine, which sums each token's outputs weighted by
+  its weights rounded to bf16, in f32. On the card these run on K5
+  (``ops/moe.py``: the dispatch, the activation and the combine, which
+  adds the shared experts and the residual too), with the counts and
+  offsets computed there, so no step reads a count on the host; off the
+  card, or at a shape ``ops/limits.py`` refuses, their plain
+  versions (a stable argsort, ``bincount``, which reads the ids' range on
+  the host on a card, ``cumsum``, gathers and a batched product);
 * the shared experts are one SiLU MLP of width ``n_shared_experts`` ×
   ``moe_intermediate_size``, added unweighted.
 
@@ -59,7 +65,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vidcap_tpu_torch.models.decoding import VocabProjection, Widths
+from vidcap_tpu_torch.models.decoding import (VocabProjection, Widths,
+                                              moe_kernels)
+from vidcap_tpu_torch.ops import moe as k5
 from vidcap_tpu_torch.utils import profiling
 
 NEG = -1e30
@@ -157,9 +165,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 def silu_mul(gate_up: torch.Tensor) -> torch.Tensor:
     """bf16(bf16(silu(gate)) · up) of [gate | up] on the last axis (each
-    op computes in f32 and rounds to the inputs' dtype)."""
-    g, u = gate_up.chunk(2, dim=-1)
-    return F.silu(g) * u
+    op computes in f32 and rounds to the inputs' dtype): on K5's kernel
+    where ``moe_kernels`` takes the input's device and width, else its plain
+    version (``ops/moe.py``)."""
+    if "silu_mul" in moe_kernels(gate_up.device, gate_up.shape[-1] // 2):
+        return k5.silu_mul(gate_up)
+    return k5.silu_mul_plain(gate_up)
 
 
 def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
@@ -377,25 +388,29 @@ class MoE(nn.Module):
         self.experts = Experts(cfg.n_routed_experts, H, I, device)
         self.shared_experts = DenseMLP(H, cfg.n_shared_experts * I, device)
 
-    def forward(self, x: torch.Tensor, layer: int = 0) -> torch.Tensor:
-        """x bf16[N, H] (normed) → bf16[N, H]: the routed experts' weighted
-        sum, rounded, plus the shared experts'."""
-        N, H = x.shape
-        k, E = self.cfg.num_experts_per_tok, self.cfg.n_routed_experts
+    def forward(self, x: torch.Tensor, layer: int,
+                h: torch.Tensor) -> torch.Tensor:
+        """x bf16[N, H] (normed), the residual h bf16[N, H] → h plus the
+        routed experts' weighted sum, rounded, plus the shared experts'.
+        Where ``moe_kernels`` takes the call (the card, the shape), the
+        dispatch and the combine run on K5 and nothing is read on the host;
+        else their plain versions. The experts a token are the
+        configuration's at the call."""
+        H = x.shape[1]
+        c = self.cfg
+        k, E = c.num_experts_per_tok, c.n_routed_experts
         sel, w = self.gate(x)
-        flat = sel.reshape(-1)
-        order = torch.argsort(flat, stable=True)      # slots by expert
-        counts = torch.bincount(flat, minlength=E)
-        profiling.count("lm.expert_tokens", layer, counts)
-        offs = torch.cumsum(counts, 0, dtype=torch.int32)
+        on_k5 = "moe_dispatch" in moe_kernels(
+            x.device, c.moe_intermediate_size, (k, E, H))
+        dispatch, combine = ((k5.moe_dispatch, k5.moe_combine) if on_k5
+                             else (k5.moe_dispatch_plain,
+                                   k5.moe_combine_plain))
+        d = dispatch(sel, x, E)
+        profiling.count("lm.expert_tokens", layer, d.counts)
         ex = self.experts
-        y = grouped_mm(silu_mul(grouped_mm(x[order // k], ex.gate_up_proj,
-                                           offs)), ex.down_proj, offs)
-        # each token's k outputs back in its slots' order, then their sum
-        # weighted by the bf16 weights, accumulated in f32
-        y = y[torch.argsort(order)].view(N, k, H)
-        routed = torch.bmm(w.to(x.dtype)[:, None, :], y)[:, 0]
-        return routed + self.shared_experts(x)
+        y = grouped_mm(silu_mul(grouped_mm(d.x, ex.gate_up_proj, d.offs)),
+                       ex.down_proj, d.offs)
+        return combine(y, d, w, self.shared_experts(x), h)
 
 
 class LMLayer(nn.Module):
@@ -416,8 +431,9 @@ class LMLayer(nn.Module):
         x = self.post_attention_layernorm(h)
         shape = x.shape
         x = x.reshape(-1, shape[-1])
-        y = self.mlp(x) if self.dense else self.mlp(x, self.index)
-        return h + y.view(shape)
+        if self.dense:
+            return h + self.mlp(x).view(shape)
+        return self.mlp(x, self.index, h.reshape(x.shape)).view(shape)
 
 
 def _mark(name: str, like: torch.Tensor) -> None:
@@ -521,11 +537,19 @@ class LMCaptionModel(nn.Module):
     @property
     def widths(self) -> Widths:
         """No recurrent kernel; K2 where it takes the head's hidden width
-        and vocab (the int8 projection is the LSTM decoder's alone)."""
+        and vocab (the int8 projection is the LSTM decoder's alone); K5
+        for the MLPs its layers have: the dense layers', the shared
+        experts' and the routed experts'."""
         c = self.cfg
+        I = c.moe_intermediate_size
+        mlps = ((c.intermediate_size, None),) \
+            if min(c.first_k_dense_replace, c.num_hidden_layers) > 0 else ()
+        if c.num_hidden_layers > c.first_k_dense_replace:
+            mlps += ((c.n_shared_experts * I, None),
+                     (I, (c.num_experts_per_tok, c.n_routed_experts)))
         return Widths(lstm=False, embed=c.hidden_size, hidden=c.hidden_size,
                       attn=0, vocab=c.vocab_size, bf16=True, int8=False,
-                      seam=False)
+                      seam=False, mlps=mlps)
 
     @property
     def out_proj(self):

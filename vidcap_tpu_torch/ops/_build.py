@@ -12,7 +12,8 @@ Nothing here runs at import: the CPU-only test environment has no ``nvcc``.
 :func:`build_all` starts one ``nvcc`` per source, all at once. A kernel's
 source is ``csrc/<name>.cu`` unless :data:`SOURCES` names another: K2's int8
 variant ``topk_project_int8`` lives in ``topk_project.cu`` beside K2 and has
-its own entry point and launch count. :data:`MARKS`, the training step's
+its own entry point and launch count, and K5's three (:data:`MOE`) live in
+``moe.cu``, each with its own. :data:`MARKS`, the training step's
 phase marks (``utils/profiling.py::phase``), is built and loaded the same
 way and counts no launches.
 
@@ -41,9 +42,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vidcap_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+MOE = ("moe_dispatch", "silu_mul", "moe_combine")   # K5, csrc/moe.cu
 KERNELS = ("beam_core", "topk_project", "topk_project_int8", "rollout",
-           "teacher_forced")
-SOURCES = {"topk_project_int8": "topk_project"}   # kernel → its csrc/*.cu
+           "teacher_forced") + MOE
+SOURCES = {"topk_project_int8": "topk_project",   # kernel → its csrc/*.cu
+           **{name: "moe" for name in MOE}}
 MARKS = "phase_marks"    # csrc/phase_marks.cu: empty kernels, not counted
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}

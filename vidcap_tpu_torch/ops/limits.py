@@ -2,7 +2,8 @@
 the constants its wrapper raises on.
 
 The wrappers (``beam_core``, ``topk_project``, ``topk_project_int8``,
-``rollout``, ``teacher_forced``) raise ``ValueError`` for a shape their
+``rollout``, ``teacher_forced``, and K5's ``moe_dispatch``, ``silu_mul``
+and ``moe_combine``) raise ``ValueError`` for a shape their
 kernel cannot compute; the route (``models/decoding.py::route``) asks these
 predicates first, so a shape no kernel takes decodes through the model's
 modules instead (K4's: the teacher-forced pass through the module loop),
@@ -26,6 +27,9 @@ H100_SMS, H100_SMEM = 132, 232_448   # SMs; shared memory a block may opt into
 # rows and 4,096 partial sums in the 48 KB of shared memory a block takes
 # without opting in
 TF_MAX_WIDTH, TF_MAX_FRAMES = 2048, 512
+# K5: experts a token (the combine's loop) and experts (the sort's per-warp
+# histograms, 32 KB of shared memory)
+MOE_MAX_K, MOE_MAX_EXPERTS = 8, 256
 
 
 def beam_core_takes(beam: int, embed: int, hidden: int, attn: int) -> bool:
@@ -83,3 +87,16 @@ def teacher_forced_takes(hidden: int, attn: int, frames: int,
     return (hidden % 8 == 0 and attn % 8 == 0
             and max(hidden, attn) <= TF_MAX_WIDTH
             and 1 <= frames <= TF_MAX_FRAMES and vocab % 4 == 0)
+
+
+def silu_mul_takes(width: int) -> bool:
+    """K5's activation: each half of a row (``width`` columns) a multiple
+    of 8, in 16-byte vectors."""
+    return width > 0 and width % 8 == 0
+
+
+def moe_takes(k: int, experts: int, hidden: int) -> bool:
+    """K5's dispatch and combine: 1..MOE_MAX_K of 1..MOE_MAX_EXPERTS
+    experts a token, the hidden width a multiple of 8 (16-byte rows)."""
+    return (1 <= k <= MOE_MAX_K and 1 <= experts <= MOE_MAX_EXPERTS
+            and hidden > 0 and hidden % 8 == 0)
